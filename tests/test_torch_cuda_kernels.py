@@ -1,0 +1,83 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
+skip without one. The card's machine has no JAX, so run them there
+without the suite's conftest (which configures JAX):
+`python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q`.
+For the same reason this file imports nothing from the other tests."""
+
+import numpy as np
+import pytest
+import torch
+
+from calipso_tpu_torch.ops import cuda_riccati
+
+pytestmark = pytest.mark.cuda
+
+# relative to the largest entry of the plain result: float32 keeps about
+# 7 digits, and the two versions sum the pivot updates in another order
+RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+
+
+def spd_batch(rng, B, n, non_pd=()):
+    """(B, n, n) SPD matrices D D' + n I; the lanes in non_pd negated."""
+    D = rng.normal(size=(B, n, n))
+    S = D @ np.swapaxes(D, 1, 2) + n * np.eye(n)
+    S[list(non_pd)] *= -1.0
+    return S
+
+
+def nan_lanes(L):
+    return np.isnan(L).any(axis=(-2, -1))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _rel_err(got, want, ok):
+    got, want = got[ok].double(), want[ok].double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 5, 32, 33, 64, 128])
+def test_kernels_match_plain(cuda, n, dtype):
+    """B=37 is not a multiple of any warps-per-block count (ragged batch
+    edge); n=33 and above give lanes several rows; n=128 f64 needs the
+    raised shared-memory limit. Lanes 3 and 20 are not positive definite."""
+    rng = np.random.default_rng(n)
+    B = 37
+    S = torch.tensor(spd_batch(rng, B, n, non_pd=(3, 20)), dtype=dtype, device=cuda)
+    b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=cuda)
+    before = dict(cuda_riccati.LAUNCHES)
+    L = cuda_riccati.factor_t1(S)
+    x = cuda_riccati.solve_t1(L, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["factor_t1"] == before["factor_t1"] + 1
+    assert cuda_riccati.LAUNCHES["solve_t1"] == before["solve_t1"] + 1
+
+    Lp = cuda_riccati.factor_t1_plain(S)
+    bad = nan_lanes(L.cpu().numpy())
+    assert bad.tolist() == nan_lanes(Lp.cpu().numpy()).tolist() == [i in (3, 20) for i in range(B)]
+    ok = torch.tensor(~bad, device=cuda)
+    assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    S = torch.eye(4, device=cuda).expand(3, 4, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_riccati.factor_t1(S)
+    with pytest.raises(ValueError, match="n <= 128"):
+        cuda_riccati.factor_t1(torch.eye(129, device=cuda)[None].contiguous())
+    with pytest.raises(TypeError):
+        cuda_riccati.factor_t1(torch.eye(4, device=cuda, dtype=torch.float16)[None].contiguous())
+    L = torch.eye(4, device=cuda)[None].repeat(3, 1, 1)
+    with pytest.raises(TypeError):
+        cuda_riccati.solve_t1(L, torch.ones(3, 4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        cuda_riccati.solve_t1(L, torch.ones(3, 4))
