@@ -14,9 +14,11 @@ tested against; this package imports torch and never jax.
 Batch-first: the solver state carries a leading lane axis, every loop is a
 Python loop over "any lane still active", and finished lanes are frozen
 by masks. User callables are torch functions of one unbatched lane; the
-derivatives come from `torch.func`. The linear algebra of the schur KKT
-backend runs in hand-written CUDA kernels (`ops/cuda_riccati.py`) for
-CUDA tensors and in plain PyTorch for CPU tensors.
+derivatives come from `torch.func`. The linear algebra of the schur and
+riccati KKT backends runs in hand-written CUDA kernels
+(`ops/cuda_riccati.py`) for CUDA tensors and in plain PyTorch for CPU
+tensors. Every entry point solves on the card unless given
+`device="cpu"`.
 """
 
 from calipso_tpu_torch.options import Options

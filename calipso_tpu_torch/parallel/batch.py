@@ -2,9 +2,10 @@
 
 The counterpart of `calipso_tpu/parallel/batch.py`. The solver is
 batch-first (see `solver/solve.py`), so a batch needs no transform: the
-lane axis is the leading axis of every tensor, and the batch runs on the
-device of its inputs. Sharding a batch over devices (`mesh=`) is ROADMAP
-Queue 1 item 19.
+lane axis is the leading axis of every tensor. A batch runs on the
+solver's device (the card unless asked otherwise), where every input is
+moved. Sharding a batch over devices (`mesh=`) is ROADMAP Queue 1 item
+19.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from calipso_tpu_torch.ops.cones import ConeLayout
 from calipso_tpu_torch.options import Options
-from calipso_tpu_torch.solver.api import SolveResult, solve_fn
+from calipso_tpu_torch.solver.api import SolveResult, resolve_device, solve_fn
 from calipso_tpu_torch.solver.kkt import Blocks
 from calipso_tpu_torch.solver.problem import ProblemFunctions
 
@@ -51,8 +52,8 @@ class BatchedSolver(_Batched):
         results = bs.solve(x0_batch, theta_batch)
 
     The callables are torch functions of one lane (see
-    `solver/problem.py`). The batch runs on the device and in the dtype of
-    `x0_batch`."""
+    `solver/problem.py`). The batch runs on `device` (the card unless
+    asked otherwise) in the dtype of `x0_batch`."""
 
     def __init__(
         self,
@@ -65,7 +66,9 @@ class BatchedSolver(_Batched):
         nonnegative_indices=None,
         second_order_indices=None,
         options: Options = Options(),
+        device="cuda",
     ):
+        self.device = resolve_device(device)
         self.fns = ProblemFunctions(objective, equality, cone, num_variables, num_parameters)
         self.layout = ConeLayout(self.fns.dims.cone, nonnegative_indices, second_order_indices)
         self.options = options
@@ -73,9 +76,9 @@ class BatchedSolver(_Batched):
 
     def solve(self, x0_batch, theta_batch=None, mesh=None, axis="batch") -> SolveResult:
         _refuse_mesh(mesh)
-        x0_batch = torch.as_tensor(x0_batch)
+        x0_batch = torch.as_tensor(x0_batch).to(self.device)
         if theta_batch is not None:
-            theta_batch = torch.as_tensor(theta_batch).to(device=x0_batch.device, dtype=x0_batch.dtype)
+            theta_batch = torch.as_tensor(theta_batch).to(device=self.device, dtype=x0_batch.dtype)
         return self._run(x0_batch, theta_batch)
 
 
@@ -88,13 +91,14 @@ class BatchedTrajOptSolver(_Batched):
         res = bts.solve(parameters=theta_batch, warm=res.state.p)
 
     Scenario variation enters through per-stage `parameters` and/or
-    per-lane initial guesses. The solve runs on the device of
-    `parameters` (or of `guess` when there are no parameters), in its
-    dtype."""
+    per-lane initial guesses. The solve runs on the TrajOptSolver's
+    device, in the dtype of `parameters` (or of `guess` when there are no
+    parameters)."""
 
     def __init__(self, ts):
         solver = ts.solver
         self._ts = ts
+        self.device = solver.device
         self.fns, self.layout = solver.fns, solver.layout
         self.options = solver.options
         self._run = solve_fn(self.fns, self.layout, self.options)
@@ -127,11 +131,12 @@ class BatchedTrajOptSolver(_Batched):
                 "cannot infer batch size: pass a batched `parameters` (B, p) "
                 "or a batched `guess` (B, n)"
             )
+        device = self.device
         if parameters is None:
-            device, dtype = guess.device, guess.dtype
+            dtype = guess.dtype
             parameters = torch.zeros((B, self.fns.dims.parameters), dtype=dtype, device=device)
         else:
-            device, dtype = parameters.device, torch.result_type(parameters, guess)
+            dtype = torch.result_type(parameters, guess)
         guess = guess.to(device=device, dtype=dtype)
         if guess.dim() == 1:
             guess = guess.expand(B, -1)

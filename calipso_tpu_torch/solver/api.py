@@ -56,6 +56,19 @@ def solve_fn(fns, layout: ConeLayout, opts: Options, callbacks=None):
     return run
 
 
+def resolve_device(device="cuda") -> torch.device:
+    """The device a solver runs on: the card unless the caller names
+    another. Without a CUDA device, asking for the card raises: a solve
+    never falls back to the CPU on its own."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the solver runs on the GPU unless asked otherwise; "
+            "pass device='cpu' to solve on the CPU"
+        )
+    return device
+
+
 def _print_banner(dims, opts):
     print("-" * 72)
     print("CALIPSO-TPU (torch)  conic augmented-Lagrangian interior-point solver")
@@ -110,8 +123,9 @@ class Solver:
         solver.initialize(torch.tensor([-2.0, 3.0, 1.0], dtype=torch.float64))
         result = solver.solve()
 
-    The solve runs on the device and in the dtype of x0 (or of
-    `parameters`, when x0 is the stored initial guess)."""
+    The solve runs on `device` (the card unless asked otherwise; every
+    input is moved there) in the dtype of x0 (or of `parameters`, when x0
+    is the stored initial guess)."""
 
     def __init__(
         self,
@@ -125,8 +139,10 @@ class Solver:
         nonnegative_indices=None,
         second_order_indices=None,
         options: Options = Options(),
+        device="cuda",
         _fns=None,  # pre-built (structured) problem functions
     ):
+        self.device = resolve_device(device)
         if parameters is not None:
             parameters = torch.as_tensor(parameters).reshape(-1)
             num_parameters = parameters.shape[0]
@@ -163,13 +179,13 @@ class Solver:
                 raise ValueError("no initial guess: call initialize(x0) or pass x0")
             if isinstance(parameters, torch.Tensor):
                 x0 = x0.to(device=parameters.device, dtype=parameters.dtype)
-        x0 = torch.as_tensor(x0)
+        x0 = torch.as_tensor(x0).to(self.device)
         if theta is not None:
-            theta = torch.as_tensor(theta).to(device=x0.device, dtype=x0.dtype)[None]
+            theta = torch.as_tensor(theta).to(device=self.device, dtype=x0.dtype)[None]
         if warm is None and self.options.warmstart:
             warm = self._warm
         if warm is not None:
-            warm = Blocks(*(torch.as_tensor(a)[None] for a in warm))
+            warm = Blocks(*(torch.as_tensor(a).to(self.device)[None] for a in warm))
         if self.options.verbose:
             _print_banner(self.dims, self.options)
         result = _lane(self._run(x0[None], theta, warm), 0)

@@ -55,25 +55,20 @@ def _refuse_unported(opts):
 
 
 def resolve_options(opts, fns, device=None):
-    """Resolve linear_solver='auto' and, given the device the solve runs
-    on, line_search_mode='auto' ("parallel" on CUDA, "serial" on the CPU).
-    'auto' picks schur unless the problem is a trajopt problem with more
-    than 96 variables, where the reference picks riccati, which the port
-    does not have yet."""
+    """Resolve linear_solver='auto' as the reference does (riccati for a
+    trajopt problem with more than 96 variables, else schur) and, given
+    the device the solve runs on, line_search_mode='auto' ("parallel" on
+    CUDA, "serial" on the CPU). The 96 crossover was measured on a TPU
+    and is kept for parity (ROADMAP keeps its re-measurement open)."""
     _refuse_unported(opts)
     if opts.line_search_mode == "auto" and device is not None:
         mode = "parallel" if torch.device(device).type == "cuda" else "serial"
         opts = opts.replace(line_search_mode=mode)
+    structure = getattr(fns, "stage_structure", None)
     if opts.linear_solver == "auto":
-        structure = getattr(fns, "stage_structure", None)
-        if structure is not None and fns.dims.variables > 96:
-            raise NotImplementedError(
-                f"linear_solver='auto' resolves to 'riccati' for this trajopt "
-                f"problem (n={fns.dims.variables} > 96): the riccati backend is "
-                "ROADMAP Queue 1 items 9-10; pin linear_solver='schur' meanwhile"
-            )
-        opts = opts.replace(linear_solver="schur")
-    kkt.check_method(opts.linear_solver)
+        big = structure is not None and fns.dims.variables > 96
+        opts = opts.replace(linear_solver="riccati" if big else "schur")
+    kkt.check_method(opts.linear_solver, structure)
     return opts
 
 
@@ -196,6 +191,11 @@ def make_solve(fns, layout, opts, callbacks=None):
     ntot = dims.total
     opts = resolve_options(opts, fns)
     method = opts.linear_solver
+    structure = getattr(fns, "stage_structure", None)
+    # the riccati backend reads the Hessian as stage blocks straight from
+    # the structured oracles, never as a dense (n, n) matrix
+    block_maps = getattr(fns, "_block_maps", None)
+    use_band_hessian = method == "riccati" and block_maps is not None and block_maps() is not None
     stats = {"host_syncs": 0}
 
     def any_lane(mask):
@@ -246,15 +246,15 @@ def make_solve(fns, layout, opts, callbacks=None):
         return res, fx, g, h, sot
 
     def factorize(Hxx, gx, hx, s, t, rho, e_p, e_d):
-        return kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, e_d, method)
+        return kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, e_d, method, structure)
 
     def solve_with(fact, res):
-        return kkt.solve_with(layout, fact, res, n, me, mc)
+        return kkt.solve_with(layout, fact, res, n, me, mc, method, structure)
 
     # ---- inertia correction ---------------------------------------------
 
     def inertia_correction(lanes, Hxx, gx, hx, s, t, rho, kappa, eps_p_last):
-        dtype = Hxx.dtype
+        dtype = kappa.dtype
         # cap the ladder limit to the dtype range (1e40 overflows f32)
         max_reg = min(opts.max_regularization, float(torch.finfo(dtype).max) / 1e3)
         e_p0 = torch.full_like(kappa, opts.primal_regularization_initial)
@@ -263,7 +263,7 @@ def make_solve(fns, layout, opts, callbacks=None):
         ok0 = kkt.inertia_ok(fact0)
 
         # rank deficiency -> dual regularization scaled by kappa
-        zero0 = kkt.num_zero_eigs(fact0)
+        zero0 = kkt.num_zero_eigs(fact0, method, structure)
         e_d1 = torch.where(
             zero0 != 0,
             opts.dual_regularization * kappa**opts.dual_regularization_exponent,
@@ -281,7 +281,7 @@ def make_solve(fns, layout, opts, callbacks=None):
             torch.full_like(kappa, opts.scaling_regularization),
         )
 
-        L, e_p_fact, e_d_fact = fact0.L, e_p0, e_d0
+        L, M, e_p_fact, e_d_fact = fact0.L, fact0.M, e_p0, e_d0
         e_p, done = e_p1, ok0
         failed = torch.zeros_like(ok0)
         trips = torch.zeros_like(zero0)
@@ -294,13 +294,15 @@ def make_solve(fns, layout, opts, callbacks=None):
             e_p_next = torch.where(ok, e_p, e_p * scale)
             fail_now = ~ok & (e_p_next > max_reg)
             L = _where(act, fact.L, L)
+            if M is not None:
+                M = _where(act, fact.M, M)
             e_p_fact = torch.where(act, e_p, e_p_fact)
             e_d_fact = torch.where(act, e_d1, e_d_fact)
             e_p = torch.where(act, e_p_next, e_p)
             done = torch.where(act, ok, done)
             failed = torch.where(act, fail_now, failed)
             trips = trips + act.to(trips.dtype)
-        fact = kkt.Factorization(L, gx, hx, s, t, rho, e_p_fact, e_d_fact)
+        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact)
         # the warm start moves only when the ladder ran
         eps_p_last_new = torch.where(ok0, eps_p_last, e_p_fact)
         return fact, failed, eps_p_last_new, trips
@@ -388,7 +390,11 @@ def make_solve(fns, layout, opts, callbacks=None):
 
         cv = constraint_violation(g, r, h, s, opts.constraint_norm)
 
-        Hxx = fns.lagrangian_hessian_xx(x, theta, y, z, opts.constraint_tensor)
+        if use_band_hessian:
+            D, O, Hgen = fns.lagrangian_hessian_blocks(x, theta, y, z, opts.constraint_tensor)
+            Hxx = kkt.BandHessian(D, O, Hgen, structure)
+        else:
+            Hxx = fns.lagrangian_hessian_xx(x, theta, y, z, opts.constraint_tensor)
         gx = fns.gx(x, theta)
         hx = fns.hx(x, theta)
 

@@ -63,16 +63,31 @@ class StageStructure:
         self.blk_idx = blk_idx
         self.inv_t = inv_t
         self.inv_o = inv_o
+        self._on_device = {}
+
+    def tensor(self, key, value, device):
+        """`value` (a static numpy array or list) as a tensor on `device`,
+        made once per (key, device): a copy from host memory to the card
+        waits for the card's queue, so the solve loop must not make one
+        per call."""
+        k = (key, str(device))
+        if k not in self._on_device:
+            self._on_device[k] = torch.as_tensor(value, device=device)
+        return self._on_device[k]
+
+    def pad_mask(self, device):
+        """(T, dmax) bool: the padded slots of ragged stages."""
+        return self.tensor("pad_mask", self.blk_idx == self.num_variables, device)
 
     def to_blocks(self, v):
         """(..., n) flat -> (..., T, dmax) padded with zeros."""
         vpad = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
-        return vpad[..., torch.as_tensor(self.blk_idx, device=v.device)]
+        return vpad[..., self.tensor("blk_idx", self.blk_idx, v.device)]
 
     def from_blocks(self, V):
         """(..., T, dmax) -> (..., n) flat."""
-        it = torch.as_tensor(self.inv_t, device=V.device)
-        io = torch.as_tensor(self.inv_o, device=V.device)
+        it = self.tensor("inv_t", self.inv_t, V.device)
+        io = self.tensor("inv_o", self.inv_o, V.device)
         return V[..., it, io]
 
     def densify(self, D, O):

@@ -19,10 +19,12 @@ Derivatives are reverse mode only, as in `solver/problem.py` (forward
 mode under vmap is wrong through `torch.linalg.solve`).
 
 Same call surface as `solver/problem.ProblemFunctions`: every oracle takes
-z (B, n) and theta (B, p) with the lane axis first. The stage-block
-Hessian (`lagrangian_hessian_blocks`) and the theta-derivatives belong to
-the riccati backend and to differentiation (ROADMAP Queue 1 items 9 and
-18).
+z (B, n) and theta (B, p) with the lane axis first. The riccati backend
+also reads the Lagrangian Hessian in stage-block tridiagonal form
+(`lagrangian_hessian_blocks`), placed from the same grouped Hessians with
+0/1 stage and offset maps, so no dense (n, n) Hessian is built on its
+path. The theta-derivatives belong to differentiation (ROADMAP Queue 1
+item 18).
 """
 
 from __future__ import annotations
@@ -293,3 +295,122 @@ class StructuredProblemFunctions:
             yg = y[:, tabs["general_rows"]]
             H = H + vmap(jacrev(grad(_scal(self.general))))(x, theta, yg)
         return H
+
+    # ---- stage-block tridiagonal Hessian (riccati backend) ------------------
+
+    def _block_maps(self):
+        """Per-group static placement maps (t_idx, Q0, Q1), computed once.
+        None when a group's members disagree on their (stage offset,
+        segment) pattern or there is no stage structure; the riccati
+        backend then gathers its blocks from the dense Hessian."""
+        st = getattr(self, "stage_structure", None)
+        if st is None:
+            return None  # not cached: the structure may be attached later
+        if not hasattr(self, "_block_maps_cache"):
+            try:
+                maps = {
+                    kind: [self._group_map(g, st) for g in groups]
+                    for kind, groups in (
+                        ("cost", self.cost_groups), ("eq", self.eq_groups), ("cone", self.cone_groups)
+                    )
+                }
+            except ValueError:
+                maps = None
+            self._block_maps_cache = maps
+        return self._block_maps_cache
+
+    @staticmethod
+    def _group_map(g: _Group, st):
+        """Static placement of one group's stage-local variable columns:
+        member i's columns land in stage t_i (segment 0) and optionally
+        stage t_i + 1 (segment 1, the dynamics' next state). Q0/Q1 are
+        0/1 (width, dmax) maps from width index to block offset, shared by
+        every member (ValueError if they are not)."""
+        n = st.num_variables
+        zc = np.asarray(g.zcols)
+        if np.any(zc >= n):
+            raise ValueError("sentinel-padded columns")  # not stage-local
+        zt = st.inv_t[zc]  # (G, w) stage of each column
+        zo = st.inv_o[zc]  # (G, w) offset within the stage block
+        t_idx = zt.min(axis=1)  # (G,)
+        seg = zt - t_idx[:, None]
+        if seg.max(initial=0) > 1:
+            raise ValueError("columns span more than two stages")
+        if not (np.all(seg == seg[0]) and np.all(zo == zo[0])):
+            raise ValueError("members disagree on the placement pattern")
+        seg0, off0 = seg[0], zo[0]
+        w, dmax = zc.shape[1], st.dmax
+        Q0 = np.zeros((w, dmax))
+        Q1 = np.zeros((w, dmax))
+        Q0[seg0 == 0, off0[seg0 == 0]] = 1.0
+        Q1[seg0 == 1, off0[seg0 == 1]] = 1.0
+        return t_idx, Q0, (Q1 if np.any(seg0 == 1) else None)
+
+    def _map_tensors(self, ref):
+        """The block maps as tensors on ref's device and dtype: per group
+        (Q0, S0, Q1, S1, So), S* the 0/1 (G, T) or (G, T-1) one-hot stage
+        maps of t_idx, t_idx + 1 and the coupling block t_idx."""
+        key = ("maps", str(ref.device), ref.dtype)
+        if key not in self._cache:
+            T = self.stage_structure.horizon
+            as_t = lambda a: torch.as_tensor(a, dtype=ref.dtype, device=ref.device)
+
+            def onehot(idx, size):
+                out = np.zeros((len(idx), size))
+                out[np.arange(len(idx)), idx] = 1.0
+                return as_t(out)
+
+            def tensors(m):
+                t_idx, Q0, Q1 = m
+                if Q1 is None:
+                    return as_t(Q0), onehot(t_idx, T), None, None, None
+                return (
+                    as_t(Q0), onehot(t_idx, T), as_t(Q1),
+                    onehot(t_idx + 1, T), onehot(t_idx, T - 1),
+                )
+
+            self._cache[key] = {
+                kind: [tensors(m) for m in maps] for kind, maps in self._block_maps().items()
+            }
+        return self._cache[key]
+
+    def lagrangian_hessian_blocks(self, x, theta, y, z, constraint_tensor=True):
+        """Stage-block tridiagonal Lagrangian Hessian: D (B, T, dmax, dmax)
+        diagonal and O (B, T-1, dmax, dmax) sub-diagonal blocks (O_t =
+        H[stage t+1 rows, stage t columns]) carrying every stage-local
+        term, and Hgen, the dense (B, n, n) Hessian of the
+        equality_general dual term, or None without one."""
+        st = self.stage_structure
+        tabs, maps = self._tables(x), self._map_tensors(x)
+        B, T, dmax = x.shape[0], st.horizon, st.dmax
+        D = x.new_zeros((B, T, dmax, dmax))
+        O = x.new_zeros((B, max(T - 1, 0), dmax, dmax))
+
+        def add_group(D, O, H, m):
+            """H (B, G, w, w) member Hessians -> block contributions."""
+            q0, S0, q1, S1, So = m
+            place = lambda qa, qb: torch.einsum("ja,lgjk,kc->lgac", qa, H, qb)
+            D = D + torch.einsum("gt,lgac->ltac", S0, place(q0, q0))
+            if q1 is not None:
+                D = D + torch.einsum("gt,lgac->ltac", S1, place(q1, q1))
+                O = O + torch.einsum("gt,lgac->ltac", So, place(q1, q0))
+            return D, O
+
+        for g, tab, m in zip(self.cost_groups, tabs["cost"], maps["cost"]):
+            Zf, Wf = self._stage_args(g, tab, x, theta)
+            H = vmap(jacrev(grad(g.fn)))(Zf, Wf).reshape(B, -1, g.width, g.width)
+            D, O = add_group(D, O, H, m)
+        if constraint_tensor:
+            for kind, groups, dual in (("eq", self.eq_groups, y), ("cone", self.cone_groups, z)):
+                if dual.shape[-1] == 0:
+                    continue
+                for g, tab, m in zip(groups, tabs[kind], maps[kind]):
+                    Zf, Wf = self._stage_args(g, tab, x, theta)
+                    Yf = dual[:, tab["rows"]].reshape(-1, g.rdim)
+                    H = vmap(jacrev(grad(_scal(g.fn))))(Zf, Wf, Yf)
+                    D, O = add_group(D, O, H.reshape(B, -1, g.width, g.width), m)
+        Hgen = None
+        if constraint_tensor and self.general is not None:
+            yg = y[:, tabs["general_rows"]]
+            Hgen = vmap(jacrev(grad(_scal(self.general))))(x, theta, yg)
+        return D, O, Hgen

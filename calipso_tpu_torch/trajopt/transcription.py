@@ -89,7 +89,8 @@ class TrajOptSolver:
     """Stagewise trajopt solver: per-stage objective (length T), dynamics
     (length T-1), optional per-stage equality / nonnegative /
     second-order constraint lists, optional whole-trajectory
-    `equality_general`, per-stage parameter vectors."""
+    `equality_general`, per-stage parameter vectors. It solves on
+    `device`, the card unless asked otherwise (`device="cpu"`)."""
 
     def __init__(
         self,
@@ -105,6 +106,7 @@ class TrajOptSolver:
         parameters: Optional[Sequence] = None,
         options: Options = Options(),
         structured: bool = True,
+        device="cuda",
     ):
         T = len(num_states)
         if len(num_actions) != T - 1:
@@ -221,6 +223,7 @@ class TrajOptSolver:
             nonnegative_indices=nn_idx,
             second_order_indices=soc_idx,
             options=options,
+            device=device,
             _fns=fns,
         )
         self.options = options

@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one card
 
 Phases (each fails loudly; none catches its own failure):
-  1. build the CUDA kernels from calipso_tpu_torch/csrc with nvcc (sm_90a);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     flagship shape B=8192, n=32, in float32 and float64, with 8 lanes that
-     are not positive definite (NaN over their lower triangle on both);
+  1. build the CUDA kernels from calipso_tpu_torch/csrc with nvcc (sm_90a),
+     one nvcc per source, all started together;
+  2. hold the T=1 kernels (factor_t1, solve_t1) against their plain PyTorch
+     versions on the card at the flagship shape B=8192, n=32, and the
+     block-tridiagonal kernels (factor_lanes, solve_lanes) at the batched
+     rocket's shape (B=1024, T=31, d=9) and the contact class's (B=256,
+     T=8, d=54), in float32 and float64, with 8 lanes that are not
+     positive definite (NaN on both paths, from the same stage on);
   3. solve the benchmark flagship -- 8192 pendulum swing-up trajopt
      problems, T=11, n=32, 24 equality rows, initial state as the stage-0
      parameter, every tolerance 1e-4 -- through
      TrajOptSolver(...).batched().solve(parameters=x0s) on the card in
-     float32, with the kernel launch counters set to 0 just before;
-  4. require both kernels to have launched in that run;
-  5. re-solve the first 64 lanes on the CPU in float64 (plain path) and
-     compare solved flags and solutions;
-  6. time three warm batches, and each kernel against its plain version.
+     float32 (the schur backend), with the kernel launch counters set to 0
+     just before; require both T=1 kernels to have launched; re-solve the
+     first 64 lanes on the CPU in float64; time three warm batches;
+  4. solve the bench's batched rocket landing -- 1024 soft landings, T=31,
+     n=276, 192 equality rows, 30 three-dimensional second-order cones,
+     every tolerance 1e-4, max_iterative_refinement=2, scenarios given as
+     guesses perturbed by 0.01 N(0, 1) -- through
+     TrajOptSolver(...).batched().solve(guess=...) on the card in float32,
+     with linear_solver="auto" resolving to riccati; require factor_lanes
+     and solve_lanes to have launched and the T=1 kernels not; re-solve
+     the first 16 lanes on the CPU in float64; time three warm batches and
+     profile one;
+  5. time each kernel at its main-path shape against its plain version
+     and, where one PyTorch call computes the same function, that call.
 
 Prints each number with the card's name and power limit, then a JSON line
 of the kernels, the `nvidia-smi` name/power line, and last
@@ -32,12 +45,31 @@ import time
 
 import numpy as np
 
-B, HORIZON, TOL = 8192, 11, 1e-4
-NON_PD = (5, 77, 1000, 2047, 4096, 5555, 8000, 8191)
+TOL = 1e-4
 RTOL = {"float32": 1e-4, "float64": 1e-12}  # kernel vs plain, relative
-CPU_LANES, CPU_ATOL = 64, 1e-3
-MIN_SOLVED = 8184
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+# flagship: bench.py:88-128
+B_FLAG, HORIZON_FLAG = 8192, 11
+NON_PD = (5, 77, 1000, 2047, 4096, 5555, 8000, 8191)
+CPU_LANES_FLAG, CPU_ATOL_FLAG = 64, 1e-3
+MIN_SOLVED_FLAG = B_FLAG - 8
+
+# batched rocket: bench.py:530-596, at B=1024 (one warp per lane: 128
+# lanes would leave most of the card's 132 SMs idle)
+B_ROCKET, HORIZON_ROCKET = 1024, 31
+MIN_SOLVED_ROCKET = B_ROCKET - 8
+CPU_LANES_ROCKET = 16
+# float32 on the card and float64 on the CPU each stop at the first
+# iterate inside the 1e-4 contract, so the two solutions differ by the
+# distance between two such iterates, not by rounding: the golden tests
+# hold rocket states to 1e-3, and the thrust, which rides the cone
+# boundary, is less determined than the states, hence 1e-2 over all
+CPU_ATOL_ROCKET = 1e-2
+LANES_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (256, 8, 54))
 WARM_REPS = 3
+TOP_KERNELS = 12
 
 
 def check(cond, msg):
@@ -68,17 +100,187 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def flagship(options):
+def bound(nbytes, flops):
+    """(least milliseconds, what sets it): bytes over the memory rate or
+    float32 operations over the peak rate, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+
+
+def tol_options(Options, **kw):
+    return Options(
+        residual_tolerance=TOL, optimality_tolerance=TOL, slack_tolerance=TOL,
+        equality_tolerance=TOL, complementarity_tolerance=TOL,
+        iterative_refinement_tolerance=1e-6, **kw,
+    )
+
+
+def flagship(options, device):
     from calipso_tpu_torch import TrajOptSolver
     from calipso_tpu_torch.models import pendulum
 
-    prob = pendulum.swingup_problem(HORIZON, parametric_initial_state=True)
+    prob = pendulum.swingup_problem(HORIZON_FLAG, parametric_initial_state=True)
     ts = TrajOptSolver(
         prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
         equality=prob["equality"], parameters=prob["parameters"], options=options,
+        device=device,
     )
     ts.initialize_states(prob["state_guess"])
     return ts.batched()
+
+
+def rocket_solver(options, device):
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import rocket
+
+    prob = rocket.landing_problem(horizon=HORIZON_ROCKET)
+    kw = {k: v for k, v in prob.items() if k not in ("state_guess", "state_initial", "state_goal")}
+    ts = TrajOptSolver(options=options, device=device, **kw)
+    ts.initialize_states([np.asarray(s, np.float32) for s in prob["state_guess"]])
+    return ts
+
+
+def zero_launches(cr):
+    for k in cr.LAUNCHES:
+        cr.LAUNCHES[k] = 0
+
+
+def report_solve(tag, B, st):
+    solved = st.solved.cpu().numpy()
+    total_i = st.total_i.cpu().numpy()
+    print(f"{tag} solved {int(solved.sum())}/{B}; failed lanes: {np.nonzero(~solved)[0].tolist()}")
+    print(
+        f"{tag} iterations: total {int(total_i.sum())}, max (lockstep) {int(total_i.max())}, "
+        f"mean {float(total_i.mean()):.3f}; ladder {int(st.num_ladder.sum())}, "
+        f"refine {int(st.num_refine.sum())}, line-search chunks {int(st.num_ls_chunks.sum())}"
+    )
+    return solved, total_i
+
+
+def warm_batches(tag, name, B, bts, solve, st):
+    import torch
+
+    for rep in range(WARM_REPS):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        start.record()
+        warm = solve()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        check(torch.equal(warm.state.solved, st.solved), f"{name} warm batch solved other lanes")
+        print(
+            f"{tag} {name} warm batch {rep + 1}/{WARM_REPS} B={B}: "
+            f"{start.elapsed_time(end) / 1e3:.4f} s (CUDA events), {wall:.4f} s (host clock), "
+            f"{B / wall:.1f} solves/s, host syncs {bts.stats['host_syncs']}"
+        )
+
+
+def cpu_resolve(tag, name, st, ref, lanes, atol):
+    """Compare the first `lanes` lanes of a card solve with their CPU
+    float64 re-solve."""
+    solved = st.solved.cpu().numpy()[:lanes]
+    cpu_solved = ref.state.solved.numpy()
+    check(
+        cpu_solved.tolist() == solved.tolist(),
+        f"{name}: solved flags differ from the CPU float64 re-solve: "
+        f"{np.nonzero(cpu_solved != solved)[0].tolist()}",
+    )
+    diff = float((st.p.x[:lanes].double().cpu() - ref.state.p.x).abs().max())
+    same_i = int((ref.state.total_i.numpy() == st.total_i[:lanes].cpu().numpy()).sum())
+    print(
+        f"{tag} {name} CPU float64 re-solve of {lanes} lanes: max |x_gpu - x_cpu| {diff:.3e} "
+        f"(limit {atol:g}); iterations equal in {same_i}/{lanes} lanes"
+    )
+    check(diff <= atol, f"{name}: GPU float32 and CPU float64 solutions differ by {diff:.3e}")
+
+
+def profile(tag, name, solve):
+    """Device busy share of one warm batch and its top device kernels
+    (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    device = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    device_us = sum(e.self_device_time_total for e in device)
+    calls = sum(e.count for e in device)
+    print(
+        f"{tag} {name} profiled warm batch: wall {wall:.4f} s (host clock, profiler on), "
+        f"device time {device_us / 1e3:.3f} ms over {calls} device kernels and copies, "
+        f"device busy {100.0 * device_us / 1e6 / wall:.2f}% of the wall"
+    )
+    if not device:
+        print(f"{tag} {name} profiler saw no device time (CUDA events above stand)")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:TOP_KERNELS]:
+        print(
+            f"{tag}   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{100.0 * e.self_device_time_total / device_us:5.1f}%  x{e.count:<6d} {e.key[:110]}"
+        )
+
+
+def check_lanes(tag, cr, dev, B, T, d, errs, times=None):
+    """factor_lanes/solve_lanes against their plain versions at (B, T, d)
+    in float32 and float64: random SPD block-tridiagonal inputs with 8
+    lanes not positive definite from the middle stage on. Into `times`,
+    when given, the float32 kernel, plain and bound times."""
+    import torch
+
+    rng = np.random.default_rng(T * 100 + d)
+    A = rng.normal(size=(B, T, d, d))
+    D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
+    O64 = 0.3 * rng.normal(size=(B, T - 1, d, d))
+    bad_stage = 15 if T > 15 else min(4, T - 1)
+    bad_lanes = np.linspace(0, B - 1, 8).astype(int)
+    D64[bad_lanes, bad_stage] *= -1.0
+    b64 = rng.normal(size=(B, T, d))
+    first_nan = lambda Z: [
+        int(np.argmax(row)) if row.any() else -1
+        for row in torch.isnan(Z).flatten(2).any(-1).cpu().numpy()
+    ]
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64))
+        L, M = cr.factor_lanes(D, O)
+        Lp, Mp = cr.factor_lanes_plain(D, O)
+        x, xp = cr.solve_lanes(L, M, b), cr.solve_lanes_plain(Lp, Mp, b)
+        want = [bad_stage if i in bad_lanes else -1 for i in range(B)]
+        check(first_nan(L) == first_nan(Lp) == want, f"factor_lanes {name} {B}x{T}x{d}: first NaN stages differ")
+        check(first_nan(M) == first_nan(Mp), f"factor_lanes {name} {B}x{T}x{d}: NaN stages of M differ")
+        stage_ok = ~torch.isnan(Lp).flatten(2).any(-1)
+        for kname, got, ref, ok in (
+            ("factor_lanes", L, Lp, stage_ok), ("factor_lanes M", M, Mp, stage_ok[:, :-1]),
+            ("solve_lanes", x, xp, stage_ok.all(-1)),
+        ):
+            abs_err = float((got[ok].double() - ref[ok].double()).abs().max())
+            rel_err = abs_err / float(ref[ok].double().abs().max())
+            errs[(kname, name, T)] = abs_err
+            print(
+                f"{tag} {kname} {name} B={B} T={T} d={d}: max_abs_err {abs_err:.3e} "
+                f"max_rel_err {rel_err:.3e} (limit {RTOL[name]:g}); NaN lanes "
+                f"{bad_lanes.tolist()} from stage {bad_stage} on, on both paths"
+            )
+            check(rel_err <= RTOL[name], f"{kname} {name} {B}x{T}x{d}: relative error {rel_err:.3e}")
+        if name == "float32" and times is not None:
+            dd = d * d
+            times["factor_lanes"] = (
+                cuda_ms(lambda: cr.factor_lanes(D, O), 50),
+                cuda_ms(lambda: cr.factor_lanes_plain(D, O), 10), None,
+                bound((2 * T + 2 * (T - 1)) * dd * 4 * B, (1.0 / 3.0 + 1.0 + 2.0) * dd * d * T * B),
+            )
+            times["solve_lanes"] = (
+                cuda_ms(lambda: cr.solve_lanes(L, M, b), 50),
+                cuda_ms(lambda: cr.solve_lanes_plain(L, M, b), 10), None,
+                bound((T * dd + (T - 1) * dd + 2 * T * d) * 4 * B, 6 * dd * T * B),
+            )
 
 
 def main():
@@ -98,21 +300,22 @@ def main():
 
     # 1. build
     t0 = time.time()
-    lib = _build.build()
-    _build.load()
-    print(f"{tag} build: {lib} in {time.time() - t0:.1f} s")
+    libs = _build.build()
+    for stem in libs:
+        _build.load(stem)
+    print(f"{tag} build: {', '.join(str(p) for p in libs.values())} in {time.time() - t0:.1f} s")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"{tag} ptxas: {line.strip()}")
 
-    # 2. kernels against their plain versions at the flagship shape
+    errs, times = {}, {}
+    # 2a. T=1 kernels against their plain versions at the flagship shape
     rng = np.random.default_rng(0)
     n = 32
-    D = rng.normal(size=(B, n, n))
-    S64 = D @ np.swapaxes(D, 1, 2) + n * np.eye(n)
+    A = rng.normal(size=(B_FLAG, n, n))
+    S64 = A @ np.swapaxes(A, 1, 2) + n * np.eye(n)
     S64[list(NON_PD)] *= -1.0
-    b64 = rng.normal(size=(B, n))
-    errs, times = {}, {}
+    b64 = rng.normal(size=(B_FLAG, n))
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         S = torch.tensor(S64, dtype=dtype, device=dev)
         b = torch.tensor(b64, dtype=dtype, device=dev)
@@ -132,97 +335,118 @@ def main():
             abs_err = float((got[ok].double() - want[ok].double()).abs().max())
             rel_err = abs_err / float(want[ok].double().abs().max())
             errs[(kname, name)] = abs_err
-            print(f"{tag} {kname} {name} B={B} n={n}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (limit {RTOL[name]:g})")
+            print(f"{tag} {kname} {name} B={B_FLAG} n={n}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (limit {RTOL[name]:g})")
             check(rel_err <= RTOL[name], f"{kname} {name}: relative error {rel_err:.3e}")
         if name == "float32":
-            times["factor_t1"] = (cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50))
-            times["solve_t1"] = (cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50))
-    for kname, (ms, plain_ms) in times.items():
-        print(f"{tag} {kname} float32 B={B} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            Sg, Lg, bg = S[ok].contiguous(), L[ok].contiguous(), b[ok].contiguous()
+            times["factor_t1"] = (
+                cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50),
+                cuda_ms(lambda: torch.linalg.cholesky_ex(Sg), 50),
+                bound(2 * n * n * 4 * B_FLAG, n**3 / 3 * B_FLAG),
+            )
+            times["solve_t1"] = (
+                cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50),
+                cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
+                bound((n * n + 2 * n) * 4 * B_FLAG, 2 * n * n * B_FLAG),
+            )
 
-    # 3.-4. the flagship on the card, counting kernel launches
-    tol = dict(
-        residual_tolerance=TOL, optimality_tolerance=TOL, slack_tolerance=TOL,
-        equality_tolerance=TOL, complementarity_tolerance=TOL,
-        iterative_refinement_tolerance=1e-6,
-    )
-    bts = flagship(Options(**tol))
+    # 2b. block-tridiagonal kernels against their plain versions
+    for B, T, d in LANES_SHAPES:
+        check_lanes(tag, cr, dev, B, T, d, errs, times if (B, T, d) == LANES_SHAPES[0] else None)
+    for kname, (ms, plain_ms, lib_ms, (bms, by)) in times.items():
+        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+        print(
+            f"{tag} {kname} float32 main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib}, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
+        )
+
+    # 3. the flagship on the card (schur backend), counting kernel launches
+    bts = flagship(tol_options(Options), "cuda")
     # the benchmark's scenarios (bench.py: a fresh default_rng(0))
-    x0_np = (0.2 * np.random.default_rng(0).normal(size=(B, 2))).astype(np.float32)
+    x0_np = (0.2 * np.random.default_rng(0).normal(size=(B_FLAG, 2))).astype(np.float32)
     x0s = torch.tensor(x0_np, device=dev)
-    for k in cr.LAUNCHES:
-        cr.LAUNCHES[k] = 0
+    zero_launches(cr)
     t0 = time.time()
     res = bts.solve(parameters=x0s)
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     launches = dict(cr.LAUNCHES)
-    syncs = bts.stats["host_syncs"]
-    st = res.state
     print(f"{tag} flagship cold batch (first solve, includes one-time set-up): {cold_s:.3f} s")
-    print(f"{tag} kernel launches in the flagship run: {launches}; host syncs (loop tests): {syncs}")
+    print(f"{tag} kernel launches in the flagship run: {launches}; host syncs (loop tests): {bts.stats['host_syncs']}")
     check(all(launches[k] > 0 for k in ("factor_t1", "solve_t1")), f"a kernel never launched: {launches}")
-
-    solved = st.solved.cpu().numpy()
+    st = res.state
     x = st.p.x
-    check(tuple(x.shape) == (B, 32) and x.dtype == torch.float32, f"solution shape {tuple(x.shape)}")
+    check(tuple(x.shape) == (B_FLAG, 32) and x.dtype == torch.float32, f"solution shape {tuple(x.shape)}")
     check(bool(torch.isfinite(x[st.solved]).all()), "non-finite solution in a solved lane")
-    failed_lanes = np.nonzero(~solved)[0].tolist()
-    total_i = st.total_i.cpu().numpy()
-    print(f"{tag} solved {int(solved.sum())}/{B}; failed lanes: {failed_lanes}")
-    print(
-        f"{tag} iterations: total {int(total_i.sum())}, max (lockstep) {int(total_i.max())}, "
-        f"mean {float(total_i.mean()):.3f}; ladder {int(st.num_ladder.sum())}, "
-        f"refine {int(st.num_refine.sum())}, line-search chunks {int(st.num_ls_chunks.sum())}"
+    solved, _ = report_solve(f"{tag} flagship", B_FLAG, st)
+    check(int(solved.sum()) >= MIN_SOLVED_FLAG, f"only {int(solved.sum())} of {B_FLAG} flagship lanes solved")
+    ref = flagship(tol_options(Options), "cpu").solve(
+        parameters=torch.tensor(x0_np[:CPU_LANES_FLAG], dtype=torch.float64)
     )
-    check(int(solved.sum()) >= MIN_SOLVED, f"only {int(solved.sum())} of {B} lanes solved")
+    cpu_resolve(tag, "flagship", st, ref, CPU_LANES_FLAG, CPU_ATOL_FLAG)
+    warm_batches(tag, "flagship", B_FLAG, bts, lambda: bts.solve(parameters=x0s), st)
 
-    # 5. the first lanes again on the CPU in float64 through the plain path
-    cpu = flagship(Options(**tol))
-    ref = cpu.solve(parameters=torch.tensor(x0_np[:CPU_LANES], dtype=torch.float64))
-    cpu_solved = ref.state.solved.numpy()
+    # 4. the batched rocket landing on the card (riccati backend)
+    ropts = tol_options(Options, max_iterative_refinement=2)
+    ts = rocket_solver(ropts, "cuda")
+    check(ts.solver.options.linear_solver == "riccati", f"auto resolved to {ts.solver.options.linear_solver}")
+    dims = ts.dims
+    print(
+        f"{tag} rocket: n={dims.variables}, {dims.equality} equality rows, {dims.cone} cone rows, "
+        f"linear_solver auto -> {ts.solver.options.linear_solver}"
+    )
+    g0 = np.asarray(ts._guess, np.float32)
+    guess_np = g0[None] + 0.01 * np.random.default_rng(0).normal(size=(B_ROCKET, g0.size)).astype(np.float32)
+    guess = torch.tensor(guess_np, device=dev)
+    rbts = ts.batched()
+    zero_launches(cr)
+    t0 = time.time()
+    rres = rbts.solve(guess=guess)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    rlaunches = dict(cr.LAUNCHES)
+    print(f"{tag} rocket cold batch (first solve, includes one-time set-up): {cold_s:.3f} s")
+    print(f"{tag} kernel launches in the rocket run: {rlaunches}; host syncs (loop tests): {rbts.stats['host_syncs']}")
     check(
-        cpu_solved.tolist() == solved[:CPU_LANES].tolist(),
-        f"solved flags differ from the CPU float64 re-solve: {np.nonzero(cpu_solved != solved[:CPU_LANES])[0].tolist()}",
+        rlaunches["factor_lanes"] > 0 and rlaunches["solve_lanes"] > 0,
+        f"a block-tridiagonal kernel never launched: {rlaunches}",
     )
-    diff = float((x[:CPU_LANES].double().cpu() - ref.state.p.x).abs().max())
-    iters_cpu = ref.state.total_i.numpy()
-    print(
-        f"{tag} CPU float64 re-solve of {CPU_LANES} lanes: max |x_gpu - x_cpu| {diff:.3e} "
-        f"(limit {CPU_ATOL:g}); iterations equal in {int((iters_cpu == total_i[:CPU_LANES]).sum())}/{CPU_LANES} lanes"
+    check(rlaunches["factor_t1"] == rlaunches["solve_t1"] == 0, f"a T=1 kernel launched: {rlaunches}")
+    rst = rres.state
+    rx = rst.p.x
+    check(tuple(rx.shape) == (B_ROCKET, dims.variables) and rx.dtype == torch.float32, f"rocket solution {tuple(rx.shape)}")
+    check(bool(torch.isfinite(rx[rst.solved]).all()), "non-finite solution in a solved rocket lane")
+    rsolved, _ = report_solve(f"{tag} rocket", B_ROCKET, rst)
+    check(int(rsolved.sum()) >= MIN_SOLVED_ROCKET, f"only {int(rsolved.sum())} of {B_ROCKET} rocket lanes solved")
+    u = rx[rst.solved][:, np.concatenate(ts._action_indices)].reshape(-1, HORIZON_ROCKET - 1, 3)
+    cone_gap = float((u[..., :2].norm(dim=-1) - u[..., 2]).max())
+    print(f"{tag} rocket thrust cone: max |u_xy| - u_z over solved lanes {cone_gap:.3e}")
+    check(cone_gap <= 1e-3, f"rocket thrust leaves its cone by {cone_gap:.3e}")
+    ref = rocket_solver(ropts, "cpu").batched().solve(
+        guess=torch.tensor(guess_np[:CPU_LANES_ROCKET], dtype=torch.float64)
     )
-    check(diff <= CPU_ATOL, f"GPU float32 and CPU float64 solutions differ by {diff:.3e}")
+    cpu_resolve(tag, "rocket", rst, ref, CPU_LANES_ROCKET, CPU_ATOL_ROCKET)
+    warm_batches(tag, "rocket", B_ROCKET, rbts, lambda: rbts.solve(guess=guess), rst)
+    profile(tag, "rocket", lambda: rbts.solve(guess=guess))
 
-    # 6. warm batches, repeated to show their spread
-    for rep in range(WARM_REPS):
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0 = time.time()
-        start.record()
-        warm = bts.solve(parameters=x0s)
-        end.record()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-        check(torch.equal(warm.state.solved, st.solved), "warm batch solved other lanes")
-        print(
-            f"{tag} flagship warm batch {rep + 1}/{WARM_REPS} B={B}: "
-            f"{start.elapsed_time(end) / 1e3:.4f} s (CUDA events), {wall:.4f} s (host clock), "
-            f"{B / wall:.1f} solves/s, host syncs {bts.stats['host_syncs']}"
-        )
-
-    source = "calipso_tpu_torch/csrc/riccati_t1.cu"
-    replaces = {
-        "factor_t1": "calipso_tpu/ops/pallas_riccati.py:633",
-        "solve_t1": "calipso_tpu/ops/pallas_riccati.py:661",
+    sources = {"t1": "calipso_tpu_torch/csrc/riccati_t1.cu", "lanes": "calipso_tpu_torch/csrc/riccati_lanes.cu"}
+    meta = {
+        "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32")),
+        "solve_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:661", launches, ("solve_t1", "float32")),
+        "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", HORIZON_ROCKET)),
+        "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", HORIZON_ROCKET)),
     }
-    kernels = [
-        {
-            "name": k, "route": "cuda", "source": source, "replaces": replaces[k],
-            "launches": launches[k], "max_abs_err": errs[(k, "float32")],
-            "ms": times[k][0], "plain_ms": times[k][1],
-        }
-        for k in ("factor_t1", "solve_t1")
-    ]
+    errs[("factor_lanes", "float32", HORIZON_ROCKET)] = max(
+        errs[("factor_lanes", "float32", HORIZON_ROCKET)], errs[("factor_lanes M", "float32", HORIZON_ROCKET)]
+    )
+    kernels = []
+    for k, (src, replaces, counts, err_key) in meta.items():
+        ms, plain_ms, lib_ms, (bms, by) = times[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": sources[src], "replaces": replaces,
+            "launches": counts[k], "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by, "library_ms": lib_ms,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

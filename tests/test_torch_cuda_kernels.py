@@ -1,5 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the
-card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
+"""The port's CUDA kernels (the T=1 Cholesky factor and solve, and the
+block-tridiagonal factor and solve over T stages) against their plain
+PyTorch versions on the card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 skip without one. The card's machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q`.
@@ -68,6 +69,56 @@ def test_kernels_match_plain(cuda, n, dtype):
     assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
 
 
+def tridiag_batch(rng, B, T, d, non_pd=()):
+    """Block-tridiagonal SPD batches: D (B, T, d, d) blocks A A' + d I,
+    O (B, T-1, d, d) couplings 0.3 N(0, 1); for each (lane, stage) in
+    non_pd that stage's block is negated (not positive definite)."""
+    A = rng.normal(size=(B, T, d, d))
+    D = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
+    O = 0.3 * rng.normal(size=(B, T - 1, d, d))
+    for lane, stage in non_pd:
+        D[lane, stage] *= -1.0
+    return D, O, rng.normal(size=(B, T, d))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "B,T,d", [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33)]
+)
+def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
+    """The batched rocket's and the contact class's stage blocks (31 x 9,
+    8 x 54) and the edges of what the kernels take (T=1, d=1, d=64, whose
+    float64 working set needs the raised shared-memory limit, d=33 with
+    two rows per thread). No B is a multiple of the lanes per block
+    (ragged batch edge). Lanes 2 and B-1 are not positive definite from
+    the middle stage on: NaN from that stage on, on both paths."""
+    rng = np.random.default_rng(T * 100 + d)
+    bad_stage = T // 2
+    D, O, b = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    before = dict(cuda_riccati.LAUNCHES)
+    L, M = cuda_riccati.factor_lanes(D, O)
+    x = cuda_riccati.solve_lanes(L, M, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["factor_lanes"] == before["factor_lanes"] + 1
+    assert cuda_riccati.LAUNCHES["solve_lanes"] == before["solve_lanes"] + 1
+
+    Lp, Mp = cuda_riccati.factor_lanes_plain(D, O)
+    stage_nan = lambda A: torch.isnan(A).flatten(2).any(-1).cpu().numpy()
+    assert (stage_nan(L) == stage_nan(Lp)).all() and (stage_nan(M) == stage_nan(Mp)).all()
+    want = np.zeros((B, T), bool)
+    want[[2, B - 1], bad_stage:] = True
+    assert (stage_nan(L) == want).all()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    ok = torch.tensor(~want, device=cuda)
+    assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+    if T > 1:
+        assert _rel_err(M, Mp, ok[:, :-1]) <= RTOL[dtype]
+    lanes = torch.tensor(~want.any(axis=1), device=cuda)
+    assert _rel_err(x, cuda_riccati.solve_lanes_plain(Lp, Mp, b), lanes) <= RTOL[dtype]
+    assert bool(torch.isnan(x[~lanes]).all())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     S = torch.eye(4, device=cuda).expand(3, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -81,3 +132,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         cuda_riccati.solve_t1(L, torch.ones(3, 4, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         cuda_riccati.solve_t1(L, torch.ones(3, 4))
+    D = torch.eye(4, device=cuda).repeat(3, 2, 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_riccati.factor_lanes(D, torch.zeros(3, 2, 4, 4, device=cuda))
+    with pytest.raises(ValueError, match="d <= 64"):
+        cuda_riccati.factor_lanes(torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda))
+    L, M = cuda_riccati.factor_lanes(D, torch.zeros(3, 1, 4, 4, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_riccati.solve_lanes(L, M, torch.ones(3, 2, 5, device=cuda))

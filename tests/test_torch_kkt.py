@@ -136,7 +136,12 @@ def test_tiny_pivots_count_per_lane():
 
 
 def test_other_backends_are_refused(iterate):
+    """Backends the port does not have name their ROADMAP item; riccati
+    needs a trajopt problem's stage structure."""
     it = iterate
     args = (it["H"], it["gx"], it["hx"], it["point"].s, it["point"].t, it["rho"], it["eps_p"], it["eps_d"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for method in ("cr", "ldl"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tkkt.factorize(it["tl"], *(_t(a) for a in args), method=method)
+    with pytest.raises(ValueError, match="stage structure"):
         tkkt.factorize(it["tl"], *(_t(a) for a in args), method="riccati")

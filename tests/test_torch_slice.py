@@ -1,13 +1,17 @@
-"""The port's main path end to end against the JAX package on the CPU in
+"""The port's main paths end to end against the JAX package on the CPU in
 float64: batched trajopt solves through `TrajOptSolver(...).batched()
-.solve(parameters=x0s)` in both packages, on the benchmark flagship's
-pendulum (T=11, B=8) and the `__graft_entry__.py` cartpole (T=21, B=4,
-n=104, so `linear_solver="schur"` is pinned: "auto" would pick riccati).
-The line-search mode is pinned to "serial" in both packages.
+.solve(...)` in both packages, on the benchmark flagship's pendulum (T=11,
+B=8, schur), the `__graft_entry__.py` cartpole (T=21, B=4, n=104: schur
+pinned, and riccati through "auto") and the bench's batched rocket landing
+(T=31, B=4, n=276, riccati through "auto"); plus the rocket T=101 single
+solve against its stored golden. The line-search mode is pinned to
+"serial" in both packages.
 
 Each lane must reach the same solved flag in the same number of
-iterations, with solutions within 1e-6 (the pendulum is not a contact
+iterations, with solutions within 1e-6 (none of these is a contact
 problem, so iteration counts must agree exactly, not within a band)."""
+
+import os
 
 import numpy as np
 import pytest
@@ -108,6 +112,110 @@ def test_cartpole_batch_matches_jax():
     _assert_same_solves(rj, rt)
 
 
+def test_cartpole_auto_riccati_matches_jax():
+    """n=104 > 96: "auto" resolves to riccati in both packages."""
+    x0s = 0.1 * np.random.default_rng(1).normal(size=(4, 4))
+    jopts = calipso_tpu.Options(line_search_mode="serial")
+    assert cartpole_solver("torch", 21, options_from_jax(jopts)).solver.options.linear_solver == "riccati"
+    rj, rt = _solve_both(cartpole_solver, 21, x0s, jopts)
+    _assert_same_solves(rj, rt)
+
+
+def _rocket(pkg, horizon, options, **kw):
+    """`bench.py`'s rocket landing as a TrajOptSolver of package `pkg`."""
+    if pkg == "jax":
+        from calipso_tpu.models import rocket
+
+        TS = calipso_tpu.TrajOptSolver
+    else:
+        from calipso_tpu_torch.models import rocket
+
+        TS = calipso_tpu_torch.TrajOptSolver
+        options, kw = options_from_jax(options), dict(kw, device="cpu")
+    prob = rocket.landing_problem(horizon=horizon)
+    args = {k: v for k, v in prob.items() if k not in ("state_guess", "state_initial", "state_goal")}
+    ts = TS(options=options, **args, **kw)
+    ts.initialize_states([np.asarray(s) for s in prob["state_guess"]])
+    return ts, prob
+
+
+def test_rocket_batch_matches_jax():
+    """The bench's batched rocket landing (T=31, 30 three-dimensional
+    second-order cones) through "auto" -> riccati, B=4 scenarios given
+    as guesses perturbed by 0.01 N(0, 1) (`bench.py`)."""
+    import jax.numpy as jnp
+
+    jopts = calipso_tpu.Options(line_search_mode="serial", max_iterative_refinement=2)
+    tj, _ = _rocket("jax", 31, jopts)
+    tt, _ = _rocket("torch", 31, jopts)
+    assert tt.solver.options.linear_solver == "riccati" and tt.num_variables == 276
+    g0 = np.asarray(tj._guess)
+    guess = g0[None] + 0.01 * np.random.default_rng(0).normal(size=(4, g0.size))
+    rj = tj.batched().solve(guess=jnp.asarray(guess))
+    rt = tt.batched().solve(guess=torch.tensor(guess))
+    _assert_same_solves(rj, rt)
+    for name in ("outer_i", "num_ladder", "num_refine", "num_ls_chunks"):
+        assert getattr(rt.state, name).tolist() == np.asarray(getattr(rj.state, name)).tolist(), name
+
+
+def test_single_general_stage_riccati_matches_jax():
+    """equality_general rows touching one stage need no border: the
+    block-diagonal Gram fold and the band part of their (here nonzero)
+    Hessian carry them on the riccati backend (the reference's
+    tests/test_riccati_backend.py:test_general_equality_single_stage_fold,
+    with one general row made nonlinear)."""
+    import jax.numpy as jnp
+    from calipso_tpu.models import pendulum as jpend
+    from calipso_tpu_torch.models import pendulum as tpend
+
+    T = 5
+    jopts = calipso_tpu.Options(linear_solver="riccati", line_search_mode="serial")
+    goal = lambda z: (z[-2] - np.pi, z[-1] + 0.1 * z[-2] ** 2 - 0.1 * np.pi**2)
+    results = []
+    for pkg, m, stack, kw in (
+        (calipso_tpu, jpend, jnp.stack, {}),
+        (calipso_tpu_torch, tpend, torch.stack, dict(device="cpu")),
+    ):
+        opts = jopts if pkg is calipso_tpu else options_from_jax(jopts)
+        ts = pkg.TrajOptSolver(
+            [lambda x, u, w: 0.01 * u @ u] * (T - 1) + [lambda x, u, w: 0.0 * x[0]],
+            [m.discrete] * (T - 1), [2] * T, [1] * (T - 1),
+            equality_general=lambda z, th, stack=stack: stack(goal(z)),
+            equality=[lambda x, u, w: x] + [None] * (T - 1),
+            options=opts, **kw,
+        )
+        assert ts.solver.fns.stage_structure.general_stages == (T - 1,)
+        ts.initialize_states(m.swingup_problem(T)["state_guess"])
+        ts.initialize_actions([np.zeros(1)] * (T - 1))
+        results.append(ts.solve())
+    rj, rt = results
+    assert bool(rj.solved) and bool(rt.solved)
+    assert int(rt.iterations) == int(rj.iterations)
+    np.testing.assert_allclose(rt.variables.numpy(), np.asarray(rj.variables), atol=SOL_ATOL, rtol=0)
+
+
+def test_golden_rocket101():
+    """The port's version of tests/test_golden.py:test_golden_rocket101:
+    the T=101 single solve (riccati through "auto") lands on the stored
+    golden states within 1e-3, in 16 +- 2 iterations."""
+    gold = np.load(os.path.join(os.path.dirname(__file__), "golden", "rocket101.npz"))
+    ts, prob = _rocket("torch", 101, calipso_tpu.Options())
+    assert ts.solver.options.linear_solver == "riccati"
+    guess = np.zeros(ts.num_variables)
+    for t, idx in enumerate(ts._state_indices):
+        guess[idx] = np.asarray(prob["state_guess"][t])
+    rng = np.random.default_rng(0)
+    for t, idx in enumerate(ts._action_indices):
+        guess[idx] = 1e-3 * rng.normal(size=3)
+    ts.solver.initialize(torch.tensor(guess))
+    r = ts.solver.solve()
+    assert bool(r.solved)
+    z, zg = r.variables.numpy(), gold["variables"]
+    for idx in ts._state_indices:
+        np.testing.assert_allclose(z[idx], zg[idx], atol=1e-3)
+    assert abs(int(r.iterations) - int(gold["iterations"])) <= 2
+
+
 @pytest.mark.parametrize("variant", ["flat", "parallel_line_search"])
 def test_port_variants_match_default(pendulum_pair, variant):
     """structured=False (autodiff of the flat transcription) and the
@@ -122,7 +230,7 @@ def test_port_variants_match_default(pendulum_pair, variant):
         ts = calipso_tpu_torch.TrajOptSolver(
             prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
             equality=prob["equality"], parameters=prob["parameters"], options=opts,
-            structured=False,
+            structured=False, device="cpu",
         )
         ts.initialize_states(prob["state_guess"])
     else:
@@ -146,6 +254,7 @@ def test_batched_nlp_matches_jax():
     th[:, 3] = rng.uniform(0.1, 1.0, size=B)
     x0 = rng.normal(size=(B, 3))
     common = dict(num_parameters=4, nonnegative_indices=[], second_order_indices=[[0, 1, 2]])
+    tcommon = dict(common, device="cpu")
     jopts = _pinned()
     rj = calipso_tpu.BatchedSolver(
         lambda x, th: th[:3] @ x, lambda x, th: jnp.array([x[0] - th[3]]), lambda x, th: x, 3,
@@ -153,7 +262,7 @@ def test_batched_nlp_matches_jax():
     ).solve(jnp.asarray(x0), jnp.asarray(th))
     bt = calipso_tpu_torch.BatchedSolver(
         lambda x, th: th[:3] @ x, lambda x, th: x[:1] - th[3:], lambda x, th: x, 3,
-        options=options_from_jax(jopts), **common,
+        options=options_from_jax(jopts), **tcommon,
     )
     rt = bt.solve(torch.tensor(x0), torch.tensor(th))
     _assert_same_solves(rj, rt)
@@ -178,23 +287,44 @@ def test_single_solve_is_a_batch_of_one(pendulum_pair):
     np.testing.assert_allclose(states[-1], [np.pi, 0.0], atol=1e-4)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(monkeypatch):
     opts = calipso_tpu_torch.Options
     for bad in (
         opts(differentiate=True),
         opts(refinement_fallback=True),
-        opts(linear_solver="riccati"),
+        opts(linear_solver="cr"),
         opts(linear_solver="ldl"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pendulum_solver("torch", 5, bad)
-    # "auto" on a trajopt problem with n > 96 resolves to riccati
-    with pytest.raises(NotImplementedError, match="riccati"):
-        cartpole_solver("torch", 21, opts())
+    # equality_general rows over 2 or more stages need the riccati
+    # backend's low-rank border; "auto" picks riccati at n > 96
+    from calipso_tpu_torch.models import pendulum
+
+    T = 33
+    prob = pendulum.swingup_problem(T)
+    periodic = lambda z, th: z[:2] - z[-2:]  # couples the first and last stage
+    with pytest.raises(NotImplementedError, match="border.*ROADMAP"):
+        calipso_tpu_torch.TrajOptSolver(
+            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
+            equality_general=periodic, options=opts(), device="cpu",
+        )
     bts = pendulum_solver("torch", 5, opts()).batched()
-    bs = calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2)
+    bs = calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2, device="cpu")
     for call in (lambda: bts.aot_save("x", 2), lambda: bts.aot_load("x"),
                  lambda: bts.solve(parameters=torch.zeros(2, 2), mesh=object()),
                  lambda: bs.aot_save("x", 2), lambda: bs.solve(torch.zeros(2, 2), mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # without device=, every entry point solves on the card, and a
+    # machine without one refuses rather than falling back to the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (
+        lambda: calipso_tpu_torch.Solver(lambda x: x @ x, None, None, 2),
+        lambda: calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2),
+        lambda: calipso_tpu_torch.TrajOptSolver(
+            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"]
+        ),
+    ):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

@@ -52,9 +52,9 @@ def pendulum_solver(pkg, horizon, options, cones=False):
         bound = lambda x, u, w: torch.stack([17.0 - u[0], u[0] + 17.0])
         speed = lambda x, u, w: torch.stack([torch.full_like(x[1], 10.0), x[1]])
     prob = pendulum.swingup_problem(horizon, parametric_initial_state=True)
-    extra = {}
+    extra = {} if pkg == "jax" else dict(device="cpu")
     if cones:
-        extra = dict(
+        extra.update(
             nonnegative=[bound] * (horizon - 1) + [None],
             second_order=[[speed]] * horizon,
         )
@@ -110,11 +110,13 @@ def cartpole_solver(pkg, horizon, options):
         cont = _cartpole_jax
         x_goal = jnp.array(goal)
         goal_eq = lambda x, u, w: x - x_goal
+        extra = {}
     else:
         from calipso_tpu_torch import TrajOptSolver
 
         cont = _cartpole_torch
         goal_eq = lambda x, u, w: x - torch.tensor(goal, dtype=x.dtype, device=x.device)
+        extra = dict(device="cpu")
 
     def midpoint(y, x, u):
         return y - (x + 0.05 * cont(0.5 * (x + y), u))
@@ -127,7 +129,7 @@ def cartpole_solver(pkg, horizon, options):
     ts = TrajOptSolver(
         objective, [midpoint] * (horizon - 1), [nx] * horizon, [nu] * (horizon - 1),
         equality=equality, parameters=[np.zeros(nx)] + [np.zeros(0)] * (horizon - 1),
-        options=options,
+        options=options, **extra,
     )
     ts.initialize_states([np.array(goal) * t / (horizon - 1) for t in range(horizon)])
     return ts
