@@ -39,6 +39,14 @@ SIGNATURES = {
         **{f"calipso_factor_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
         **{f"calipso_solve_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
     },
+    "riccati_stream": {
+        **{f"calipso_factor_stream_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
+        **{
+            f"calipso_solve_{sweep}_stream_{dt}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+            for sweep in ("fwd", "bwd")
+            for dt in ("f32", "f64")
+        },
+    },
 }
 SOURCES = tuple(PACKAGE_DIR / "csrc" / f"{stem}.cu" for stem in SIGNATURES)
 

@@ -5,10 +5,15 @@ stages (riccati backend).
 `factor_t1` replaces the TPU kernel
 `calipso_tpu/ops/pallas_riccati.py:_factor_lanes_t1_kernel`, `solve_t1`
 replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
-`_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`.
-All four are hand-written CUDA for Hopper (`csrc/riccati_t1.cu` and
-`csrc/riccati_lanes.cu`: one warp per lane, staged in shared memory;
-built by `ops/_build.py`).
+`_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`
+(`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane,
+staged in shared memory). `factor_stream` replaces `_factor_stream_kernel`
+and `solve_stream` replaces `_solve_fwd_stream_kernel` and
+`_solve_bwd_stream_kernel` (`csrc/riccati_stream.cu`: one thread block
+per lane, the next stage's blocks copied into shared memory while the
+current one computes). All are hand-written CUDA for Hopper, built by
+`ops/_build.py`. The stream kernels are the wide-stage route (d >= 33,
+`ops/riccati.route`), and their solve takes K right-hand sides per lane.
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -35,9 +40,12 @@ from __future__ import annotations
 
 import torch
 
-LAUNCHES = {"factor_t1": 0, "solve_t1": 0, "factor_lanes": 0, "solve_lanes": 0}
+LAUNCHES = {
+    "factor_t1": 0, "solve_t1": 0, "factor_lanes": 0, "solve_lanes": 0,
+    "factor_stream": 0, "solve_fwd_stream": 0, "solve_bwd_stream": 0,
+}
 MAX_N = 128  # T=1 kernels
-MAX_D = 64  # block-tridiagonal kernels
+MAX_D = 64  # block-tridiagonal kernels (lanes and stream)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -91,20 +99,36 @@ def factor_lanes_plain(D, O):
 
 def solve_lanes_plain(L, M, b):
     """x (B, T, d) with S x = b for the factor (L, M) of
-    `factor_lanes_plain`: the forward sweep u_t = L_t^{-1}(b_t -
-    M_{t-1}^T u_{t-1}), then the backward sweep x_t = L_t^{-T}(u_t - M_t
-    x_{t+1})."""
+    `factor_lanes_plain`: the two sweeps of the stream versions below,
+    on one column."""
+    return solve_bwd_stream_plain(L, M, solve_fwd_stream_plain(L, M, b[..., None]))[..., 0]
+
+
+# the stream factor computes what the lanes factor computes; only the
+# kernels differ (one thread block per lane instead of one warp)
+factor_stream_plain = factor_lanes_plain
+
+
+def solve_fwd_stream_plain(L, M, b):
+    """The forward sweep u_t = L_t^{-1}(b_t - M_{t-1}^T u_{t-1}) for b
+    (B, T, d, K): K right-hand sides per lane, one factor for all."""
     T = L.shape[1]
-    mv = lambda A, v: (A @ v[..., None])[..., 0]
     u, prev = [], None
     for t in range(T):
-        r = b[:, t] if prev is None else b[:, t] - mv(M[:, t - 1].mT, prev)
-        prev = torch.linalg.solve_triangular(L[:, t], r[..., None], upper=False)[..., 0]
+        r = b[:, t] if prev is None else b[:, t] - M[:, t - 1].mT @ prev
+        prev = torch.linalg.solve_triangular(L[:, t], r, upper=False)
         u.append(prev)
+    return torch.stack(u, dim=1)
+
+
+def solve_bwd_stream_plain(L, M, u):
+    """The backward sweep x_t = L_t^{-T}(u_t - M_t x_{t+1}) for u
+    (B, T, d, K) from `solve_fwd_stream_plain`."""
+    T = L.shape[1]
     x, nxt = [None] * T, None
     for t in reversed(range(T)):
-        r = u[t] if nxt is None else u[t] - mv(M[:, t], nxt)
-        nxt = torch.linalg.solve_triangular(L[:, t].mT, r[..., None], upper=True)[..., 0]
+        r = u[:, t] if nxt is None else u[:, t] - M[:, t] @ nxt
+        nxt = torch.linalg.solve_triangular(L[:, t].mT, r, upper=True)
         x[t] = nxt
     return torch.stack(x, dim=1)
 
@@ -189,11 +213,10 @@ def solve_t1(L, b):
     return x
 
 
-def factor_lanes(D, O):
-    """Block-tridiagonal Cholesky of D (B, T, d, d), O (B, T-1, d, d) ->
-    (L, M) (see `factor_lanes_plain` and the module doc)."""
+def _tridiag_factor(name, stem, plain, D, O):
+    """Launch a block-tridiagonal factor kernel (CPU tensors: `plain`)."""
     if D.device.type == "cpu" and O.device.type == "cpu":
-        return factor_lanes_plain(D, O)
+        return plain(D, O)
     B, T, d = _lanes_dims(D)
     _check("D", D, D.dtype, (B, T, d, d))
     _check("O", O, D.dtype, (B, T - 1, d, d))
@@ -201,11 +224,15 @@ def factor_lanes(D, O):
         raise ValueError(f"D and O on different devices: {D.device}, {O.device}")
     L, M = torch.empty_like(D), torch.empty_like(O)
     if B > 0:
-        _launch(
-            "factor_lanes", "riccati_lanes", D.dtype, D.device,
-            D.data_ptr(), O.data_ptr(), L.data_ptr(), M.data_ptr(), B, T, d,
-        )
+        _launch(name, stem, D.dtype, D.device, D.data_ptr(), O.data_ptr(), L.data_ptr(), M.data_ptr(), B, T, d)
     return L, M
+
+
+def factor_lanes(D, O):
+    """Block-tridiagonal Cholesky of D (B, T, d, d), O (B, T-1, d, d) ->
+    (L, M), one warp per lane (see `factor_lanes_plain` and the module
+    doc)."""
+    return _tridiag_factor("factor_lanes", "riccati_lanes", factor_lanes_plain, D, O)
 
 
 def solve_lanes(L, M, b):
@@ -226,3 +253,53 @@ def solve_lanes(L, M, b):
             L.data_ptr(), M.data_ptr(), b.data_ptr(), x.data_ptr(), B, T, d,
         )
     return x
+
+
+def factor_stream(D, O):
+    """Block-tridiagonal Cholesky of D (B, T, d, d), O (B, T-1, d, d) ->
+    (L, M), one thread block per lane (same contract as `factor_lanes`)."""
+    return _tridiag_factor("factor_stream", "riccati_stream", factor_stream_plain, D, O)
+
+
+def _sweep(name, plain, L, M, b):
+    """Launch one of the stream solve sweeps on b (B, T, d, K) (CPU
+    tensors: `plain`)."""
+    if L.device.type == "cpu" and M.device.type == "cpu" and b.device.type == "cpu":
+        return plain(L, M, b)
+    B, T, d = _lanes_dims(L)
+    if b.dim() != 4:
+        raise ValueError(f"the right-hand sides must be (B, T, d, K), got {tuple(b.shape)}")
+    K = b.shape[-1]
+    _check("L", L, L.dtype, (B, T, d, d))
+    _check("M", M, L.dtype, (B, T - 1, d, d))
+    _check("b", b, L.dtype, (B, T, d, K))
+    if not L.device == M.device == b.device:
+        raise ValueError(f"L, M and b on different devices: {L.device}, {M.device}, {b.device}")
+    out = torch.empty_like(b)
+    if B > 0 and K > 0:
+        _launch(
+            name, "riccati_stream", L.dtype, L.device,
+            L.data_ptr(), M.data_ptr(), b.data_ptr(), out.data_ptr(), B, T, d, K,
+        )
+    return out
+
+
+def solve_fwd_stream(L, M, b):
+    """The forward sweep u of `solve_fwd_stream_plain` for b (B, T, d, K)."""
+    return _sweep("solve_fwd_stream", solve_fwd_stream_plain, L, M, b)
+
+
+def solve_bwd_stream(L, M, u):
+    """The backward sweep x of `solve_bwd_stream_plain` from u (B, T, d, K)."""
+    return _sweep("solve_bwd_stream", solve_bwd_stream_plain, L, M, u)
+
+
+def solve_stream(L, M, b):
+    """x with S x = b for the factor (L, M) of `factor_stream` (or
+    `factor_lanes`): b (B, T, d), or (B, T, d, K) for K right-hand sides
+    per lane. Two kernels: the forward sweep into u, the backward sweep
+    from it."""
+    vec = b.dim() == 3
+    bk = b[..., None] if vec else b
+    x = solve_bwd_stream(L, M, solve_fwd_stream(L, M, bk))
+    return x[..., 0] if vec else x

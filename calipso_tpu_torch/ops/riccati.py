@@ -7,9 +7,17 @@ the counterpart of `calipso_tpu/ops/riccati.py`.
   block-tridiagonal Cholesky over T stages of D (B, T, d, d) diagonal and
   O (B, T-1, d, d) sub-diagonal blocks, where block row t+1 holds O_t to
   the left of D_{t+1}. `factor` returns L (B, T, d, d) lower and M
-  (B, T-1, d, d) with M_t = L_t^{-1} O_t^T; `solve` takes b (B, T, d).
-  Ragged stage widths are padded to d with identity diagonal blocks,
-  which decouple exactly.
+  (B, T-1, d, d) with M_t = L_t^{-1} O_t^T; `solve` takes b (B, T, d),
+  `solve_multi` b (B, T, d, K). Ragged stage widths are padded to d with
+  identity diagonal blocks, which decouple exactly.
+
+`route(d)` picks the block-tridiagonal kernels by the stage width alone:
+"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) below 33, where
+a warp owns a stage row per thread, and "stream" (one thread block per
+lane, `factor_stream`/`solve_stream`) from 33 on, the contact class's
+d=54. The reference splits the same two regimes (resident d=9, streamed
+d=54) by TPU VMEM. `solve_multi` always takes the stream solve, the one
+that serves K columns from one factor; both routes write the same (L, M).
 
 A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
 PyTorch version (`ops/cuda_riccati.py`); nothing else decides. A lane
@@ -18,6 +26,13 @@ of its factor (the inertia signal), never an exception.
 """
 
 from calipso_tpu_torch.ops import cuda_riccati
+
+STREAM_MIN_D = 33
+
+
+def route(d):
+    """"lanes" or "stream": the block-tridiagonal kernels for stage width d."""
+    return "stream" if d >= STREAM_MIN_D else "lanes"
 
 
 def chol(S):
@@ -32,9 +47,20 @@ def chol_solve(L, b):
 
 def factor(D, O):
     """Batched block-tridiagonal Cholesky: (D, O) -> (L, M)."""
-    return cuda_riccati.factor_lanes(D.contiguous(), O.contiguous())
+    D, O = D.contiguous(), O.contiguous()
+    if route(D.shape[-1]) == "stream":
+        return cuda_riccati.factor_stream(D, O)
+    return cuda_riccati.factor_lanes(D, O)
 
 
 def solve(L, M, b):
     """Solve S x = b for each lane with the factor (L, M) of `factor`."""
-    return cuda_riccati.solve_lanes(L.contiguous(), M.contiguous(), b.contiguous())
+    L, M, b = L.contiguous(), M.contiguous(), b.contiguous()
+    if route(L.shape[-1]) == "stream":
+        return cuda_riccati.solve_stream(L, M, b)
+    return cuda_riccati.solve_lanes(L, M, b)
+
+
+def solve_multi(L, M, B):
+    """Solve S X = B for K right-hand sides per lane, B (B, T, d, K)."""
+    return cuda_riccati.solve_stream(L.contiguous(), M.contiguous(), B.contiguous())

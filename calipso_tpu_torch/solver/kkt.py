@@ -24,17 +24,20 @@ Two backends factor S:
   widest with identity), factored by the block-tridiagonal Cholesky over
   the stages. Its Lagrangian Hessian may come as a `BandHessian` (the
   stage blocks straight from the structured oracles), so no dense (n, n)
-  Hessian is built on its path.
-The general-equality low-rank border of the riccati backend (2 or more
-stages coupled by `equality_general`) and the multi-RHS solve are ROADMAP
-Queue 1 item 12; the other backends (cr, ldl, lu, spike) are items 16, 17
-and 19.
+  Hessian is built on its path. `equality_general` rows that couple 2 or
+  more stages enter as a low-rank border of the banded S (Woodbury, with
+  the inertia of a small capacitance matrix; see `_general_border`).
+`solve_sym` takes one right-hand side (B, ns), or on the riccati backend
+several (B, ns, K); several on schur belong to differentiation (ROADMAP
+Queue 1 item 18). The other backends (cr, ldl, lu, spike) are items 16,
+17 and 19.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -169,6 +172,13 @@ class Factorization(NamedTuple):
     rho: torch.Tensor
     eps_p: torch.Tensor
     eps_d: torch.Tensor
+    # riccati with a general-equality border (see _general_border): Wg =
+    # S_bd^{-1} V (B, n, k*r_g) and (Lc, dc), the eigenvectors (B, k*r_g,
+    # k*r_g) and eigenvalues (B, k*r_g) of the indefinite capacitance C;
+    # None without a border
+    Wg: Optional[torch.Tensor] = None
+    Lc: Optional[torch.Tensor] = None
+    dc: Optional[torch.Tensor] = None
 
 
 def check_method(method, structure=None):
@@ -180,12 +190,6 @@ def check_method(method, structure=None):
         if structure is None:
             raise ValueError(
                 "linear_solver='riccati' requires a trajopt problem (stage structure)"
-            )
-        if structure.num_general and len(structure.general_stages) >= 2:
-            raise NotImplementedError(
-                "linear_solver='riccati' with equality_general rows over "
-                f"{len(structure.general_stages)} stages needs the low-rank "
-                "general-equality border: ROADMAP Queue 1 item 12"
             )
         return
     raise NotImplementedError(
@@ -206,7 +210,10 @@ def factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method="schur", stru
     if method == "riccati":
         D, O = _riccati_blocks(layout, structure, Hxx, gx, hx, s, t, rho, eps_p, eps_d)
         L, M = rc.factor(D, O)
-        return Factorization(L, M, gx, hx, s, t, rho, eps_p, eps_d)
+        border = (None, None, None)
+        if structure.num_general and len(structure.general_stages) >= 2:
+            border = _general_border(structure, L, M, gx, rho, eps_p, eps_d)
+        return Factorization(L, M, gx, hx, s, t, rho, eps_p, eps_d, *border)
     Hxx = hess_dense(Hxx)
     n = Hxx.shape[-1]
     ceq = _ceq(rho, eps_p, eps_d)
@@ -301,10 +308,96 @@ def _riccati_blocks(layout, st, Hxx, gx, hx, s, t, rho, eps_p, eps_d):
     return D, O
 
 
-def inertia_ok(fact: Factorization):
+def _banded_solve_multi(structure, L, M, Bm):
+    """Apply S_band^{-1} to the columns of Bm (B, n, K) through the
+    stage-block factor (L, M)."""
+    Bb = structure.to_blocks(Bm.mT).permute(0, 2, 3, 1)  # (B, T, dmax, K)
+    X = rc.solve_multi(L, M, Bb)
+    return structure.from_blocks(X.permute(0, 3, 1, 2)).mT
+
+
+def _border_V(structure, gx):
+    """Stage-split border columns for the general-equality rows, (B, n,
+    k*r_g).
+
+    The r_g general rows Jg (the last rows of gx, dense over the whole
+    trajectory) touch the k = len(general_stages) stages found at
+    construction. With V_t = Jg' masked to stage t's variable rows,
+        Jg' Jg = sum_t V_t V_t' + sum_{t != t'} V_t V_t'.
+    The block-diagonal first part is banded and PSD; `_riccati_blocks`
+    folds it into the stage blocks. The cross part is the low-rank border
+    V Kx V' with V = [V_1 .. V_k] and Kx = ((11' - I) kron I_rg) / c_eq."""
+    rg = structure.num_general
+    JgT = gx[:, gx.shape[1] - rg :].mT  # (B, n, rg)
+    mask = np.zeros((structure.num_variables, len(structure.general_stages)), bool)
+    for s, t in enumerate(structure.general_stages):
+        mask[structure.col_starts[t] : structure.col_starts[t] + structure.col_dims[t], s] = True
+    mask = structure.tensor("border_mask", mask, gx.device)
+    return (JgT[:, :, None, :] * mask[None, :, :, None]).flatten(2)  # column s*rg + r
+
+
+def _general_border(structure, L, M, gx, rho, eps_p, eps_d):
+    """Border factorization for S = S_bd + V Kx V' (see _border_V; S_bd is
+    the banded part, including the folded block diagonal of Jg'Jg/c_eq).
+
+    Woodbury with the indefinite core Kx:
+      S^{-1} b = S_bd^{-1} b - Wg C^{-1} V' S_bd^{-1} b,
+      Wg = S_bd^{-1} V,  C = Kx^{-1} + V' Wg,
+    with C (B, k*r_g, k*r_g) factored by `torch.linalg.eigh` (it is
+    indefinite by design). By Haynsworth, S is positive definite iff S_bd
+    is and inertia(C) = (r_g, (k-1) r_g, 0): `_border_inertia_ok`. A lane
+    whose C is not finite (its banded factor failed) gets NaN eigenvalues,
+    as the reference's eigh gives, rather than an exception."""
+    rg = structure.num_general
+    k = len(structure.general_stages)
+    dtype, dev = gx.dtype, gx.device
+    V = _border_V(structure, gx)
+    Wg = _banded_solve_multi(structure, L, M, V)
+    # Kx^{-1} = c_eq ((11' - I)^{-1} kron I_rg), (11' - I)^{-1} = 11'/(k-1) - I
+    Jk = torch.ones((k, k), dtype=dtype, device=dev) / (k - 1) - torch.eye(k, dtype=dtype, device=dev)
+    Kx_inv = _ceq(rho, eps_p, eps_d)[:, None, None] * torch.kron(Jk, torch.eye(rg, dtype=dtype, device=dev))
+    C = Kx_inv + V.mT @ Wg
+    C = 0.5 * (C + C.mT)
+    finite = torch.isfinite(C).flatten(1).all(dim=1)
+    eye = torch.eye(C.shape[-1], dtype=dtype, device=dev)
+    dc, Lc = torch.linalg.eigh(torch.where(finite[:, None, None], C, eye))
+    dc = torch.where(finite[:, None], dc, torch.full_like(dc, float("nan")))
+    return Wg, Lc, dc
+
+
+def _apply_border(fact: Factorization, structure, dx):
+    """Woodbury correction for the general-equality border: dx <- dx - Wg
+    C^{-1} V' dx, for dx (B, n) or (B, n, K) (no-op without a border)."""
+    if fact.Wg is None:
+        return dx
+    vec = dx.dim() == 2
+    X = dx[..., None] if vec else dx
+    V = _border_V(structure, fact.gx)
+    w = (fact.Lc.mT @ (V.mT @ X)) / fact.dc[..., None]
+    out = X - fact.Wg @ (fact.Lc @ w)
+    return out[..., 0] if vec else out
+
+
+def _border_inertia_ok(fact: Factorization, structure):
+    """Border part of the inertia test, per lane: inertia(C) = (r_g,
+    (k-1) r_g, 0) (Haynsworth; see _general_border). Eigenvalues within a
+    dtype-scaled band of zero count as zero eigenvalues."""
+    if fact.dc is None:
+        return torch.ones(fact.L.shape[0], dtype=torch.bool, device=fact.L.device)
+    rg = structure.num_general
+    k = len(structure.general_stages)
+    dc = fact.dc
+    tol = torch.finfo(dc.dtype).eps ** 0.75 * dc.abs().amax(dim=-1, keepdim=True)
+    pos = (dc > tol).sum(dim=-1)
+    neg = (dc < -tol).sum(dim=-1)
+    return (pos == rg) & (neg == (k - 1) * rg)
+
+
+def inertia_ok(fact: Factorization, structure=None):
     """Target inertia, per lane: the Cholesky factor is finite (schur and
-    riccati alike)."""
-    return torch.isfinite(fact.L).flatten(1).all(dim=1)
+    riccati alike), and on a riccati border the capacitance has the
+    target inertia."""
+    return torch.isfinite(fact.L).flatten(1).all(dim=1) & _border_inertia_ok(fact, structure)
 
 
 def _tiny_pivots(diags):
@@ -330,34 +423,45 @@ def num_zero_eigs(fact: Factorization, method="schur", structure=None):
 
 
 def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", structure=None):
-    """Solve the condensed symmetric system for rhs (B, n + m_e + m_c)."""
-    if rhs.dim() != 2:
+    """Solve the condensed symmetric system for rhs (B, n + m_e + m_c), or
+    on the riccati backend for K right-hand sides at once, rhs (B, n +
+    m_e + m_c, K)."""
+    vec = rhs.dim() == 2
+    if not vec and method != "riccati":
         raise NotImplementedError(
-            "solve_sym with several right-hand sides (solve_multi): ROADMAP "
-            "Queue 1 item 12 (the border) and item 18 (differentiation)"
+            "solve_sym with several right-hand sides on the schur backend belongs "
+            "to differentiation: ROADMAP Queue 1 item 18"
         )
+    # per-lane matrix products and scalings of one column or of K columns
+    mv = _mv if vec else (lambda A, X: A @ X)
+    mtv = _mtv if vec else (lambda A, X: A.mT @ X)
+    lane = (lambda a: a[:, None]) if vec else (lambda a: a[:, None, None])
     rx = rhs[:, :n]
     req = rhs[:, n : n + me]
     rcone = rhs[:, n + me :]
     ceq = _ceq(fact.rho, fact.eps_p, fact.eps_d)
     rhs_x = rx
     if me > 0:
-        rhs_x = rhs_x + _mtv(fact.gx, req / ceq[:, None])
+        rhs_x = rhs_x + mtv(fact.gx, req / lane(ceq))
     if mc > 0:
         t3 = cones.c_block_solve(layout, fact.s, fact.t, fact.eps_p, fact.eps_d, rcone)
-        rhs_x = rhs_x + _mtv(fact.hx, t3)
+        rhs_x = rhs_x + mtv(fact.hx, t3)
     if method == "riccati":
-        dx = structure.from_blocks(rc.solve(fact.L, fact.M, structure.to_blocks(rhs_x)))
+        if vec:
+            dx = structure.from_blocks(rc.solve(fact.L, fact.M, structure.to_blocks(rhs_x)))
+        else:
+            dx = _banded_solve_multi(structure, fact.L, fact.M, rhs_x)
+        dx = _apply_border(fact, structure, dx)
     else:
         dx = rc.chol_solve(fact.L, rhs_x.contiguous())
-    dy = (_mv(fact.gx, dx) - req) / ceq[:, None] if me > 0 else req
+    dy =(mv(fact.gx, dx) - req) / lane(ceq) if me > 0 else req
     if mc > 0:
         dz = cones.c_block_solve(
-            layout, fact.s, fact.t, fact.eps_p, fact.eps_d, _mv(fact.hx, dx) - rcone
+            layout, fact.s, fact.t, fact.eps_p, fact.eps_d, mv(fact.hx, dx) - rcone
         )
     else:
         dz = rcone
-    return torch.cat([dx, dy, dz], dim=-1)
+    return torch.cat([dx, dy, dz], dim=1)
 
 
 def solve_with(

@@ -260,7 +260,7 @@ def make_solve(fns, layout, opts, callbacks=None):
         e_p0 = torch.full_like(kappa, opts.primal_regularization_initial)
         e_d0 = torch.full_like(kappa, opts.dual_regularization_initial)
         fact0 = factorize(Hxx, gx, hx, s, t, rho, e_p0, e_d0)
-        ok0 = kkt.inertia_ok(fact0)
+        ok0 = kkt.inertia_ok(fact0, structure)
 
         # rank deficiency -> dual regularization scaled by kappa
         zero0 = kkt.num_zero_eigs(fact0, method, structure)
@@ -281,7 +281,10 @@ def make_solve(fns, layout, opts, callbacks=None):
             torch.full_like(kappa, opts.scaling_regularization),
         )
 
-        L, M, e_p_fact, e_d_fact = fact0.L, fact0.M, e_p0, e_d0
+        # the ladder carries the varying pieces of the factorization (the
+        # factors and the border, None where absent) lane by lane
+        core = (fact0.L, fact0.M, fact0.Wg, fact0.Lc, fact0.dc)
+        e_p_fact, e_d_fact = e_p0, e_d0
         e_p, done = e_p1, ok0
         failed = torch.zeros_like(ok0)
         trips = torch.zeros_like(zero0)
@@ -290,19 +293,19 @@ def make_solve(fns, layout, opts, callbacks=None):
             if not any_lane(act):
                 break
             fact = factorize(Hxx, gx, hx, s, t, rho, e_p, e_d1)
-            ok = kkt.inertia_ok(fact)
+            ok = kkt.inertia_ok(fact, structure)
             e_p_next = torch.where(ok, e_p, e_p * scale)
             fail_now = ~ok & (e_p_next > max_reg)
-            L = _where(act, fact.L, L)
-            if M is not None:
-                M = _where(act, fact.M, M)
+            new = (fact.L, fact.M, fact.Wg, fact.Lc, fact.dc)
+            core = tuple(None if a is None else _where(act, a, b) for a, b in zip(new, core))
             e_p_fact = torch.where(act, e_p, e_p_fact)
             e_d_fact = torch.where(act, e_d1, e_d_fact)
             e_p = torch.where(act, e_p_next, e_p)
             done = torch.where(act, ok, done)
             failed = torch.where(act, fail_now, failed)
             trips = trips + act.to(trips.dtype)
-        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact)
+        L, M, Wg, Lc, dc = core
+        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact, Wg, Lc, dc)
         # the warm start moves only when the ladder ran
         eps_p_last_new = torch.where(ok0, eps_p_last, e_p_fact)
         return fact, failed, eps_p_last_new, trips

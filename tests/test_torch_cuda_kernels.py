@@ -1,5 +1,7 @@
-"""The port's CUDA kernels (the T=1 Cholesky factor and solve, and the
-block-tridiagonal factor and solve over T stages) against their plain
+"""The port's CUDA kernels (the T=1 Cholesky factor and solve, the
+block-tridiagonal factor and solve over T stages, one warp per lane, and
+their stream versions, one block per lane with K right-hand sides per
+lane) against their plain
 PyTorch versions on the card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 skip without one. The card's machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -140,3 +142,71 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     L, M = cuda_riccati.factor_lanes(D, torch.zeros(3, 1, 4, 4, device=cuda))
     with pytest.raises(ValueError, match="shape"):
         cuda_riccati.solve_lanes(L, M, torch.ones(3, 2, 5, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "B,T,d,K",
+    [(128, 8, 54, 1), (128, 8, 54, 22), (13, 8, 54, 1), (9, 1, 5, 3), (5, 3, 64, 40),
+     (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33)],
+)
+def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
+    """The batched quadruped's stage blocks (8 x 54) with one and with 22
+    right-hand sides (the gait border's 2 x 11 columns), and the edges:
+    T=1, d=1, d=64 (float64 needs the raised shared-memory limit), K over
+    one 32-column chunk. Lanes 2 and B-1 are not positive definite from
+    the middle stage on: NaN from that stage on, on both paths."""
+    rng = np.random.default_rng(T * 100 + d + K)
+    bad_stage = T // 2
+    D, O, _ = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    b = rng.normal(size=(B, T, d, K))
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    before = dict(cuda_riccati.LAUNCHES)
+    L, M = cuda_riccati.factor_stream(D, O)
+    x = cuda_riccati.solve_stream(L, M, b)
+    x1 = cuda_riccati.solve_stream(L, M, b[..., 0].contiguous())
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["factor_stream"] == before["factor_stream"] + 1
+    for sweep in ("solve_fwd_stream", "solve_bwd_stream"):
+        assert cuda_riccati.LAUNCHES[sweep] == before[sweep] + 2
+
+    Lp, Mp = cuda_riccati.factor_stream_plain(D, O)
+    stage_nan = lambda A: torch.isnan(A).flatten(2).any(-1).cpu().numpy()
+    assert (stage_nan(L) == stage_nan(Lp)).all() and (stage_nan(M) == stage_nan(Mp)).all()
+    want = np.zeros((B, T), bool)
+    want[[2, B - 1], bad_stage:] = True
+    assert (stage_nan(L) == want).all()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    ok = torch.tensor(~want, device=cuda)
+    assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+    if T > 1:
+        assert _rel_err(M, Mp, ok[:, :-1]) <= RTOL[dtype]
+    lanes = torch.tensor(~want.any(axis=1), device=cuda)
+    u = cuda_riccati.solve_fwd_stream_plain(Lp, Mp, b)
+    xp = cuda_riccati.solve_bwd_stream_plain(Lp, Mp, u)
+    assert _rel_err(x, xp, lanes) <= RTOL[dtype]
+    assert _rel_err(x1, xp[..., 0], lanes) <= RTOL[dtype]
+    assert bool(torch.isnan(x[~lanes]).all())
+
+
+def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    D = torch.eye(4, device=cuda).repeat(3, 2, 1, 1)
+    with pytest.raises(ValueError, match="shape"):
+        cuda_riccati.factor_stream(D, torch.zeros(3, 2, 4, 4, device=cuda))
+    with pytest.raises(ValueError, match="d <= 64"):
+        cuda_riccati.factor_stream(
+            torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda)
+        )
+    with pytest.raises(TypeError):
+        cuda_riccati.factor_stream(D.half(), torch.zeros(3, 1, 4, 4, device=cuda).half())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_riccati.factor_stream(D.transpose(2, 3), torch.zeros(3, 1, 4, 4, device=cuda))
+    L, M = cuda_riccati.factor_stream(D, torch.zeros(3, 1, 4, 4, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        cuda_riccati.solve_stream(L, M, torch.ones(3, 2, 5, 2, device=cuda))
+    with pytest.raises(TypeError):
+        cuda_riccati.solve_stream(L, M, torch.ones(3, 2, 4, 2, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_riccati.solve_stream(L, M, torch.ones(3, 2, 2, 4, device=cuda).transpose(2, 3))
+    with pytest.raises(ValueError):
+        cuda_riccati.solve_stream(L, M, torch.ones(3, 2, 4, 2))

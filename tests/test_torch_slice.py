@@ -297,18 +297,16 @@ def test_unported_paths_raise(monkeypatch):
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pendulum_solver("torch", 5, bad)
-    # equality_general rows over 2 or more stages need the riccati
-    # backend's low-rank border; "auto" picks riccati at n > 96
+    # (equality_general rows over 2 or more stages on the riccati backend,
+    # the low-rank border, are ported: tests/test_torch_border.py; so are
+    # several right-hand sides on riccati, but not on schur)
     from calipso_tpu_torch.models import pendulum
+    from calipso_tpu_torch.solver import kkt
 
-    T = 33
-    prob = pendulum.swingup_problem(T)
-    periodic = lambda z, th: z[:2] - z[-2:]  # couples the first and last stage
-    with pytest.raises(NotImplementedError, match="border.*ROADMAP"):
-        calipso_tpu_torch.TrajOptSolver(
-            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
-            equality_general=periodic, options=opts(), device="cpu",
-        )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kkt.solve_sym(None, None, torch.zeros(2, 3, 4), 3, 0, 0, "schur")
+
+    prob = pendulum.swingup_problem(33)
     bts = pendulum_solver("torch", 5, opts()).batched()
     bs = calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2, device="cpu")
     for call in (lambda: bts.aot_save("x", 2), lambda: bts.aot_load("x"),
