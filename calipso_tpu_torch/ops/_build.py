@@ -29,7 +29,8 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C entry point: argument types}; every entry point
-# returns a CUDA error code (int)
+# returns a CUDA error code (int), except the fused solve's workspace
+# query (words per lane, or a negated CUDA error code)
 SIGNATURES = {
     "riccati_t1": {
         **{f"calipso_factor_t1_{dt}": [_P, _P, _I, _I, _P] for dt in ("f32", "f64")},
@@ -46,6 +47,11 @@ SIGNATURES = {
             for sweep in ("fwd", "bwd")
             for dt in ("f32", "f64")
         },
+    },
+    "riccati_fused": {
+        **{f"calipso_solve_batched_fused_workspace_{dt}": [_I, _I] for dt in ("f32", "f64")},
+        **{f"calipso_solve_batched_fused_{dt}": [_P, _P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
+        **{f"calipso_solve_batched_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
     },
 }
 SOURCES = tuple(PACKAGE_DIR / "csrc" / f"{stem}.cu" for stem in SIGNATURES)

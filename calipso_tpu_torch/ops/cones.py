@@ -174,6 +174,60 @@ def violation(layout: ConeLayout, xhat, x, tau):
     return (v[..., 0] <= tail_norm).any(dim=-1)
 
 
+def arrow_matrices(layout: ConeLayout, u):
+    """Dense padded per-cone arrow matrices of u (..., m_c), (..., C, D,
+    D). Padded rows and columns carry values the scatter drops."""
+    up = layout.gather(u)
+    eye = torch.eye(up.shape[-1], dtype=u.dtype, device=u.device)
+    A = up[..., 0:1, None] * eye  # u1 * I, a new tensor
+    A[..., 0, :] = up  # head row [u1, ubar]
+    A[..., :, 0] = up  # head column
+    return A
+
+
+def _scatter_blocks(layout: ConeLayout, A):
+    """Per-cone blocks (..., C, D, D) -> the block-diagonal (..., m_c,
+    m_c) matrix; padded slots land on a sacrificial last row and column,
+    which are cut off."""
+    mc = layout.num_cone
+    idx, _, _ = layout._on(A.device)
+    lin = (idx[:, :, None] * (mc + 1) + idx[:, None, :]).flatten()
+    lead = A.shape[:-3]
+    big = A.new_zeros(lead + ((mc + 1) ** 2,)).index_add(-1, lin, A.reshape(lead + (-1,)))
+    return big.reshape(lead + (mc + 1, mc + 1))[..., :mc, :mc]
+
+
+def dense_arrow(layout: ConeLayout, u):
+    """Block-diagonal (..., m_c, m_c) matrix of the per-cone arrow(u)."""
+    if layout.num_cone == 0:
+        return u.new_zeros(u.shape[:-1] + (0, 0))
+    return _scatter_blocks(layout, arrow_matrices(layout, u))
+
+
+def condensed_block(layout: ConeLayout, s, t, eps_p, eps_d):
+    """Dense (B, m_c, m_c) condensed cone block -eps_d*I - M^{-1}
+    arrow(v), v = s - eps_d*e, M = arrow(t) + eps_p*arrow(v) = arrow(w),
+    w = t + eps_p*v, by closed-form arrow solves on the padded cone
+    tensor; s, t (B, m_c), eps_p and eps_d (B,)."""
+    if layout.num_cone == 0:
+        return s.new_zeros(s.shape[:-1] + (0, 0))
+    e = layout.target(s.dtype, s.device)
+    v = s - eps_d[:, None] * e
+    w = t + eps_p[:, None] * v
+    wp = layout.gather(w)  # (B, C, D)
+    Av = arrow_matrices(layout, v)  # (B, C, D, D)
+    # columnwise arrow solve: X[c] = arrow(w[c])^{-1} Av[c]
+    u1 = wp[..., 0:1, None]
+    ubar = wp[..., 1:]
+    det = (wp[..., 0] ** 2 - (ubar**2).sum(dim=-1))[..., None, None]
+    x1, xbar = Av[..., 0:1, :], Av[..., 1:, :]
+    y1 = (u1 * x1 - (ubar[..., :, None] * xbar).sum(dim=-2, keepdim=True)) / det
+    ybar = (xbar - y1 * ubar[..., :, None]) / u1
+    X = torch.cat([y1, ybar], dim=-2)
+    eye = torch.eye(X.shape[-1], dtype=s.dtype, device=s.device)
+    return _scatter_blocks(layout, -X - eps_d[:, None, None, None] * eye)
+
+
 def c_block_solve(layout: ConeLayout, s, t, eps_p, eps_d, b):
     """Solve (eps_d*I + M^{-1} Cv) x = b per cone, where Cv = arrow(v),
     v = s - eps_d*e, M = arrow(w), w = t + eps_p*v; i.e.

@@ -1,6 +1,7 @@
 """Batched Riccati kernels: the dense T=1 Cholesky factor and L L^T solve
-(schur backend), and the block-tridiagonal factor and solve over T
-stages (riccati backend).
+(schur backend), the block-tridiagonal factor and solve over T stages
+(riccati backend), and the fused block-tridiagonal solve
+`solve_batched`.
 
 `factor_t1` replaces the TPU kernel
 `calipso_tpu/ops/pallas_riccati.py:_factor_lanes_t1_kernel`, `solve_t1`
@@ -11,9 +12,16 @@ staged in shared memory). `factor_stream` replaces `_factor_stream_kernel`
 and `solve_stream` replaces `_solve_fwd_stream_kernel` and
 `_solve_bwd_stream_kernel` (`csrc/riccati_stream.cu`: one thread block
 per lane, the next stage's blocks copied into shared memory while the
-current one computes). All are hand-written CUDA for Hopper, built by
-`ops/_build.py`. The stream kernels are the wide-stage route (d >= 33,
-`ops/riccati.route`), and their solve takes K right-hand sides per lane.
+current one computes). `solve_batched_fused` replaces `_riccati_kernel`
+and `solve_batched_lanes` replaces `_riccati_lanes_kernel`
+(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel, one
+thread block per lane with the horizon's factor in shared memory where
+it fits, or one thread per lane on (T, d, d, B) arrays); `solve_batched`,
+the public entry point, takes the first on CUDA tensors, as the
+reference does off the CPU, and no solver path calls it. All are
+hand-written CUDA for Hopper, built by `ops/_build.py`. The stream
+kernels are the wide-stage route (d >= 33, `ops/riccati.route`), and
+their solve takes K right-hand sides per lane.
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -33,7 +41,8 @@ lower triangle on both paths: that is the inertia signal the solver's
 inertia ladder reads, never an exception. In the block-tridiagonal
 factor, a stage t whose Schur block is not positive definite puts NaN
 over the lower triangle of L_t and of every later L, and over every M
-from M_t on (what the reference scan gives by propagation).
+from M_t on (what the reference scan gives by propagation); the fused
+solve puts NaN over all of that lane's x.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 LAUNCHES = {
     "factor_t1": 0, "solve_t1": 0, "factor_lanes": 0, "solve_lanes": 0,
     "factor_stream": 0, "solve_fwd_stream": 0, "solve_bwd_stream": 0,
+    "solve_batched_fused": 0, "solve_batched_lanes": 0,
 }
 MAX_N = 128  # T=1 kernels
 MAX_D = 64  # block-tridiagonal kernels (lanes and stream)
@@ -133,15 +143,23 @@ def solve_bwd_stream_plain(L, M, u):
     return torch.stack(x, dim=1)
 
 
-def _check(name, t, dtype, shape):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+def _check_type(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _check_device(name, t):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check(name, t, dtype, shape):
+    _check_type(name, t, dtype, shape)
+    _check_device(name, t)
 
 
 def _dtype_ok(t, kernels):
@@ -303,3 +321,81 @@ def solve_stream(L, M, b):
     bk = b[..., None] if vec else b
     x = solve_bwd_stream(L, M, solve_fwd_stream(L, M, bk))
     return x[..., 0] if vec else x
+
+
+def solve_batched_plain(D, O, b):
+    """x (B, T, d) with S x = b for the block-tridiagonal S of D (B, T, d,
+    d) and O (B, T-1, d, d): `factor_lanes_plain` then `solve_lanes_plain`
+    (the reference's CPU branch of `solve_batched`, its scan factor and
+    solve under `vmap`). A lane that is not positive definite comes out
+    with NaN over all of its x: the NaN of the failed stage runs through
+    both sweeps."""
+    L, M = factor_lanes_plain(D, O)
+    return solve_lanes_plain(L, M, b)
+
+
+def _batched_args(D, O, b):
+    B, T, d = _lanes_dims(D)
+    args = (("D", D, (B, T, d, d)), ("O", O, (B, T - 1, d, d)), ("b", b, (B, T, d)))
+    for name, t, shape in args:
+        _check_type(name, t, D.dtype, shape)
+    for name, t, _ in args:
+        _check_device(name, t)
+    if not D.device == O.device == b.device:
+        raise ValueError(f"D, O and b on different devices: {D.device}, {O.device}, {b.device}")
+    return B, T, d
+
+
+def _on_cpu(*tensors):
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def solve_batched_fused(D, O, b):
+    """x (B, T, d) of `solve_batched_plain` in one kernel, one thread block
+    per lane; L and M stay in shared memory where the horizon fits, else
+    in a workspace this wrapper allocates (the kernel says which)."""
+    if _on_cpu(D, O, b):
+        return solve_batched_plain(D, O, b)
+    from calipso_tpu_torch.ops import _build
+
+    B, T, d = _batched_args(D, O, b)
+    x = torch.empty_like(b)
+    if B > 0:
+        query = getattr(_build.load("riccati_fused"), f"calipso_solve_batched_fused_workspace_{_SUFFIX[D.dtype]}")
+        with torch.cuda.device(D.device):
+            words = query(T, d)
+        if words < 0:
+            raise RuntimeError(f"solve_batched_fused workspace query failed: CUDA error {-words}")
+        work = torch.empty(B * words, dtype=D.dtype, device=D.device) if words else None
+        _launch(
+            "solve_batched_fused", "riccati_fused", D.dtype, D.device,
+            D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
+            None if work is None else work.data_ptr(), B, T, d,
+        )
+    return x
+
+
+def solve_batched_lanes(D, O, b):
+    """x (B, T, d) of `solve_batched_plain` in one kernel, one thread per
+    lane on (T, d, d, B) copies made here (the transposed O as (T-1, d, d,
+    B)), which the kernel factors in place; x comes back as (B, T, d)."""
+    if _on_cpu(D, O, b):
+        return solve_batched_plain(D, O, b)
+    B, T, d = _batched_args(D, O, b)
+    Dl = D.permute(1, 2, 3, 0).contiguous()
+    OTl = O.permute(1, 3, 2, 0).contiguous()
+    bl = b.permute(1, 2, 0).contiguous()
+    xl = torch.empty_like(bl)
+    if B > 0:
+        _launch(
+            "solve_batched_lanes", "riccati_fused", D.dtype, D.device,
+            Dl.data_ptr(), OTl.data_ptr(), bl.data_ptr(), xl.data_ptr(), B, T, d,
+        )
+    return xl.permute(2, 0, 1).contiguous()
+
+
+def solve_batched(D, O, b):
+    """Batched block-tridiagonal solve, D (B, T, d, d), O (B, T-1, d, d),
+    b (B, T, d) -> x (B, T, d): the plain version for CPU tensors, the
+    fused kernel for CUDA tensors (the reference's choice off the CPU)."""
+    return solve_batched_fused(D, O, b)

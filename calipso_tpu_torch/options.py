@@ -5,11 +5,13 @@ with the same defaults, so one set of options configures both packages
 (`calipso_tpu_torch.utils.convert.options_from_jax` copies one into the
 other and checks that the field sets agree).
 
-The port runs the schur path only. Values that select another path are
-refused at solve time with `NotImplementedError` naming the ROADMAP item
-that brings them (see `solver/solve.py:resolve_options`):
-``linear_solver`` other than "auto"/"schur", ``differentiate=True``,
-``refinement_fallback=True`` and ``spike_mesh``.
+The port has five of the six KKT backends: ``linear_solver`` "schur",
+"riccati", "cr", "ldl" and "lu" (riccati and cr for trajopt problems),
+and ``refinement_fallback=True``. Values that select a path it does not
+have are refused when the solver is built, with `NotImplementedError`
+naming the ROADMAP item that brings them (see
+`solver/solve.py:resolve_options`): ``linear_solver="spike"`` and
+``spike_mesh`` (item 19), ``differentiate=True`` (item 18).
 
 ``matmul_precision="highest"`` keeps float32 matrix products in full
 float32 on the GPU (`torch.backends.cuda.matmul.allow_tf32` and
@@ -47,7 +49,7 @@ class Options:
     max_iterative_refinement: int = 10
     min_iterative_refinement: int = 1
     iterative_refinement_tolerance: float = 1.0e-10
-    # full-system LU escalation after diverging refinement (not ported)
+    # full-system LU escalation after diverging refinement
     refinement_fallback: bool = False
 
     # central path / interior point
@@ -84,8 +86,9 @@ class Options:
     # second derivatives of constraints in the Lagrangian Hessian
     constraint_tensor: bool = True
 
-    # linear-solver backend: "auto" resolves to "schur" (dense Cholesky of
-    # the (n, n) primal Schur complement) for every problem the port runs
+    # linear-solver backend: "auto" resolves to "riccati" for trajopt
+    # problems with more than 96 variables, else "schur" (dense Cholesky of
+    # the (n, n) primal Schur complement); also "cr", "ldl" and "lu"
     linear_solver: str = "auto"
     spike_mesh: object = None
     spike_axis: str = "horizon"

@@ -1,7 +1,8 @@
-"""KKT residual, condensed right-hand side, schur factorization, solve and
-expansion, and the matrix-free 6-block matvec for iterative refinement.
+"""KKT residual, condensed right-hand side and matrix, factorizations,
+solves and expansion, the matrix-free 6-block matvec for iterative
+refinement, and the dense full-system LU step.
 
-The schur half of `calipso_tpu/solver/kkt.py`, batch-first: every vector
+The counterpart of `calipso_tpu/solver/kkt.py`, batch-first: every vector
 is (B, m), every matrix (B, m, n), and every per-lane scalar (rho, eps_p,
 eps_d, kappa) is (B,). All reductions are per lane.
 
@@ -17,7 +18,7 @@ then the dual blocks, onto the (n, n) primal Schur complement
 whose Cholesky factor is the whole factorization. Correct inertia <=> S is
 positive definite <=> the factor is finite.
 
-Two backends factor S:
+The backends (`Options.linear_solver`):
 - "schur": S dense, one (B, n, n) Cholesky.
 - "riccati" (trajopt problems): S in stage-block tridiagonal form (T
   diagonal and T-1 coupling blocks of the stages' widths, padded to the
@@ -27,10 +28,18 @@ Two backends factor S:
   Hessian is built on its path. `equality_general` rows that couple 2 or
   more stages enter as a low-rank border of the banded S (Woodbury, with
   the inertia of a small capacitance matrix; see `_general_border`).
-`solve_sym` takes one right-hand side (B, ns), or on the riccati backend
+- "cr" (trajopt problems): the same stage blocks and border, factored by
+  parallel block cyclic reduction (`ops/cyclic_reduction.py`).
+- "ldl": the dense (B, ns, ns) condensed matrix (`condensed_matrix`,
+  ns = n + m_e + m_c) by unpivoted LDL^T (`ops/ldl.py`), the inertia
+  read exactly off sign(D).
+- "lu": the inertia ladder runs on schur, the step comes from a dense LU
+  solve of the full 6-block system (`lu_solve_full`), which is also the
+  escalation of `Options.refinement_fallback`.
+"spike" (the horizon sharded over devices) is ROADMAP Queue 1 item 19.
+`solve_sym` takes one right-hand side (B, ns), or on riccati, cr and ldl
 several (B, ns, K); several on schur belong to differentiation (ROADMAP
-Queue 1 item 18). The other backends (cr, ldl, lu, spike) are items 16,
-17 and 19.
+Queue 1 item 18).
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ import torch
 import torch.nn.functional as F
 
 from calipso_tpu_torch.ops import cones
+from calipso_tpu_torch.ops import cyclic_reduction as crd
+from calipso_tpu_torch.ops import ldl
 from calipso_tpu_torch.ops import riccati as rc
 
 
@@ -115,6 +126,29 @@ def residual(fx, gty_x, htz_x, g, h, cone_prod, cone_target, point, kappa, rho, 
     return Blocks(rx, rr, rs, ry, rz, rt)
 
 
+def condensed_matrix(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d):
+    """The dense symmetric condensed KKT matrix (B, ns, ns):
+      [ Hxx + eps_p I   gx'                         hx'    ]
+      [ gx              (-1/(rho+eps_p) - eps_d) I  0      ]
+      [ hx              0                           Kcone  ]
+    with Kcone the condensed cone block (`cones.condensed_block`), mildly
+    nonsymmetric for second-order cones and symmetrized here; iterative
+    refinement on the exact 6-block operator absorbs the difference."""
+    Hxx = hess_dense(Hxx)
+    B, n = Hxx.shape[0], Hxx.shape[-1]
+    me, mc = gx.shape[-2], hx.shape[-2]
+    dtype, dev = Hxx.dtype, Hxx.device
+    K11 = Hxx + eps_p[:, None, None] * torch.eye(n, dtype=dtype, device=dev)
+    Keq = (-1.0 / (rho + eps_p) - eps_d)[:, None, None] * torch.eye(me, dtype=dtype, device=dev)
+    Kcone = cones.condensed_block(layout, s, t, eps_p, eps_d)
+    Kcone = 0.5 * (Kcone + Kcone.mT)
+    Z = lambda a, b: Hxx.new_zeros((B, a, b))
+    top = torch.cat([K11, gx.mT, hx.mT], dim=2)
+    mid = torch.cat([gx, Keq, Z(me, mc)], dim=2)
+    bot = torch.cat([hx, Z(mc, me), Kcone], dim=2)
+    return torch.cat([top, mid, bot], dim=1)
+
+
 def condensed_rhs(layout, res: Blocks, s, t, rho, eps_p, eps_d):
     """Condense the 6-block residual to the symmetric (n + m_e + m_c) RHS."""
     req = res.y + res.r / (rho + eps_p)[:, None]
@@ -160,11 +194,49 @@ def matvec(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, d: Blocks) -> Blocks:
     return Blocks(ox, orr, os_, oy, oz, ot)
 
 
+def full_matrix(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d):
+    """The dense regularized 6-block KKT matrix (B, N, N), N = n + 2 m_e +
+    3 m_c, whose product with a step is `matvec`: the nonsymmetric system
+    of the "lu" backend."""
+    Hxx = hess_dense(Hxx)
+    B, n = Hxx.shape[0], Hxx.shape[-1]
+    me, mc = gx.shape[-2], hx.shape[-2]
+    dtype, dev = Hxx.dtype, Hxx.device
+    lane = lambda a: a[:, None, None]
+    eye = lambda m: torch.eye(m, dtype=dtype, device=dev).expand(B, m, m)
+    Ieq, Ic = eye(me), eye(mc)
+    Cs = cones.dense_arrow(layout, t)
+    Ct = cones.dense_arrow(layout, s) - lane(eps_d) * Ic
+    Z = lambda a, b: Hxx.new_zeros((B, a, b))
+    rows = [
+        [Hxx + lane(eps_p) * eye(n), Z(n, me), Z(n, mc), gx.mT, hx.mT, Z(n, mc)],
+        [Z(me, n), lane(rho + eps_p) * Ieq, Z(me, mc), -Ieq, Z(me, mc), Z(me, mc)],
+        [Z(mc, n), Z(mc, me), lane(eps_p) * Ic, Z(mc, me), -Ic, -Ic],
+        [gx, -Ieq, Z(me, mc), -lane(eps_d) * Ieq, Z(me, mc), Z(me, mc)],
+        [hx, Z(mc, me), -Ic, Z(mc, me), -lane(eps_d) * Ic, Z(mc, mc)],
+        [Z(mc, n), Z(mc, me), Cs, Z(mc, me), Z(mc, mc), Ct],
+    ]
+    return torch.cat([torch.cat(r, dim=2) for r in rows], dim=1)
+
+
+def lu_solve_full(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, res: Blocks) -> Blocks:
+    """Solve the full 6-block system with a dense LU per lane. A singular
+    lane comes out as inf or NaN, never an exception."""
+    n = gx.shape[-1]
+    me, mc = gx.shape[-2], hx.shape[-2]
+    J = full_matrix(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d)
+    sol, _ = torch.linalg.solve_ex(J, res.all[..., None])
+    o = np.cumsum([0, n, me, mc, me, mc, mc])
+    return Blocks(*(sol[:, o[i] : o[i + 1], 0] for i in range(6)))
+
+
 class Factorization(NamedTuple):
     """The factorization plus the context needed to apply it."""
 
-    L: torch.Tensor  # schur: (B, n, n) chol(S); riccati: (B, T, d, d) stage factors
-    M: Optional[torch.Tensor]  # riccati: (B, T-1, d, d) couplings; schur: None
+    # schur: (B, n, n) chol(S); riccati: (B, T, d, d) stage factors; ldl:
+    # (B, ns, ns) unit-lower; cr: None
+    L: Optional[torch.Tensor]
+    M: Optional[torch.Tensor]  # riccati: (B, T-1, d, d) couplings; otherwise None
     gx: torch.Tensor
     hx: torch.Tensor
     s: torch.Tensor
@@ -179,23 +251,30 @@ class Factorization(NamedTuple):
     Wg: Optional[torch.Tensor] = None
     Lc: Optional[torch.Tensor] = None
     dc: Optional[torch.Tensor] = None
+    d: Optional[torch.Tensor] = None  # ldl: (B, ns) pivots of D
+    # cr: (levels, L_final) of ops/cyclic_reduction.factor
+    cr: Optional[tuple] = None
+
+
+STRUCTURED = ("riccati", "cr")  # the backends that need a stage structure
 
 
 def check_method(method, structure=None):
-    """Refuse every backend the port does not have, naming the ROADMAP
-    item that brings it."""
-    if method == "schur":
+    """Refuse a backend the port does not have (spike, naming the ROADMAP
+    item that brings it) or one the problem cannot take."""
+    if method in ("schur", "ldl", "lu"):
         return
-    if method == "riccati":
+    if method in STRUCTURED:
         if structure is None:
             raise ValueError(
-                "linear_solver='riccati' requires a trajopt problem (stage structure)"
+                f"linear_solver={method!r} requires a trajopt problem (stage structure)"
             )
         return
-    raise NotImplementedError(
-        f"linear_solver={method!r}: the port has the schur and riccati backends "
-        "(cr: ROADMAP Queue 1 item 17; ldl/lu: item 16; spike: item 19)"
-    )
+    if method == "spike":
+        raise NotImplementedError(
+            "linear_solver='spike': horizon sharding over devices is ROADMAP Queue 1 item 19"
+        )
+    raise ValueError(f"unknown linear_solver {method!r}")
 
 
 def _ceq(rho, eps_p, eps_d):
@@ -203,17 +282,31 @@ def _ceq(rho, eps_p, eps_d):
     return 1.0 / (rho + eps_p) + eps_d
 
 
+def _has_border(structure):
+    return bool(structure.num_general) and len(structure.general_stages) >= 2
+
+
 def factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method="schur", structure=None):
-    """Form the primal Schur complement S and factor it (kernels on CUDA):
-    dense for "schur", in stage blocks for "riccati"."""
+    """Factor the condensed system: the primal Schur complement S dense
+    for "schur" (and "lu", whose ladder runs on it) through the T=1
+    kernels, in stage blocks for "riccati" (the block-tridiagonal kernels)
+    and "cr" (cyclic reduction), or the whole condensed matrix for
+    "ldl"."""
     check_method(method, structure)
-    if method == "riccati":
+    if method in STRUCTURED:
         D, O = _riccati_blocks(layout, structure, Hxx, gx, hx, s, t, rho, eps_p, eps_d)
-        L, M = rc.factor(D, O)
-        border = (None, None, None)
-        if structure.num_general and len(structure.general_stages) >= 2:
-            border = _general_border(structure, L, M, gx, rho, eps_p, eps_d)
-        return Factorization(L, M, gx, hx, s, t, rho, eps_p, eps_d, *border)
+        if method == "riccati":
+            L, M = rc.factor(D, O)
+            fact = Factorization(L, M, gx, hx, s, t, rho, eps_p, eps_d)
+        else:
+            fact = Factorization(None, None, gx, hx, s, t, rho, eps_p, eps_d, cr=crd.factor(D, O))
+        if _has_border(structure):
+            Wg, Lc, dc = _general_border(structure, _block_solver(fact), gx, rho, eps_p, eps_d)
+            fact = fact._replace(Wg=Wg, Lc=Lc, dc=dc)
+        return fact
+    if method == "ldl":
+        L, dvec = ldl.ldl_factor(condensed_matrix(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d))
+        return Factorization(L, None, gx, hx, s, t, rho, eps_p, eps_d, d=dvec)
     Hxx = hess_dense(Hxx)
     n = Hxx.shape[-1]
     ceq = _ceq(rho, eps_p, eps_d)
@@ -308,11 +401,19 @@ def _riccati_blocks(layout, st, Hxx, gx, hx, s, t, rho, eps_p, eps_d):
     return D, O
 
 
-def _banded_solve_multi(structure, L, M, Bm):
-    """Apply S_band^{-1} to the columns of Bm (B, n, K) through the
-    stage-block factor (L, M)."""
+def _block_solver(fact: Factorization):
+    """The stage-block solve of a riccati or cr factorization: (B, T,
+    dmax, K) right-hand sides -> S_band^{-1} applied to them."""
+    if fact.cr is not None:
+        return lambda Bb: crd.solve_multi(fact.cr, Bb)
+    return lambda Bb: rc.solve_multi(fact.L, fact.M, Bb)
+
+
+def _banded_solve_multi(structure, solve_blocks, Bm):
+    """Apply S_band^{-1} to the columns of Bm (B, n, K) through
+    `solve_blocks` (see `_block_solver`)."""
     Bb = structure.to_blocks(Bm.mT).permute(0, 2, 3, 1)  # (B, T, dmax, K)
-    X = rc.solve_multi(L, M, Bb)
+    X = solve_blocks(Bb)
     return structure.from_blocks(X.permute(0, 3, 1, 2)).mT
 
 
@@ -336,7 +437,7 @@ def _border_V(structure, gx):
     return (JgT[:, :, None, :] * mask[None, :, :, None]).flatten(2)  # column s*rg + r
 
 
-def _general_border(structure, L, M, gx, rho, eps_p, eps_d):
+def _general_border(structure, solve_blocks, gx, rho, eps_p, eps_d):
     """Border factorization for S = S_bd + V Kx V' (see _border_V; S_bd is
     the banded part, including the folded block diagonal of Jg'Jg/c_eq).
 
@@ -352,7 +453,7 @@ def _general_border(structure, L, M, gx, rho, eps_p, eps_d):
     k = len(structure.general_stages)
     dtype, dev = gx.dtype, gx.device
     V = _border_V(structure, gx)
-    Wg = _banded_solve_multi(structure, L, M, V)
+    Wg = _banded_solve_multi(structure, solve_blocks, V)
     # Kx^{-1} = c_eq ((11' - I)^{-1} kron I_rg), (11' - I)^{-1} = 11'/(k-1) - I
     Jk = torch.ones((k, k), dtype=dtype, device=dev) / (k - 1) - torch.eye(k, dtype=dtype, device=dev)
     Kx_inv = _ceq(rho, eps_p, eps_d)[:, None, None] * torch.kron(Jk, torch.eye(rg, dtype=dtype, device=dev))
@@ -383,7 +484,7 @@ def _border_inertia_ok(fact: Factorization, structure):
     (k-1) r_g, 0) (Haynsworth; see _general_border). Eigenvalues within a
     dtype-scaled band of zero count as zero eigenvalues."""
     if fact.dc is None:
-        return torch.ones(fact.L.shape[0], dtype=torch.bool, device=fact.L.device)
+        return torch.ones(fact.gx.shape[0], dtype=torch.bool, device=fact.gx.device)
     rg = structure.num_general
     k = len(structure.general_stages)
     dc = fact.dc
@@ -394,10 +495,19 @@ def _border_inertia_ok(fact: Factorization, structure):
 
 
 def inertia_ok(fact: Factorization, structure=None):
-    """Target inertia, per lane: the Cholesky factor is finite (schur and
-    riccati alike), and on a riccati border the capacitance has the
-    target inertia."""
-    return torch.isfinite(fact.L).flatten(1).all(dim=1) & _border_inertia_ok(fact, structure)
+    """Target inertia (n positive, m_e + m_c negative, no zero
+    eigenvalue), per lane. ldl reads it off sign(D); the Cholesky backends
+    off a finite factor (schur and riccati: L; cr: every level's), with
+    the capacitance's inertia on a border."""
+    if fact.d is not None:
+        n, me, mc = fact.gx.shape[-1], fact.gx.shape[-2], fact.hx.shape[-2]
+        pos, neg, zero = ldl.inertia_counts(fact.d)
+        return (pos == n) & (neg == me + mc) & (zero == 0)
+    if fact.cr is not None:
+        ok = crd.factors_finite(fact.cr)
+    else:
+        ok = torch.isfinite(fact.L).flatten(1).all(dim=1)
+    return ok & _border_inertia_ok(fact, structure)
 
 
 def _tiny_pivots(diags):
@@ -411,27 +521,56 @@ def _tiny_pivots(diags):
     return (finite & (a <= thr)).sum(dim=-1).to(torch.int32)
 
 
+def _cr_pad_masks(structure, device):
+    """The padded slots of the stages cyclic reduction factors at each
+    level: (co, dmax) for a level's odd stages (level l eliminates
+    original stages (2k+1) 2^l), then (dmax,) for the final stage."""
+    pad = structure.blk_idx == structure.num_variables
+    stages = np.arange(structure.horizon)
+    masks = []
+    while len(stages) > 1:
+        masks.append(structure.tensor(("cr_pad", len(masks)), pad[stages[1::2]], device))
+        stages = stages[0::2]
+    masks.append(structure.tensor(("cr_pad", "final"), pad[stages[0]], device))
+    return masks
+
+
 def num_zero_eigs(fact: Factorization, method="schur", structure=None):
     """Zero-eigenvalue count for the rank-deficiency branch of the
-    inertia correction, per lane. The riccati backend excludes the padded
-    unit pivots of ragged stages."""
+    inertia correction, per lane: exact from sign(D) for ldl; for the
+    Cholesky backends, pivots that collapsed below a dtype-scaled
+    threshold. riccati and cr exclude the padded unit pivots of ragged
+    stages (padded dimensions stay identity through every reduction)."""
+    if method == "ldl":
+        return ldl.inertia_counts(fact.d)[2]
+    nan = lambda a: torch.full_like(a, float("nan"))
+    if method == "cr":
+        levels, L_final = fact.cr
+        diags = [torch.diagonal(Lodd, dim1=-2, dim2=-1) for Lodd, _, _ in levels]
+        diags.append(torch.diagonal(L_final, dim1=-2, dim2=-1))
+        if structure is not None:
+            masks = _cr_pad_masks(structure, L_final.device)
+            diags = [torch.where(pad, nan(dg), dg) for pad, dg in zip(masks, diags)]
+        return _tiny_pivots(torch.cat([dg.flatten(1) for dg in diags], dim=1))
     diags = torch.diagonal(fact.L, dim1=-2, dim2=-1)  # (B, n) or (B, T, dmax)
     if method == "riccati":
         pad = structure.pad_mask(diags.device)
-        diags = torch.where(pad, torch.full_like(diags, float("nan")), diags).flatten(1)
+        diags = torch.where(pad, nan(diags), diags).flatten(1)
     return _tiny_pivots(diags)
 
 
 def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", structure=None):
     """Solve the condensed symmetric system for rhs (B, n + m_e + m_c), or
-    on the riccati backend for K right-hand sides at once, rhs (B, n +
-    m_e + m_c, K)."""
+    on the riccati, cr and ldl backends for K right-hand sides at once,
+    rhs (B, n + m_e + m_c, K). "lu" applies its schur factor."""
     vec = rhs.dim() == 2
-    if not vec and method != "riccati":
+    if not vec and method not in STRUCTURED + ("ldl",):
         raise NotImplementedError(
             "solve_sym with several right-hand sides on the schur backend belongs "
             "to differentiation: ROADMAP Queue 1 item 18"
         )
+    if method == "ldl":
+        return ldl.ldl_solve(fact.L, fact.d, rhs)
     # per-lane matrix products and scalings of one column or of K columns
     mv = _mv if vec else (lambda A, X: A @ X)
     mtv = _mtv if vec else (lambda A, X: A.mT @ X)
@@ -446,15 +585,16 @@ def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", struc
     if mc > 0:
         t3 = cones.c_block_solve(layout, fact.s, fact.t, fact.eps_p, fact.eps_d, rcone)
         rhs_x = rhs_x + mtv(fact.hx, t3)
-    if method == "riccati":
-        if vec:
+    if method in STRUCTURED:
+        if vec and method == "riccati":
             dx = structure.from_blocks(rc.solve(fact.L, fact.M, structure.to_blocks(rhs_x)))
         else:
-            dx = _banded_solve_multi(structure, fact.L, fact.M, rhs_x)
+            cols = _banded_solve_multi(structure, _block_solver(fact), rhs_x[..., None] if vec else rhs_x)
+            dx = cols[..., 0] if vec else cols
         dx = _apply_border(fact, structure, dx)
     else:
         dx = rc.chol_solve(fact.L, rhs_x.contiguous())
-    dy =(mv(fact.gx, dx) - req) / lane(ceq) if me > 0 else req
+    dy = (mv(fact.gx, dx) - req) / lane(ceq) if me > 0 else req
     if mc > 0:
         dz = cones.c_block_solve(
             layout, fact.s, fact.t, fact.eps_p, fact.eps_d, mv(fact.hx, dx) - rcone

@@ -41,11 +41,6 @@ def _refuse_unported(opts):
         raise NotImplementedError(
             "differentiate=True: implicit differentiation is ROADMAP Queue 1 item 18"
         )
-    if opts.refinement_fallback:
-        raise NotImplementedError(
-            "refinement_fallback=True: the full-system LU fallback is ROADMAP "
-            "Queue 1 item 16"
-        )
     if opts.spike_mesh is not None:
         raise NotImplementedError(
             "spike_mesh: horizon sharding is ROADMAP Queue 1 item 19"
@@ -98,7 +93,8 @@ class State(NamedTuple):
     equality_violation: torch.Tensor
     cone_product_violation: torch.Tensor
     step_size: torch.Tensor
-    # steps that escalated to a full-system LU (always 0: not ported)
+    # steps that escalated to the full-system LU after refinement failed
+    # (Options.refinement_fallback)
     num_fallbacks: torch.Tensor
     # cost-accounting counters: inertia-ladder re-factorizations,
     # refinement correction trips and line-search chunk evaluations
@@ -113,7 +109,12 @@ def _where(mask, a, b):
 
 
 def select(mask, new, old):
-    """Lane-wise choice between two states (or Blocks): new where mask."""
+    """Lane-wise choice between two states, Blocks or nested tuples of
+    tensors (None stays None): new where mask."""
+    if new is None:
+        return None
+    if type(new) is tuple:
+        return tuple(select(mask, a, b) for a, b in zip(new, old))
     if isinstance(new, tuple):
         return type(new)(*(select(mask, a, b) for a, b in zip(new, old)))
     return _where(mask, new, old)
@@ -190,12 +191,14 @@ def make_solve(fns, layout, opts, callbacks=None):
     n, me, mc, npar = dims.variables, dims.equality, dims.cone, dims.parameters
     ntot = dims.total
     opts = resolve_options(opts, fns)
-    method = opts.linear_solver
+    # "lu" runs the inertia ladder and its condensed solves on schur; its
+    # steps come from the full-system LU (do_step)
+    method = "schur" if opts.linear_solver == "lu" else opts.linear_solver
     structure = getattr(fns, "stage_structure", None)
-    # the riccati backend reads the Hessian as stage blocks straight from
-    # the structured oracles, never as a dense (n, n) matrix
+    # the riccati and cr backends read the Hessian as stage blocks straight
+    # from the structured oracles, never as a dense (n, n) matrix
     block_maps = getattr(fns, "_block_maps", None)
-    use_band_hessian = method == "riccati" and block_maps is not None and block_maps() is not None
+    use_band_hessian = method in kkt.STRUCTURED and block_maps is not None and block_maps() is not None
     stats = {"host_syncs": 0}
 
     def any_lane(mask):
@@ -261,6 +264,9 @@ def make_solve(fns, layout, opts, callbacks=None):
         e_d0 = torch.full_like(kappa, opts.dual_regularization_initial)
         fact0 = factorize(Hxx, gx, hx, s, t, rho, e_p0, e_d0)
         ok0 = kkt.inertia_ok(fact0, structure)
+        # the pieces of a factorization that vary (the factors and the
+        # border; None where the backend has none)
+        varying = lambda f: (f.L, f.M, f.Wg, f.Lc, f.dc, f.d, f.cr)
 
         # rank deficiency -> dual regularization scaled by kappa
         zero0 = kkt.num_zero_eigs(fact0, method, structure)
@@ -281,9 +287,8 @@ def make_solve(fns, layout, opts, callbacks=None):
             torch.full_like(kappa, opts.scaling_regularization),
         )
 
-        # the ladder carries the varying pieces of the factorization (the
-        # factors and the border, None where absent) lane by lane
-        core = (fact0.L, fact0.M, fact0.Wg, fact0.Lc, fact0.dc)
+        # the ladder carries them lane by lane
+        core = varying(fact0)
         e_p_fact, e_d_fact = e_p0, e_d0
         e_p, done = e_p1, ok0
         failed = torch.zeros_like(ok0)
@@ -296,16 +301,15 @@ def make_solve(fns, layout, opts, callbacks=None):
             ok = kkt.inertia_ok(fact, structure)
             e_p_next = torch.where(ok, e_p, e_p * scale)
             fail_now = ~ok & (e_p_next > max_reg)
-            new = (fact.L, fact.M, fact.Wg, fact.Lc, fact.dc)
-            core = tuple(None if a is None else _where(act, a, b) for a, b in zip(new, core))
+            core = select(act, varying(fact), core)
             e_p_fact = torch.where(act, e_p, e_p_fact)
             e_d_fact = torch.where(act, e_d1, e_d_fact)
             e_p = torch.where(act, e_p_next, e_p)
             done = torch.where(act, ok, done)
             failed = torch.where(act, fail_now, failed)
             trips = trips + act.to(trips.dtype)
-        L, M, Wg, Lc, dc = core
-        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact, Wg, Lc, dc)
+        L, M, Wg, Lc, dc, dvec, cr = core
+        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact, Wg, Lc, dc, dvec, cr)
         # the warm start moves only when the ladder ran
         eps_p_last_new = torch.where(ok0, eps_p_last, e_p_fact)
         return fact, failed, eps_p_last_new, trips
@@ -314,7 +318,9 @@ def make_solve(fns, layout, opts, callbacks=None):
 
     def refine(lanes, step, res, Hxx, gx, hx, fact, s, t, rho):
         """Refine a search direction on the exact (matrix-free) 6-block
-        operator. Returns (step, trips)."""
+        operator; with `refinement_fallback`, escalate a lane whose refined
+        step failed to the full-system LU step. Returns (step, fell_back,
+        trips)."""
 
         def err_of(stp):
             mv = kkt.matvec(layout, Hxx, gx, hx, s, t, rho, fact.eps_p, fact.eps_d, stp)
@@ -344,7 +350,21 @@ def make_solve(fns, layout, opts, callbacks=None):
             done = torch.where(act, done_now, done)
         # never return a step worse than the unrefined one
         ok = en <= torch.clamp(en0, min=opts.iterative_refinement_tolerance)
-        return select(ok, stp, step), i
+        best = select(ok, stp, step)
+        fell_back = torch.zeros_like(i)
+        if not opts.refinement_fallback:
+            return best, fell_back, i
+        # the reference's escalation: a refined step that solves fewer than
+        # ~2 digits of the system relative to the residual scale is
+        # replaced by the full-system LU step where that one is measurably
+        # better (its lax.cond becomes this lane mask)
+        en_best = torch.minimum(en, en0)
+        failed = lanes & (en_best > 1.0e-2 * inf_norm(res.all))
+        if not any_lane(failed):
+            return best, fell_back, i
+        lu_step = kkt.lu_solve_full(layout, Hxx, gx, hx, s, t, rho, fact.eps_p, fact.eps_d, res)
+        better = failed & (inf_norm(err_of(lu_step).all) < 0.5 * en_best)
+        return select(better, lu_step, best), better.to(i.dtype), i
 
     # ---- fraction-to-the-boundary cone search ----------------------------
 
@@ -405,10 +425,15 @@ def make_solve(fns, layout, opts, callbacks=None):
             take, Hxx, gx, hx, s, t, st.rho, st.kappa, st.eps_p_last
         )
 
-        step = solve_with(fact, res)
         refine_trips = torch.zeros_like(ladder_trips)
-        if opts.iterative_refinement:
-            step, refine_trips = refine(take, step, res, Hxx, gx, hx, fact, s, t, st.rho)
+        fell_back = torch.zeros_like(ladder_trips)
+        if opts.linear_solver == "lu":
+            # the exact full-system solve; refinement is unnecessary
+            step = kkt.lu_solve_full(layout, Hxx, gx, hx, s, t, st.rho, fact.eps_p, fact.eps_d, res)
+        else:
+            step = solve_with(fact, res)
+            if opts.iterative_refinement:
+                step, fell_back, refine_trips = refine(take, step, res, Hxx, gx, hx, fact, s, t, st.rho)
 
         barrier_val = cones.barrier(layout, s)
         barrier_grad = cones.barrier_gradient(layout, s)
@@ -549,6 +574,7 @@ def make_solve(fns, layout, opts, callbacks=None):
             inner_i=st.inner_i + 1,
             total_i=st.total_i + 1,
             step_size=alpha,
+            num_fallbacks=st.num_fallbacks + fell_back,
             num_ladder=st.num_ladder + ladder_trips,
             num_refine=st.num_refine + refine_trips,
             num_ls_chunks=st.num_ls_chunks + ls_chunks,

@@ -14,7 +14,11 @@ Phases (each fails loudly; none catches its own failure):
      solve_fwd_stream, solve_bwd_stream) at the batched quadruped's shape
      (B=128, T=8, d=54) with K=1 and K=22 right-hand sides and at
      (B=1024, T=31, d=9), in float32 and float64, with 8 lanes that are
-     not positive definite (NaN on both paths, from the same stage on);
+     not positive definite (NaN on both paths, from the same stage on),
+     and (2d) the fused block-tridiagonal solves (solve_batched_fused,
+     solve_batched_lanes) at the rocket's and the quadruped's shapes
+     against their plain version, float32 and float64, 8 lanes not
+     positive definite (NaN over all of their x);
   3. solve the benchmark flagship -- 8192 pendulum swing-up trajopt
      problems, T=11, n=32, 24 equality rows, initial state as the stage-0
      parameter, every tolerance 1e-4 -- through
@@ -30,11 +34,33 @@ Phases (each fails loudly; none catches its own failure):
      with linear_solver="auto" resolving to riccati; require factor_lanes
      and solve_lanes to have launched and the T=1 kernels not; re-solve
      the first 16 lanes on the CPU in float64; time three warm batches and
-     profile one;
+     profile one; keep the blocks of its tenth riccati factorization;
+  8. call the public solve_batched (the fused kernel) and
+     solve_batched_lanes on those blocks with a seeded right-hand side,
+     counts zeroed just before: both must launch and nothing else, and
+     both agree with ops/riccati's factor + solve on the card;
+  9. the cr backend: rocket101 as bench.py:598-645 runs it (T=101, n=903,
+     100 cones, float32, tolerances 1e-4, max_iterative_refinement=2), a
+     cold and a warm solve, and a warm one on riccati beside it; the same
+     solve in float64 with default
+     Options on tests/golden/rocket101.npz (states within 1e-3,
+     iterations within 2); the batched rocket (B=1024) on cr in float32,
+     at least B-8 solved, with a CPU float64 re-solve of 4 lanes;
+  10. the pendulum flagship family at B=1024 in float64 on ldl, on lu
+     (its ladder on the T=1 factor kernel) and on schur with
+     refinement_fallback=True: at least B-8 solved each, a CPU float64
+     re-solve of 4 lanes with the same flags and iterations, one warm
+     batch each; then the fallback made to fire: schur with
+     refinement_fallback=True and the Cholesky factor of every 4th lane
+     scaled by 1e4 inside kkt.factorize, where each broken lane and no
+     other must fall back to the LU step, with the same flags, iterations
+     and fallback counts as a CPU float64 re-solve of 4 lanes under the
+     same plant (phases 8-10 run right after phase 4);
   5. time each kernel at its main-path shape against its plain version
      and, where one PyTorch call computes the same function, that call;
-     and the lanes and stream kernels side by side at the quadruped's and
-     the rocket's shapes (run right after phase 2);
+     the lanes and stream kernels side by side at the quadruped's and the
+     rocket's shapes; and the fused solves beside the split factor + solve
+     pair at both (run right after phase 2);
   6. solve the bench's batched quadruped (bench.py:396-503) -- 128
      contact-implicit stance MPC problems, H=8 stages (n=400, stage
      blocks d=54, 344 equality rows, 412 cone rows), stance heights from
@@ -120,6 +146,26 @@ PROFILE_ITERS_QUAD = 5
 STREAM_SHAPES = ((B_QUAD, HORIZON_QUAD, 54, 1), (B_QUAD, HORIZON_QUAD, 54, 22), (B_ROCKET, HORIZON_ROCKET, 9, 1))
 GOLDEN_GAIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "quadruped_gait.npz")
 
+# the fused block-tridiagonal solves (TPU kernels 8 and 9), checked at the
+# batched rocket's and the quadruped's stage blocks
+BATCHED_KERNELS = ("solve_batched_fused", "solve_batched_lanes")
+BATCHED_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (B_QUAD, HORIZON_QUAD, 54))
+# the rocket batch's riccati factorization whose blocks the solve_batched
+# phase solves again (the first ones are at the initial point)
+CAPTURE_CALL = 10
+# rocket101 (bench.py:598-645) on cr, and its golden
+HORIZON_101 = 101
+GOLDEN_ROCKET101 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "rocket101.npz")
+# the ldl, lu and fallback phases: the flagship's pendulum at B=1024 in
+# float64; their CPU float64 re-solves (and the cr rocket batch's) take 4
+# lanes, held to the float64 solutions' agreement
+B_DENSE = 1024
+CPU_LANES_RESOLVE = 4
+CPU_ATOL_DENSE = 1e-6
+# the fallback's escalation made to fire: the schur factor of every 4th
+# lane scaled by 1e4 (broken_factor)
+BROKEN_EVERY, BROKEN_SCALE = 4, 1.0e4
+
 
 def check(cond, msg):
     if not cond:
@@ -156,11 +202,19 @@ def bound(nbytes, flops):
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
+def factor_flops(T, d):
+    """Operations of one lane's block-tridiagonal factor: T Cholesky
+    factors (d^3/3 each) and, for the T-1 couplings, M_t = L_t^-1 O_t' (d^3)
+    and the symmetric update D_t+1 - M_t' M_t, lower triangle only
+    (d^2 (d+1))."""
+    return T * d**3 / 3.0 + (T - 1) * (d * d * (d + 1) + d**3)
+
+
 def factor_bound(B, T, d):
     """bound() of a float32 block-tridiagonal factor: D and O read, L and M
     written."""
     dd = d * d
-    return bound((2 * T + 2 * (T - 1)) * dd * 4 * B, (1.0 / 3.0 + 1.0 + 2.0) * dd * d * T * B)
+    return bound((2 * T + 2 * (T - 1)) * dd * 4 * B, factor_flops(T, d) * B)
 
 
 def solve_bound(B, T, d, K=1, sweeps=2):
@@ -474,6 +528,323 @@ def routes_timed_at(tag, cr, dev, B, T, d):
         )
 
 
+def batched_bound(B, T, d):
+    """bound() of a float32 fused block-tridiagonal solve: D, O and b read
+    once, x written once; the factor's operations and both sweeps' (a
+    triangular solve a stage each, d^2, and a product with M_t each, 2 d^2,
+    for the T-1 couplings)."""
+    dd = d * d
+    sweeps = 2 * dd * T + 4 * dd * (T - 1)
+    return bound((T * dd + (T - 1) * dd + 2 * T * d) * 4 * B, (factor_flops(T, d) + sweeps) * B)
+
+
+def check_batched(tag, cr, dev, B, T, d, errs):
+    """solve_batched_fused and solve_batched_lanes against
+    solve_batched_plain at (B, T, d) in float32 and float64, with 8 lanes
+    not positive definite from the middle stage on (NaN over all of their
+    x on every path); each wrapper's launch counter must move by one."""
+    import torch
+
+    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+    shape = f"B={B} T={T} d={d}"
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64[..., 0]))
+        before = dict(cr.LAUNCHES)
+        got = {k: getattr(cr, k)(D, O, b) for k in BATCHED_KERNELS}
+        torch.cuda.synchronize()
+        moved = {k: cr.LAUNCHES[k] - before[k] for k in BATCHED_KERNELS}
+        check(all(v == 1 for v in moved.values()), f"batched solves {name} {shape}: launches {moved}")
+        xp = cr.solve_batched_plain(D, O, b)
+        ok = ~torch.isnan(xp).flatten(1).any(1)
+        check(
+            torch.nonzero(~ok)[:, 0].tolist() == bad_lanes.tolist() and bool(torch.isnan(xp[~ok]).all()),
+            f"solve_batched_plain {name} {shape}: NaN lanes {torch.nonzero(~ok)[:, 0].tolist()}",
+        )
+        for kname, x in got.items():
+            check(
+                bool(torch.isnan(x[~ok]).all()) and bool(torch.isfinite(x[ok]).all()),
+                f"{kname} {name} {shape}: the NaN lanes differ from the plain version's",
+            )
+            rel_check(tag, kname, name, shape, x, xp, ok, errs, (kname, name, T))
+        print(f"{tag} batched solves {name} {shape}: NaN over all of lanes {bad_lanes.tolist()} (stage {bad_stage}), on every path")
+
+
+def batched_timed_at(tag, cr, dev, B, T, d, times=None):
+    """The fused solves, the split factor + solve pair of the route
+    ops/riccati.route takes at d, and the plain version, timed side by side
+    at (B, T, d), float32, every lane positive definite. The lanes
+    wrapper's time includes its layout copies. Into `times`, when given,
+    the kernel, plain and bound times of the two fused solves."""
+    import torch
+
+    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+    D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
+    D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64[..., 0]))
+    if d >= 33:
+        split_name, split = "factor_stream + solve_stream", lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
+    else:
+        split_name, split = "factor_lanes + solve_lanes", lambda: cr.solve_lanes(*cr.factor_lanes(D, O), b)
+    bms, by = batched_bound(B, T, d)
+    plain_ms = cuda_ms(lambda: cr.solve_batched_plain(D, O, b), 10)
+    measured = {}
+    for kname, fn, reps in (
+        ("solve_batched_fused", lambda: cr.solve_batched_fused(D, O, b), 50),
+        ("solve_batched_lanes", lambda: cr.solve_batched_lanes(D, O, b), 10),
+        (split_name, split, 50),
+    ):
+        measured[kname] = ms = cuda_ms(fn, reps)
+        print(
+            f"{tag} {kname} float32 B={B} T={T} d={d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.2f}% of the bound"
+        )
+    print(
+        f"{tag} fused against split at B={B} T={T} d={d}: solve_batched_fused "
+        f"{measured['solve_batched_fused'] / measured[split_name]:.3f}x the time of {split_name}"
+    )
+    if times is not None:
+        for k in BATCHED_KERNELS:
+            times[k] = (measured[k], plain_ms, None, (bms, by))
+
+
+def solve_batched_phase(tag, cr, rc, D, O):
+    """The solve_batched entry point and its lanes variant on blocks one of
+    the rocket batch's riccati factorizations received, with a seeded
+    right-hand side, counts zeroed just before: both kernels must launch
+    and nothing else, and both solutions must agree with ops/riccati's
+    factor + solve on the card within that route's own float32 error (both
+    held to the float64 plain solution). Returns the launch counts."""
+    import torch
+
+    B, T, d = D.shape[0], D.shape[1], D.shape[2]
+    b = torch.tensor(np.random.default_rng(8).normal(size=(B, T, d)), dtype=D.dtype, device=D.device)
+    zero_launches(cr)
+    got = {"solve_batched_fused": cr.solve_batched(D, O, b), "solve_batched_lanes": cr.solve_batched_lanes(D, O, b)}
+    torch.cuda.synchronize()
+    launches = dict(cr.LAUNCHES)
+    print(f"{tag} kernel launches in the solve_batched run (B={B} T={T} d={d}, rocket blocks): {launches}")
+    check(all(launches[k] > 0 for k in BATCHED_KERNELS), f"a fused solve never launched: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in BATCHED_KERNELS), f"another kernel launched: {launches}")
+    xr = rc.solve(*rc.factor(D, O), b)
+    x64 = cr.solve_batched_plain(D.double(), O.double(), b.double())
+    ok = torch.isfinite(x64).flatten(1).all(1)
+    scale = float(x64[ok].abs().max())
+    err_r = float((xr[ok].double() - x64[ok]).abs().max())
+    print(
+        f"{tag} solve_batched on rocket blocks: {int(ok.sum())}/{B} lanes positive definite; "
+        f"riccati factor + solve float32 max |x - x64| {err_r:.3e} (max |x64| {scale:.3e})"
+    )
+    for kname, x in got.items():
+        check(bool(torch.isnan(x[~ok]).all()), f"{kname} on rocket blocks: a failed lane came out finite")
+        err = float((x[ok].double() - x64[ok]).abs().max())
+        diff = float((x[ok] - xr[ok]).abs().max())
+        limit = 10.0 * err_r + RTOL["float32"] * scale
+        print(
+            f"{tag} {kname} on rocket blocks float32: max |x - x64| {err:.3e}, max |x - x_riccati| {diff:.3e} "
+            f"(limit {limit:.3e}: ten times the riccati route's own error plus 1e-4 of max |x64|)"
+        )
+        check(err <= limit, f"{kname} disagrees with the riccati route on rocket blocks")
+    return launches
+
+
+def rocket101_solver(options, device, dtype):
+    """bench.py:598-645: the T=101 rocket landing (903 variables, 100
+    three-dimensional cones), states from the problem's guess, actions
+    1e-3 N(0, 1) (default_rng(0)). Returns (solver, guess)."""
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import rocket
+
+    prob = rocket.landing_problem(horizon=HORIZON_101)
+    kw = {k: v for k, v in prob.items() if k not in ("state_guess", "state_initial", "state_goal")}
+    ts = TrajOptSolver(options=options, device=device, **kw)
+    guess = np.zeros(ts.num_variables, dtype=dtype)
+    for t, idx in enumerate(ts._state_indices):
+        guess[idx] = np.asarray(prob["state_guess"][t])
+    rng = np.random.default_rng(0)
+    for t, idx in enumerate(ts._action_indices):
+        guess[idx] = 1e-3 * rng.normal(size=3)
+    return ts, guess
+
+
+def cr_phase(tag, cr, Options, dev):
+    """The cr backend on the card: rocket101 as the bench runs it
+    (float32, one cold and one warm solve), the same solve in float64 with
+    default Options on its golden, and the batched rocket (B=1024) in
+    float32 with a CPU float64 re-solve of 4 lanes."""
+    import torch
+
+    opts = tol_options(Options, max_iterative_refinement=2, linear_solver="cr")
+    ts, guess = rocket101_solver(opts, dev, np.float32)
+    check(ts.solver.options.linear_solver == "cr", f"rocket101 on {ts.solver.options.linear_solver}")
+    zero_launches(cr)
+    t0 = time.time()
+    ts.solver.initialize(torch.tensor(guess, device=dev))
+    r = ts.solver.solve()
+    torch.cuda.synchronize()
+    cold = time.time() - t0
+    launches = dict(cr.LAUNCHES)
+    x = r.variables
+    t0 = time.time()
+    rw = ts.solver.solve(x0=torch.tensor(guess + 1e-5, device=dev))  # bench.py perturbs each rep
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+    print(
+        f"{tag} rocket101 on cr (float32, n={ts.num_variables}): solved {bool(r.solved)}, iterations "
+        f"{int(r.iterations)}, cold {cold:.3f} s; warm solve: solved {bool(rw.solved)}, iterations "
+        f"{int(rw.iterations)}, {warm:.4f} s (host clock); kernel launches {launches} (cr runs no kernel of its own)"
+    )
+    check(bool(r.solved) and bool(rw.solved), "rocket101 on cr did not solve in float32")
+    check(bool(torch.isfinite(x).all()) and tuple(x.shape) == (ts.num_variables,), "rocket101: bad solution")
+    # the same solve on riccati, beside it (the reference chose cr for it)
+    rts101, _ = rocket101_solver(opts.replace(linear_solver="riccati"), dev, np.float32)
+    rts101.solver.initialize(torch.tensor(guess, device=dev))
+    rr = rts101.solver.solve()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rr = rts101.solver.solve(x0=torch.tensor(guess + 1e-5, device=dev))
+    torch.cuda.synchronize()
+    print(
+        f"{tag} rocket101 on riccati beside it (float32): solved {bool(rr.solved)}, iterations "
+        f"{int(rr.iterations)}, warm solve {time.time() - t0:.4f} s (host clock; cr {warm:.4f} s)"
+    )
+
+    gold = np.load(GOLDEN_ROCKET101)
+    gts, gguess = rocket101_solver(Options(linear_solver="cr"), dev, np.float64)
+    t0 = time.time()
+    gts.solver.initialize(torch.tensor(gguess, device=dev))
+    gr = gts.solver.solve()
+    torch.cuda.synchronize()
+    gz = gr.variables.cpu().numpy()
+    states = np.concatenate(gts._state_indices)
+    gap = float(np.abs(gz[states] - gold["variables"][states]).max())
+    giters, gref = int(gr.iterations), int(gold["iterations"])
+    print(
+        f"{tag} rocket101 on cr (float64, default Options): solved {bool(gr.solved)}, iterations {giters} "
+        f"(golden {gref}, limit +-2), max state gap to the golden {gap:.3e} (limit 1e-3), {time.time() - t0:.2f} s"
+    )
+    check(bool(gr.solved) and gap <= 1e-3 and abs(giters - gref) <= 2, "rocket101 on cr misses its golden")
+
+    ropts = tol_options(Options, max_iterative_refinement=2, linear_solver="cr")
+    rts = rocket_solver(ropts, dev)
+    g0 = np.asarray(rts._guess, np.float32)
+    guess_np = g0[None] + 0.01 * np.random.default_rng(0).normal(size=(B_ROCKET, g0.size)).astype(np.float32)
+    gpu_guess = torch.tensor(guess_np, device=dev)
+    rbts = rts.batched()
+    zero_launches(cr)
+    t0 = time.time()
+    res = rbts.solve(guess=gpu_guess)
+    torch.cuda.synchronize()
+    print(f"{tag} rocket batch on cr cold batch: {time.time() - t0:.3f} s; kernel launches {dict(cr.LAUNCHES)}")
+    st = res.state
+    check(bool(torch.isfinite(st.p.x[st.solved]).all()), "non-finite solution in a solved cr rocket lane")
+    solved, _ = report_solve(f"{tag} rocket batch on cr", B_ROCKET, st)
+    check(int(solved.sum()) >= MIN_SOLVED_ROCKET, f"only {int(solved.sum())} of {B_ROCKET} cr rocket lanes solved")
+    ref = rocket_solver(ropts, "cpu").batched().solve(guess=torch.tensor(guess_np[:CPU_LANES_RESOLVE], dtype=torch.float64))
+    cpu_resolve(tag, "rocket batch on cr", st, ref, CPU_LANES_RESOLVE, CPU_ATOL_ROCKET)
+    warm_batches(tag, "rocket batch on cr", B_ROCKET, rbts, lambda: rbts.solve(guess=gpu_guess), st, reps=1)
+
+
+def dense_phase(tag, cr, Options, dev):
+    """The ldl and lu backends and refinement_fallback on schur: the
+    flagship's pendulum family at B=1024 in float64, counts zeroed just
+    before each; at least B-8 solved each, and a CPU float64 re-solve of 4
+    lanes with the same flags and iterations."""
+    import torch
+
+    x0_np = 0.2 * np.random.default_rng(0).normal(size=(B_DENSE, 2))
+    x0s = torch.tensor(x0_np, dtype=torch.float64, device=dev)
+    for label, kw, kernels in (
+        ("ldl", dict(linear_solver="ldl"), ()),
+        ("lu", dict(linear_solver="lu"), ("factor_t1",)),
+        ("schur + refinement_fallback", dict(linear_solver="schur", refinement_fallback=True), ("factor_t1", "solve_t1")),
+    ):
+        opts = tol_options(Options, **kw)
+        bts = flagship(opts, dev)
+        zero_launches(cr)
+        t0 = time.time()
+        res = bts.solve(parameters=x0s)
+        torch.cuda.synchronize()
+        launches = dict(cr.LAUNCHES)
+        st = res.state
+        print(
+            f"{tag} pendulum B={B_DENSE} float64 on {label}: cold batch {time.time() - t0:.3f} s; "
+            f"LU fallbacks {int(st.num_fallbacks.sum())}; kernel launches {launches}"
+        )
+        check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel of its path never launched: {launches}")
+        check(bool(torch.isfinite(st.p.x[st.solved]).all()), f"{label}: non-finite solution in a solved lane")
+        solved, _ = report_solve(f"{tag} pendulum on {label}", B_DENSE, st)
+        check(int(solved.sum()) >= B_DENSE - 8, f"{label}: only {int(solved.sum())} of {B_DENSE} lanes solved")
+        ref = flagship(opts, "cpu").solve(parameters=torch.tensor(x0_np[:CPU_LANES_RESOLVE]))
+        same_i = ref.state.total_i.tolist() == st.total_i[:CPU_LANES_RESOLVE].cpu().tolist()
+        check(same_i, f"{label}: iterations differ from the CPU float64 re-solve")
+        cpu_resolve(tag, f"pendulum on {label}", st, ref, CPU_LANES_RESOLVE, CPU_ATOL_DENSE)
+        warm_batches(tag, f"pendulum on {label}", B_DENSE, bts, lambda: bts.solve(parameters=x0s), st, reps=1)
+
+
+@contextlib.contextmanager
+def broken_factor():
+    """Inside kkt.factorize, scale the schur factor L of every
+    BROKEN_EVERY-th lane of a batch (lane 0 first) by BROKEN_SCALE, as
+    tests/test_torch_ldl.py does to a whole problem: those lanes' refined
+    steps keep no usable digits, so refinement_fallback must replace them
+    with the full-system LU step, and the other lanes' steps must stand."""
+    import torch
+    from calipso_tpu_torch.solver import kkt
+
+    orig = kkt.factorize
+
+    def factorize(*args, **kw):
+        fact = orig(*args, **kw)
+        broken = torch.arange(fact.L.shape[0], device=fact.L.device) % BROKEN_EVERY == 0
+        return fact._replace(L=torch.where(broken[:, None, None], fact.L * BROKEN_SCALE, fact.L))
+
+    kkt.factorize = factorize
+    try:
+        yield
+    finally:
+        kkt.factorize = orig
+
+
+def fallback_fires_phase(tag, cr, Options, dev):
+    """refinement_fallback with its escalation firing: the pendulum at
+    B=1024 in float64 on schur under broken_factor(), counts zeroed just
+    before. Every broken lane must fall back and no other lane; at least
+    B-8 solved; a CPU float64 re-solve of 4 lanes (lane 0 broken) under the
+    same plant with the same flags, iterations and fallback counts."""
+    import torch
+
+    x0_np = 0.2 * np.random.default_rng(0).normal(size=(B_DENSE, 2))
+    opts = tol_options(Options, linear_solver="schur", refinement_fallback=True)
+    bts = flagship(opts, dev)
+    broken = np.arange(B_DENSE) % BROKEN_EVERY == 0
+    with broken_factor():
+        zero_launches(cr)
+        t0 = time.time()
+        res = bts.solve(parameters=torch.tensor(x0_np, device=dev))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cr.LAUNCHES)
+        ref = flagship(opts, "cpu").solve(parameters=torch.tensor(x0_np[:CPU_LANES_RESOLVE]))
+    st = res.state
+    fb = st.num_fallbacks.cpu().numpy()
+    print(
+        f"{tag} pendulum B={B_DENSE} float64 on schur + refinement_fallback, the factor of every "
+        f"{BROKEN_EVERY}th lane scaled by {BROKEN_SCALE:g}: batch {wall:.3f} s; LU fallbacks {int(fb.sum())} "
+        f"(broken lanes: {int(fb[broken].min())}-{int(fb[broken].max())} each; other lanes: "
+        f"{int(fb[~broken].max())} at most); kernel launches {launches}"
+    )
+    check(all(launches[k] > 0 for k in ("factor_t1", "solve_t1")), f"broken factor: a T=1 kernel never launched: {launches}")
+    check(bool((fb[broken] > 0).all()), "broken factor: a broken lane never fell back to the LU step")
+    check(bool((fb[~broken] == 0).all()), "broken factor: a healthy lane fell back to the LU step")
+    check(bool(torch.isfinite(st.p.x[st.solved]).all()), "broken factor: non-finite solution in a solved lane")
+    solved, _ = report_solve(f"{tag} pendulum with broken factors", B_DENSE, st)
+    check(int(solved.sum()) >= B_DENSE - 8, f"broken factor: only {int(solved.sum())} of {B_DENSE} lanes solved")
+    same_i = ref.state.total_i.tolist() == st.total_i[:CPU_LANES_RESOLVE].cpu().tolist()
+    same_fb = ref.state.num_fallbacks.tolist() == fb[:CPU_LANES_RESOLVE].tolist()
+    print(f"{tag} broken factor CPU float64 re-solve: LU fallbacks {ref.state.num_fallbacks.tolist()} (card {fb[:CPU_LANES_RESOLVE].tolist()})")
+    check(same_i and same_fb, "broken factor: iterations or fallback counts differ from the CPU float64 re-solve")
+    cpu_resolve(tag, "pendulum with broken factors", st, ref, CPU_LANES_RESOLVE, CPU_ATOL_DENSE)
+
+
 def contract_in_float64(ts, x, theta):
     """Per lane, max |g(x)| and the least cone margin (head minus the norm
     of the tail, over every cone of h(x)) of points x, evaluated in float64
@@ -603,6 +974,10 @@ def main():
     # 2c. the stream kernels against their plain versions
     for B, T, d, K in STREAM_SHAPES:
         check_stream(tag, cr, dev, B, T, d, K, errs, times if (B, T, d, K) == STREAM_SHAPES[0] else None)
+    # 2d. the fused solves against their plain version
+    phase("2d: fused block-tridiagonal solves against their plain version")
+    for B, T, d in BATCHED_SHAPES:
+        check_batched(tag, cr, dev, B, T, d, errs)
 
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
     # routes side by side at the quadruped's
@@ -615,6 +990,8 @@ def main():
         )
     for B, T, d in ((B_QUAD, HORIZON_QUAD, 54), (B_ROCKET, HORIZON_ROCKET, 9)):
         routes_timed_at(tag, cr, dev, B, T, d)
+    for B, T, d in BATCHED_SHAPES:
+        batched_timed_at(tag, cr, dev, B, T, d, times if (B, T, d) == BATCHED_SHAPES[0] else None)
 
     # 3. the flagship on the card (schur backend), counting kernel launches
     phase("3: flagship")
@@ -657,10 +1034,27 @@ def main():
     guess_np = g0[None] + 0.01 * np.random.default_rng(0).normal(size=(B_ROCKET, g0.size)).astype(np.float32)
     guess = torch.tensor(guess_np, device=dev)
     rbts = ts.batched()
+    # keep the blocks one riccati factorization of this batch receives,
+    # for the solve_batched phase
+    from calipso_tpu_torch.ops import riccati as rc
+
+    captured = {"calls": 0}
+    rc_factor = rc.factor
+
+    def capturing_factor(D, O):
+        captured["calls"] += 1
+        if captured["calls"] <= CAPTURE_CALL:
+            captured["blocks"] = (D.clone(), O.clone())
+        return rc_factor(D, O)
+
+    rc.factor = capturing_factor
     zero_launches(cr)
     t0 = time.time()
-    rres = rbts.solve(guess=guess)
-    torch.cuda.synchronize()
+    try:
+        rres = rbts.solve(guess=guess)
+        torch.cuda.synchronize()
+    finally:
+        rc.factor = rc_factor
     cold_s = time.time() - t0
     rlaunches = dict(cr.LAUNCHES)
     print(f"{tag} rocket cold batch (first solve, includes one-time set-up): {cold_s:.3f} s")
@@ -686,6 +1080,18 @@ def main():
     cpu_resolve(tag, "rocket", rst, ref, CPU_LANES_ROCKET, CPU_ATOL_ROCKET)
     warm_batches(tag, "rocket", B_ROCKET, rbts, lambda: rbts.solve(guess=guess), rst)
     profile(tag, "rocket", lambda: rbts.solve(guess=guess), host_ops=False)
+
+    # 8. the solve_batched entry point on the rocket batch's own blocks
+    phase(f"8: solve_batched (the blocks of riccati factorization {min(CAPTURE_CALL, captured['calls'])} of the rocket batch)")
+    blaunches = solve_batched_phase(tag, cr, rc, *captured["blocks"])
+    # 9. the cr backend
+    phase("9: cr backend (rocket101, its golden, the rocket batch)")
+    cr_phase(tag, cr, Options, dev)
+    # 10. the ldl and lu backends and the refinement fallback
+    phase("10: ldl, lu and refinement_fallback (pendulum B=1024, float64)")
+    dense_phase(tag, cr, Options, dev)
+    phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
+    fallback_fires_phase(tag, cr, Options, dev)
 
     # 6. the batched quadruped on the card (riccati backend, stream route)
     phase("6: quadruped")
@@ -784,7 +1190,6 @@ def main():
     phase("7: quadruped gait")
     from calipso_tpu_torch import TrajOptSolver
     from calipso_tpu_torch.models import quadruped
-    from calipso_tpu_torch.ops import riccati as rc
 
     gold = np.load(GOLDEN_GAIT)
     gprob = quadruped.gait_problem(horizon=11, travel=0.2)
@@ -837,6 +1242,7 @@ def main():
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",
         "lanes": "calipso_tpu_torch/csrc/riccati_lanes.cu",
         "stream": "calipso_tpu_torch/csrc/riccati_stream.cu",
+        "fused": "calipso_tpu_torch/csrc/riccati_fused.cu",
     }
     meta = {
         "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32")),
@@ -846,6 +1252,8 @@ def main():
         "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", HORIZON_QUAD, 1)),
         "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", HORIZON_QUAD, 1)),
         "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
+        "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", HORIZON_ROCKET)),
+        "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", HORIZON_ROCKET)),
     }
     errs[("factor_lanes", "float32", HORIZON_ROCKET)] = max(
         errs[("factor_lanes", "float32", HORIZON_ROCKET)], errs[("factor_lanes M", "float32", HORIZON_ROCKET)]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels (the T=1 Cholesky factor and solve, the
-block-tridiagonal factor and solve over T stages, one warp per lane, and
+block-tridiagonal factor and solve over T stages, one warp per lane,
 their stream versions, one block per lane with K right-hand sides per
-lane) against their plain
+lane, and the two fused block-tridiagonal solves) against their plain
 PyTorch versions on the card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 skip without one. The card's machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -187,6 +187,50 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     assert _rel_err(x, xp, lanes) <= RTOL[dtype]
     assert _rel_err(x1, xp[..., 0], lanes) <= RTOL[dtype]
     assert bool(torch.isnan(x[~lanes]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["solve_batched_fused", "solve_batched_lanes"])
+@pytest.mark.parametrize(
+    "B,T,d", [(37, 31, 9), (13, 8, 54), (4, 12, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33)]
+)
+def test_batched_solve_kernels_match_plain(cuda, name, B, T, d, dtype):
+    """The fused solves at the batched rocket's and the quadruped's stage
+    blocks and the edges (T=1, d=1, d=64, d=33); the fused kernel keeps the
+    horizon in shared memory except at (13, 8, 54) in float64 and (4, 12,
+    54), where it takes the workspace. Lanes 2 and B-1 are not positive
+    definite from the middle stage on: NaN over all of their x."""
+    rng = np.random.default_rng(T * 100 + d + 7)
+    bad_stage = T // 2
+    D, O, b = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    before = dict(cuda_riccati.LAUNCHES)
+    x = getattr(cuda_riccati, name)(D, O, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES[name] == before[name] + 1
+    xp = cuda_riccati.solve_batched_plain(D, O, b)
+    lanes = torch.ones(B, dtype=torch.bool, device=cuda)
+    lanes[[2, B - 1]] = False
+    assert bool(torch.isnan(x[~lanes]).all()) and bool(torch.isnan(xp[~lanes]).all())
+    assert bool(torch.isfinite(x[lanes]).all())
+    assert _rel_err(x, xp, lanes) <= RTOL[dtype]
+
+
+def test_batched_solve_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    D = torch.eye(4, device=cuda).repeat(3, 2, 1, 1)
+    O = torch.zeros(3, 1, 4, 4, device=cuda)
+    b = torch.ones(3, 2, 4, device=cuda)
+    for fn in (cuda_riccati.solve_batched_fused, cuda_riccati.solve_batched_lanes):
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(D.transpose(2, 3), O, b)
+        with pytest.raises(ValueError, match="shape"):
+            fn(D, O, torch.ones(3, 2, 5, device=cuda))
+        with pytest.raises(TypeError):
+            fn(D, O, b.double())
+        with pytest.raises(ValueError):
+            fn(D, O, b.cpu())
+        x = fn(D, O, b)
+        assert torch.allclose(x, b)  # S is the identity
 
 
 def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):

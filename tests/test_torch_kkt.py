@@ -136,12 +136,15 @@ def test_tiny_pivots_count_per_lane():
 
 
 def test_other_backends_are_refused(iterate):
-    """Backends the port does not have name their ROADMAP item; riccati
-    needs a trajopt problem's stage structure."""
+    """The backend the port does not have (spike) names its ROADMAP item;
+    riccati and cr need a trajopt problem's stage structure; an unknown
+    name is refused."""
     it = iterate
     args = (it["H"], it["gx"], it["hx"], it["point"].s, it["point"].t, it["rho"], it["eps_p"], it["eps_d"])
-    for method in ("cr", "ldl"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tkkt.factorize(it["tl"], *(_t(a) for a in args), method="spike")
+    for method in ("riccati", "cr"):
+        with pytest.raises(ValueError, match="stage structure"):
             tkkt.factorize(it["tl"], *(_t(a) for a in args), method=method)
-    with pytest.raises(ValueError, match="stage structure"):
-        tkkt.factorize(it["tl"], *(_t(a) for a in args), method="riccati")
+    with pytest.raises(ValueError, match="unknown"):
+        tkkt.factorize(it["tl"], *(_t(a) for a in args), method="qr")

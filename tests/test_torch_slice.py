@@ -291,15 +291,17 @@ def test_unported_paths_raise(monkeypatch):
     opts = calipso_tpu_torch.Options
     for bad in (
         opts(differentiate=True),
-        opts(refinement_fallback=True),
-        opts(linear_solver="cr"),
-        opts(linear_solver="ldl"),
+        opts(linear_solver="spike"),
+        opts(spike_mesh=object()),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pendulum_solver("torch", 5, bad)
-    # (equality_general rows over 2 or more stages on the riccati backend,
-    # the low-rank border, are ported: tests/test_torch_border.py; so are
-    # several right-hand sides on riccati, but not on schur)
+    # (the cr, ldl and lu backends and refinement_fallback are ported:
+    # tests/test_torch_cr.py and tests/test_torch_ldl.py; so are several
+    # right-hand sides on riccati, cr and ldl, but not on schur)
+    for ported in ("cr", "ldl", "lu"):
+        assert pendulum_solver("torch", 5, opts(linear_solver=ported)).solver.options.linear_solver == ported
+    pendulum_solver("torch", 5, opts(refinement_fallback=True))
     from calipso_tpu_torch.models import pendulum
     from calipso_tpu_torch.solver import kkt
 
