@@ -41,11 +41,12 @@
 // B), O' (T-1, d, d, B) with O'_t = O_t' and b (T, d, B); the kernel turns
 // D_t into L_t and O'_t into M_t in place and keeps u_t in x (T, d, B).
 //
-// Bound (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32): at the batched
-// rocket's shape (B=1024, T=31, d=9, float32) the solve moves 22.5 MB
-// (6.7 us) against 70 MFLOP (1.0 us), at the quadruped's (B=128, T=8,
-// d=54) 22.8 MB (6.8 us) against 0.35 GFLOP (5.3 us): bound by memory
-// traffic at both in principle. In practice the stages and the pivots of a stage are a chain
+// Bound (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32; D read as its lower
+// triangles): at the batched rocket's shape (B=1024, T=31, d=9, float32)
+// the solve moves 18.0 MB (5.4 us) against 70 MFLOP (1.0 us), at the
+// quadruped's (B=128, T=8, d=54) 17.0 MB (5.1 us) against 0.35 GFLOP
+// (5.3 us): bound by memory traffic at the first and by operations at the
+// second, in principle. In practice the stages and the pivots of a stage are a chain
 // of dependent steps: the fused kernel's ~2d barriers a stage, the lanes
 // kernel's d^3 dependent loads a stage from one thread, at a few warps
 // for the whole card. Both are latency-bound by design; speed is for

@@ -24,9 +24,10 @@
 // by propagation.
 //
 // Bound (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32): every input is read
-// once and every output written once. At the batched rocket shape
-// (B=1024, T=31, d=9, float32) the factor moves 40.5 MB (12.1 us) against
-// 77 MFLOP (1.2 us), and the solve moves 22.5 MB (6.7 us): both are
+// once (a symmetric D and a triangular L as their lower triangles) and
+// every output written once. At the batched rocket shape (B=1024, T=31,
+// d=9, float32) the factor moves 35.9 MB (10.7 us) against 55 MFLOP
+// (0.8 us), and the solve moves 18.0 MB (5.4 us): both are
 // bound by memory traffic in principle. In practice the T stages and the
 // d pivots of each stage are a chain of dependent steps, so at small d
 // the kernels are latency-bound: the design keeps every step inside one

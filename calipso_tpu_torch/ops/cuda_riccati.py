@@ -10,10 +10,13 @@ replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
 (`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane,
 staged in shared memory). `factor_stream` replaces `_factor_stream_kernel`
 and `solve_stream` replaces `_solve_fwd_stream_kernel` and
-`_solve_bwd_stream_kernel` (`csrc/riccati_stream.cu`: one thread block
-per lane, the next stage's blocks copied into shared memory while the
-current one computes). `solve_batched_fused` replaces `_riccati_kernel`
-and `solve_batched_lanes` replaces `_riccati_lanes_kernel`
+`_solve_bwd_stream_kernel` (`csrc/riccati_stream.cu`: the factor a
+blocked factor of the stacked panel [S_t ; O_t] by one thread block per
+lane, the forward sweep one block per lane and chunk of columns, the
+backward sweep one warp per column; the next stage's blocks copied into
+shared memory while the current one computes). `solve_batched_fused`
+replaces `_riccati_kernel` and `solve_batched_lanes` replaces
+`_riccati_lanes_kernel`
 (`csrc/riccati_fused.cu`: factor and both sweeps in one kernel, one
 thread block per lane with the horizon's factor in shared memory where
 it fits, or one thread per lane on (T, d, d, B) arrays); `solve_batched`,

@@ -57,7 +57,9 @@ Phases (each fails loudly; none catches its own failure):
      and fallback counts as a CPU float64 re-solve of 4 lanes under the
      same plant (phases 8-10 run right after phase 4);
   5. time each kernel at its main-path shape against its plain version
-     and, where one PyTorch call computes the same function, that call;
+     and one PyTorch call computing the same function (for the
+     block-tridiagonal kernels, on the assembled dense (B, Td, Td)
+     matrices: cholesky_ex, cholesky_solve, solve_triangular, solve);
      the lanes and stream kernels side by side at the quadruped's and the
      rocket's shapes; and the fused solves beside the split factor + solve
      pair at both (run right after phase 2);
@@ -82,6 +84,15 @@ Prints each number with the card's name and power limit, then a JSON line
 of the kernels, the `nvidia-smi` name/power line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is not beside this script.
+
+Two partial runs print no such result:
+    python3 chip_smoke.py --stream-times         # phase 1, the stream
+        # kernels checked and timed at (128, 8, 54, K=1) in float32 and
+        # float64 (copied into another checkout, times that one's kernels)
+    python3 chip_smoke.py --history rocket,cr    # phase 1, the named
+        # earlier phases, then a cold and a warm quadruped batch: digests
+        # of their solutions and of a few library calls, to find what makes
+        # the quadruped's float32 numbers depend on the process's history
 """
 
 import contextlib
@@ -96,7 +107,9 @@ import numpy as np
 TOL = 1e-4
 RTOL = {"float32": 1e-4, "float64": 1e-12}  # kernel vs plain, relative
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM outside the tensor cores (NVIDIA data sheet), and bytes a word
+FLOPS_PER_S = {"float32": 67e12, "float64": 34e12}
+WORD = {"float32": 4, "float64": 8}
 
 # flagship: bench.py:88-128
 B_FLAG, HORIZON_FLAG = 8192, 11
@@ -142,8 +155,17 @@ WARM_REPS_QUAD = 2
 # profiler takes minutes to digest; the profile covers the first
 # lockstep iterations of a warm batch
 PROFILE_ITERS_QUAD = 5
-# (B, T, d, K) of the stream kernels' checks; the first is the main path's
-STREAM_SHAPES = ((B_QUAD, HORIZON_QUAD, 54, 1), (B_QUAD, HORIZON_QUAD, 54, 22), (B_ROCKET, HORIZON_ROCKET, 9, 1))
+# the layers whose host time the warm batches report, and whose arguments
+# and results the history probe digests (its first DIGEST_CALLS calls)
+QUAD_ORACLES = ("lagrangian_hessian_blocks", "gx", "hx", "fx", "gty_x", "htz_x", "f", "g", "h")
+KKT_LAYERS = ("factorize", "solve_with", "matvec")
+DIGEST_CALLS = 400
+# (B, T, d, K) of the stream kernels' checks; the first is the main path's,
+# the last a ragged one: d=61 ends on a 5-wide factor panel and a 1-row
+# edge of 4 x 4 tiles, K=33 on a second chunk of one column
+STREAM_SHAPES = (
+    (B_QUAD, HORIZON_QUAD, 54, 1), (B_QUAD, HORIZON_QUAD, 54, 22), (B_ROCKET, HORIZON_ROCKET, 9, 1), (16, 3, 61, 33),
+)
 GOLDEN_GAIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "quadruped_gait.npz")
 
 # the fused block-tridiagonal solves (TPU kernels 8 and 9), checked at the
@@ -195,11 +217,17 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, dtype="float32"):
     """(least milliseconds, what sets it): bytes over the memory rate or
-    float32 operations over the peak rate, whichever is longer."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    operations over the peak rate of `dtype`, whichever is longer."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FLOPS_PER_S[dtype]
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+
+
+def tri(d):
+    """Words of a d x d block's lower triangle: what a function reads of a
+    symmetric block or a triangular factor."""
+    return d * (d + 1) // 2
 
 
 def factor_flops(T, d):
@@ -210,19 +238,20 @@ def factor_flops(T, d):
     return T * d**3 / 3.0 + (T - 1) * (d * d * (d + 1) + d**3)
 
 
-def factor_bound(B, T, d):
-    """bound() of a float32 block-tridiagonal factor: D and O read, L and M
-    written."""
+def factor_bound(B, T, d, dtype="float32"):
+    """bound() of a block-tridiagonal factor: the lower triangles of the
+    symmetric D and all of O read; L (its upper zeros too, which the
+    contract writes) and M written."""
     dd = d * d
-    return bound((2 * T + 2 * (T - 1)) * dd * 4 * B, factor_flops(T, d) * B)
+    return bound((T * tri(d) + (T - 1) * dd + T * dd + (T - 1) * dd) * WORD[dtype] * B, factor_flops(T, d) * B, dtype)
 
 
-def solve_bound(B, T, d, K=1, sweeps=2):
-    """bound() of a float32 block-tridiagonal solve of K right-hand sides,
-    both sweeps or one: L, M and the right-hand sides read, the result
-    written."""
-    dd = d * d
-    return bound((T * dd + (T - 1) * dd + 2 * T * d * K) * 4 * B, 3 * sweeps * dd * K * T * B)
+def solve_bound(B, T, d, K=1, sweeps=2, dtype="float32"):
+    """bound() of a block-tridiagonal solve of K right-hand sides, both
+    sweeps or one: the lower triangles of L, all of M and the right-hand
+    sides read, the result written."""
+    words = T * tri(d) + (T - 1) * d * d + 2 * T * d * K
+    return bound(words * WORD[dtype] * B, 3 * sweeps * d * d * K * T * B, dtype)
 
 
 def tol_options(Options, **kw):
@@ -275,6 +304,13 @@ def report_solve(tag, B, st):
     return solved, total_i
 
 
+def x_digest(st):
+    """A short digest of a batch's solution bits."""
+    import hashlib
+
+    return hashlib.sha1(st.p.x.cpu().numpy().tobytes()).hexdigest()[:12]
+
+
 def warm_batches(tag, name, B, bts, solve, st, reps=WARM_REPS):
     """Time `reps` warm batches; returns their summed host-clock wall."""
     import torch
@@ -290,11 +326,18 @@ def warm_batches(tag, name, B, bts, solve, st, reps=WARM_REPS):
         torch.cuda.synchronize()
         wall = time.time() - t0
         total += wall
+        if not torch.equal(warm.state.solved, st.solved):
+            differ = torch.nonzero(warm.state.solved != st.solved)[:, 0].tolist()
+            print(
+                f"{tag} {name} warm batch {rep + 1}/{reps}: solved flags differ from the cold batch's in lanes "
+                f"{differ}: cold {st.solved[differ].tolist()} in {st.total_i[differ].tolist()} iterations, "
+                f"warm {warm.state.solved[differ].tolist()} in {warm.state.total_i[differ].tolist()}"
+            )
         check(torch.equal(warm.state.solved, st.solved), f"{name} warm batch solved other lanes")
         print(
             f"{tag} {name} warm batch {rep + 1}/{reps} B={B}: "
             f"{start.elapsed_time(end) / 1e3:.4f} s (CUDA events), {wall:.4f} s (host clock), "
-            f"{B / wall:.1f} solves/s, host syncs {bts.stats['host_syncs']}"
+            f"{B / wall:.1f} solves/s, host syncs {bts.stats['host_syncs']}; digest of its solution {x_digest(warm.state)}"
         )
     return total
 
@@ -342,6 +385,53 @@ def layer_timers(targets):
         setattr(owner, attr, timed)
     try:
         yield spent
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def tensor_digest(obj):
+    """A short digest of the bits of every tensor in obj (tensors inside
+    tuples, lists and dicts included; anything else is skipped)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            h.update(o.detach().cpu().numpy().tobytes())
+        elif isinstance(o, (tuple, list)):
+            for v in o:
+                walk(v)
+        elif isinstance(o, dict):
+            for k in sorted(o):
+                walk(o[k])
+
+    walk(obj)
+    return h.hexdigest()[:12]
+
+
+@contextlib.contextmanager
+def layer_digests(targets, calls):
+    """Wrap each (owner, attribute) callable and yield the list of the first
+    `calls` calls in order, as (attribute, digest of the arguments, digest
+    of the result)."""
+    seen, saved = [], []
+    for owner, attr in targets:
+        fn = getattr(owner, attr)
+
+        def recorded(*a, _fn=fn, _attr=attr, **k):
+            out = _fn(*a, **k)
+            if len(seen) < calls:
+                seen.append((_attr, tensor_digest((a, k)), tensor_digest(out)))
+            return out
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, recorded)
+    try:
+        yield seen
     finally:
         for owner, attr, fn in saved:
             setattr(owner, attr, fn)
@@ -457,12 +547,13 @@ def rel_check(tag, kname, name, shape, got, ref, ok, errs, key):
     check(rel_err <= RTOL[name], f"{kname} {name} {shape}: relative error {rel_err:.3e}")
 
 
-def check_stream(tag, cr, dev, B, T, d, K, errs, times=None):
+def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None):
     """factor_stream, solve_fwd_stream and solve_bwd_stream against their
     plain versions at (B, T, d) with K right-hand sides, float32 and
     float64; each sweep is given the same inputs on both paths (the plain
-    factor, then the plain forward sweep's u). Into `times`, when given,
-    the float32 kernel, plain and bound times."""
+    factor, then the plain forward sweep's u). Into `times` and `times64`,
+    when given, the float32 and the float64 kernel, plain and bound
+    times."""
     import torch
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, K)
@@ -488,21 +579,31 @@ def check_stream(tag, cr, dev, B, T, d, K, errs, times=None):
         ):
             rel_check(tag, kname, name, shape, got, ref, ok, errs, (kname, name, T, K))
         print(f"{tag} stream kernels {name} {shape}: NaN lanes {bad_lanes.tolist()} from stage {bad_stage} on, on both paths")
-        if name == "float32" and times is not None:
-            times["factor_stream"] = (
+        into = times if name == "float32" else times64
+        if into is not None:
+            into["factor_stream"] = (
                 cuda_ms(lambda: cr.factor_stream(D, O), 50),
-                cuda_ms(lambda: cr.factor_stream_plain(D, O), 10), None, factor_bound(B, T, d),
+                cuda_ms(lambda: cr.factor_stream_plain(D, O), 10), None, factor_bound(B, T, d, name),
             )
-            times["solve_fwd_stream"] = (
+            into["solve_fwd_stream"] = (
                 cuda_ms(lambda: cr.solve_fwd_stream(L, M, b), 50),
                 cuda_ms(lambda: cr.solve_fwd_stream_plain(L, M, b), 10), None,
-                solve_bound(B, T, d, K, sweeps=1),
+                solve_bound(B, T, d, K, sweeps=1, dtype=name),
             )
-            times["solve_bwd_stream"] = (
+            into["solve_bwd_stream"] = (
                 cuda_ms(lambda: cr.solve_bwd_stream(L, M, up), 50),
                 cuda_ms(lambda: cr.solve_bwd_stream_plain(L, M, up), 10), None,
-                solve_bound(B, T, d, K, sweeps=1),
+                solve_bound(B, T, d, K, sweeps=1, dtype=name),
             )
+
+
+def print_stream_times(tag, times, name):
+    """The stream kernels' times at the main-path shape in one precision."""
+    for kname, (ms, plain_ms, _, (bms, by)) in times.items():
+        print(
+            f"{tag} {kname} {name} main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
+        )
 
 
 def routes_timed_at(tag, cr, dev, B, T, d):
@@ -528,14 +629,79 @@ def routes_timed_at(tag, cr, dev, B, T, d):
         )
 
 
+def dense_tridiag(D, O):
+    """The (B, Td, Td) symmetric matrix of diagonal blocks D (B, T, d, d)
+    and sub-diagonal blocks O (B, T-1, d, d)."""
+    B, T, d = D.shape[0], D.shape[1], D.shape[-1]
+    S = D.new_zeros(B, T * d, T * d)
+    for t in range(T):
+        S[:, t * d:(t + 1) * d, t * d:(t + 1) * d] = D[:, t]
+        if t < T - 1:
+            S[:, (t + 1) * d:(t + 2) * d, t * d:(t + 1) * d] = O[:, t]
+            S[:, t * d:(t + 1) * d, (t + 1) * d:(t + 2) * d] = O[:, t].mT
+    return S
+
+
+def dense_factor(L, M):
+    """The (B, Td, Td) lower factor of the block factor (L, M): L_t on the
+    diagonal, M_t' below it."""
+    B, T, d = L.shape[0], L.shape[1], L.shape[-1]
+    F = L.new_zeros(B, T * d, T * d)
+    for t in range(T):
+        F[:, t * d:(t + 1) * d, t * d:(t + 1) * d] = L[:, t]
+        if t < T - 1:
+            F[:, (t + 1) * d:(t + 2) * d, t * d:(t + 1) * d] = M[:, t].mT
+    return F
+
+
+def library_times(cr, dev, B, T, d):
+    """The library yardsticks of the block-tridiagonal kernels at (B, T, d),
+    float32, every lane positive definite, one right-hand side: one
+    PyTorch call on the assembled dense (B, Td, Td) matrices (O((Td)^3)
+    work where the kernels do O(T d^3)), milliseconds by CUDA events. The
+    port never calls them."""
+    import torch
+
+    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+    D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
+    D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64))
+    S = dense_tridiag(D, O)
+    F = dense_factor(*cr.factor_stream_plain(D, O))
+    FT = F.mT.contiguous()
+    bv = b.reshape(B, T * d, 1)
+    return {
+        "factor": cuda_ms(lambda: torch.linalg.cholesky_ex(S), 10),
+        "both sweeps": cuda_ms(lambda: torch.cholesky_solve(bv, F), 10),
+        "forward sweep": cuda_ms(lambda: torch.linalg.solve_triangular(F, bv, upper=False), 10),
+        "backward sweep": cuda_ms(lambda: torch.linalg.solve_triangular(FT, bv, upper=True), 10),
+        "factor and solve": cuda_ms(lambda: torch.linalg.solve(S, bv), 10),
+    }
+
+
+# the library call each block-tridiagonal kernel is held to (library_times),
+# at the shape of its main path: the rocket's or the quadruped's
+LIBRARY_CALLS = {
+    "factor_lanes": ("rocket", "factor"), "solve_lanes": ("rocket", "both sweeps"),
+    "factor_stream": ("quadruped", "factor"), "solve_fwd_stream": ("quadruped", "forward sweep"),
+    "solve_bwd_stream": ("quadruped", "backward sweep"),
+    "solve_batched_fused": ("rocket", "factor and solve"), "solve_batched_lanes": ("rocket", "factor and solve"),
+}
+LIBRARY_NAMES = {
+    "factor": "torch.linalg.cholesky_ex", "both sweeps": "torch.cholesky_solve",
+    "forward sweep": "torch.linalg.solve_triangular (lower)",
+    "backward sweep": "torch.linalg.solve_triangular (upper, the transpose)",
+    "factor and solve": "torch.linalg.solve",
+}
+
+
 def batched_bound(B, T, d):
-    """bound() of a float32 fused block-tridiagonal solve: D, O and b read
-    once, x written once; the factor's operations and both sweeps' (a
-    triangular solve a stage each, d^2, and a product with M_t each, 2 d^2,
-    for the T-1 couplings)."""
+    """bound() of a float32 fused block-tridiagonal solve: D's lower
+    triangles, O and b read once, x written once; the factor's operations
+    and both sweeps' (a triangular solve a stage each, d^2, and a product
+    with M_t each, 2 d^2, for the T-1 couplings)."""
     dd = d * d
     sweeps = 2 * dd * T + 4 * dd * (T - 1)
-    return bound((T * dd + (T - 1) * dd + 2 * T * d) * 4 * B, (factor_flops(T, d) + sweeps) * B)
+    return bound((T * tri(d) + (T - 1) * dd + 2 * T * d) * 4 * B, (factor_flops(T, d) + sweeps) * B)
 
 
 def check_batched(tag, cr, dev, B, T, d, errs):
@@ -895,27 +1061,12 @@ def foot_depth(ts, x):
     return torch.func.vmap(torch.func.vmap(quadruped.signed_distance))(qs).flatten(1).amin(dim=1)
 
 
-def main():
-    import torch
+def build_kernels(tag):
+    """Phase 1: build every kernel library with nvcc (one process a
+    source, all started together) and load it; print ptxas's registers
+    and spills."""
+    from calipso_tpu_torch.ops import _build
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from calipso_tpu_torch import Options
-    from calipso_tpu_torch.ops import _build, cuda_riccati as cr
-
-    dev = torch.device("cuda")
-    card = card_line()
-    tag = f"[{card}]"
-    print(f"{tag} torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    t_start = time.time()
-
-    def phase(name):
-        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name}", flush=True)
-
-    # 1. build
-    phase("1: build")
     t0 = time.time()
     libs = _build.build()
     for stem in libs:
@@ -925,7 +1076,13 @@ def main():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"{tag} ptxas: {line.strip()}")
 
-    errs, times = {}, {}
+
+def kernel_phases(tag, cr, dev, phase):
+    """Phases 2 and 5: every kernel against its plain version, then the
+    kernel times. Returns (errs, times), which the kernels line reads."""
+    import torch
+
+    errs, times, times64 = {}, {}, {}
     # 2a. T=1 kernels against their plain versions at the flagship shape
     phase("2: kernels against their plain versions")
     rng = np.random.default_rng(0)
@@ -960,12 +1117,12 @@ def main():
             times["factor_t1"] = (
                 cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50),
                 cuda_ms(lambda: torch.linalg.cholesky_ex(Sg), 50),
-                bound(2 * n * n * 4 * B_FLAG, n**3 / 3 * B_FLAG),
+                bound((tri(n) + n * n) * 4 * B_FLAG, n**3 / 3 * B_FLAG),
             )
             times["solve_t1"] = (
                 cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50),
                 cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
-                bound((n * n + 2 * n) * 4 * B_FLAG, 2 * n * n * B_FLAG),
+                bound((tri(n) + 2 * n) * 4 * B_FLAG, 2 * n * n * B_FLAG),
             )
 
     # 2b. block-tridiagonal kernels against their plain versions
@@ -973,7 +1130,8 @@ def main():
         check_lanes(tag, cr, dev, B, T, d, errs, times if (B, T, d) == LANES_SHAPES[0] else None)
     # 2c. the stream kernels against their plain versions
     for B, T, d, K in STREAM_SHAPES:
-        check_stream(tag, cr, dev, B, T, d, K, errs, times if (B, T, d, K) == STREAM_SHAPES[0] else None)
+        main_path = (B, T, d, K) == STREAM_SHAPES[0]
+        check_stream(tag, cr, dev, B, T, d, K, errs, times if main_path else None, times64 if main_path else None)
     # 2d. the fused solves against their plain version
     phase("2d: fused block-tridiagonal solves against their plain version")
     for B, T, d in BATCHED_SHAPES:
@@ -982,19 +1140,31 @@ def main():
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
     # routes side by side at the quadruped's
     phase("5: kernel times")
-    for kname, (ms, plain_ms, lib_ms, (bms, by)) in times.items():
-        lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
-        print(
-            f"{tag} {kname} float32 main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib}, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
-        )
     for B, T, d in ((B_QUAD, HORIZON_QUAD, 54), (B_ROCKET, HORIZON_ROCKET, 9)):
         routes_timed_at(tag, cr, dev, B, T, d)
     for B, T, d in BATCHED_SHAPES:
         batched_timed_at(tag, cr, dev, B, T, d, times if (B, T, d) == BATCHED_SHAPES[0] else None)
+    library = {
+        "rocket": library_times(cr, dev, B_ROCKET, HORIZON_ROCKET, 9),
+        "quadruped": library_times(cr, dev, B_QUAD, HORIZON_QUAD, 54),
+    }
+    for kname, (cell, call) in LIBRARY_CALLS.items():
+        ms, plain_ms, _, bnd = times[kname]
+        times[kname] = (ms, plain_ms, library[cell][call], bnd)
+        print(f"{tag} {kname}: library yardstick {LIBRARY_NAMES[call]} on the dense {cell} matrices")
+    for kname, (ms, plain_ms, lib_ms, (bms, by)) in times.items():
+        print(
+            f"{tag} {kname} float32 main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
+        )
+    print_stream_times(tag, times64, "float64")
+    return errs, times
 
-    # 3. the flagship on the card (schur backend), counting kernel launches
-    phase("3: flagship")
+
+def flagship_phase(tag, cr, Options, dev):
+    """Phase 3: the flagship batch on the card; returns its launches."""
+    import torch
+
     bts = flagship(tol_options(Options), "cuda")
     # the benchmark's scenarios (bench.py: a fresh default_rng(0))
     x0_np = (0.2 * np.random.default_rng(0).normal(size=(B_FLAG, 2))).astype(np.float32)
@@ -1019,9 +1189,14 @@ def main():
     )
     cpu_resolve(tag, "flagship", st, ref, CPU_LANES_FLAG, CPU_ATOL_FLAG)
     warm_batches(tag, "flagship", B_FLAG, bts, lambda: bts.solve(parameters=x0s), st)
+    return launches
 
-    # 4. the batched rocket landing on the card (riccati backend)
-    phase("4: rocket")
+
+def rocket_phase(tag, cr, rc, Options, dev):
+    """Phase 4: the batched rocket on the card; returns its launches and
+    the blocks of its CAPTURE_CALL-th riccati factorization."""
+    import torch
+
     ropts = tol_options(Options, max_iterative_refinement=2)
     ts = rocket_solver(ropts, "cuda")
     check(ts.solver.options.linear_solver == "riccati", f"auto resolved to {ts.solver.options.linear_solver}")
@@ -1036,8 +1211,6 @@ def main():
     rbts = ts.batched()
     # keep the blocks one riccati factorization of this batch receives,
     # for the solve_batched phase
-    from calipso_tpu_torch.ops import riccati as rc
-
     captured = {"calls": 0}
     rc_factor = rc.factor
 
@@ -1080,6 +1253,165 @@ def main():
     cpu_resolve(tag, "rocket", rst, ref, CPU_LANES_ROCKET, CPU_ATOL_ROCKET)
     warm_batches(tag, "rocket", B_ROCKET, rbts, lambda: rbts.solve(guess=guess), rst)
     profile(tag, "rocket", lambda: rbts.solve(guess=guess), host_ops=False)
+    return rlaunches, captured
+
+
+# the earlier phases the history probe can run before the quadruped
+HISTORY_GROUPS = ("kernels", "flagship", "rocket", "cr", "dense", "fallback")
+
+
+def op_digests(dev):
+    """Digests of a few float32 library calls of the kinds the quadruped's
+    path makes, on seeded inputs at its sizes: a digest that changes within
+    a process shows a call whose result depends on what ran before it."""
+    import hashlib
+
+    import torch
+
+    g = torch.Generator().manual_seed(0)
+    A = torch.randn(B_QUAD, 400, 400, generator=g).to(dev)
+    v = torch.randn(B_QUAD, 400, 1, generator=g).to(dev)
+    W = A[:, :54, :54]
+    S = W @ W.mT + 54.0 * torch.eye(54, device=dev)
+    L = torch.linalg.cholesky_ex(S)[0]
+    idx = torch.randint(0, 8, (400,), generator=g).to(dev)
+    calls = {
+        "matmul": lambda: A @ v,
+        "bmm": lambda: torch.bmm(A, A),
+        "einsum": lambda: torch.einsum("bij,bkj->bik", W, W),
+        "sum": lambda: A.sum(dim=(1, 2)),
+        "vector_norm": lambda: torch.linalg.vector_norm(A, dim=-1),
+        "cholesky_ex": lambda: torch.linalg.cholesky_ex(S)[0],
+        "solve_triangular": lambda: torch.linalg.solve_triangular(L, v[:, :54], upper=False),
+        "index_add": lambda: torch.zeros(B_QUAD, 8, 400, device=dev).index_add_(1, idx, A),
+    }
+    return {k: hashlib.sha1(f().cpu().numpy().tobytes()).hexdigest()[:12] for k, f in calls.items()}
+
+
+def history_probe(tag, cr, rc, Options, dev, groups, phase):
+    """Run the named earlier phases as the full run does, then a cold and a
+    warm quadruped batch with no check on them; print digests of both
+    batches' solutions and of op_digests() before and after the phases,
+    the lanes whose solved flags differ between the batches, and their
+    first oracle or KKT call that differs (layer_digests). Locates what
+    makes the quadruped's float32 numbers depend on the process's
+    history."""
+    import torch
+
+    label = ",".join(groups) or "none"
+    before = op_digests(dev)
+    for g in groups:
+        phase(f"history {label}: {g}")
+        if g == "kernels":
+            kernel_phases(tag, cr, dev, phase)
+        elif g == "flagship":
+            flagship_phase(tag, cr, Options, dev)
+        elif g == "rocket":
+            _, captured = rocket_phase(tag, cr, rc, Options, dev)
+            solve_batched_phase(tag, cr, rc, *captured["blocks"])
+        elif g == "cr":
+            cr_phase(tag, cr, Options, dev)
+        elif g == "dense":
+            dense_phase(tag, cr, Options, dev)
+        else:
+            fallback_fires_phase(tag, cr, Options, dev)
+    after = op_digests(dev)
+    changed = [k for k in before if before[k] != after[k]]
+    from calipso_tpu_torch.solver import kkt
+
+    qbts = quadruped_solver(tol_options(Options, max_iterative_refinement=2), "cuda", np.float32).batched()
+    x0q = torch.tensor(quadruped_scenarios(B_QUAD).astype(np.float32), device=dev)
+    layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
+    runs, calls = {}, {}
+    for name in ("cold", "warm"):
+        phase(f"history {label}: quadruped {name} batch")
+        with layer_digests(layers, DIGEST_CALLS) as calls[name]:
+            st = qbts.solve(parameters=x0q).state
+        total = st.total_i.cpu().numpy()
+        runs[name] = st
+        print(
+            f"{tag} history {label}: quadruped {name} batch solved {int(st.solved.sum())}/{B_QUAD}, "
+            f"iterations total {int(total.sum())}, lockstep {int(total.max())}"
+        )
+    differ = torch.nonzero(runs["cold"].solved != runs["warm"].solved)[:, 0].tolist()
+    # the first layer call of the cold batch that differs from the warm one's:
+    # equal arguments and another result locate the history inside the layer
+    first = next(
+        ({"call": i, "cold": c, "warm": w} for i, (c, w) in enumerate(zip(calls["cold"], calls["warm"])) if c != w), None
+    )
+    print(json.dumps({
+        "history": label, "library_calls_changed": changed, "solved_flags_differ": differ,
+        "first_layer_call_differing": first,
+        "same_iterations": torch.equal(runs["cold"].total_i, runs["warm"].total_i),
+        **{
+            name: {
+                "solved": int(st.solved.sum()), "total": int(st.total_i.sum()),
+                "lockstep": int(st.total_i.max()),
+                "x_digest": x_digest(st),
+            }
+            for name, st in runs.items()
+        },
+    }))
+    print(json.dumps({"history_calls": calls}))
+
+
+def main():
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description="Drive the port's main paths on one NVIDIA GPU (no arguments: every phase).")
+    ap.add_argument(
+        "--stream-times", action="store_true",
+        help="only build, check and time the stream kernels at the quadruped's shape, float32 and float64",
+    )
+    ap.add_argument(
+        "--history", metavar="GROUPS",
+        help=f"only run these earlier phases (comma-separated of {', '.join(HISTORY_GROUPS)}; or none), "
+        "then a cold and a warm quadruped batch; print digests of what came out",
+    )
+    args = ap.parse_args()
+    groups = [] if args.history in (None, "none") else args.history.split(",")
+    if not set(groups) <= set(HISTORY_GROUPS):
+        ap.error(f"--history: unknown phases {sorted(set(groups) - set(HISTORY_GROUPS))}")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from calipso_tpu_torch import Options
+    from calipso_tpu_torch.ops import cuda_riccati as cr, riccati as rc
+
+    dev = torch.device("cuda")
+    card = card_line()
+    tag = f"[{card}]"
+    print(f"{tag} torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t_start = time.time()
+
+    def phase(name):
+        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name}", flush=True)
+
+    # 1. build
+    phase("1: build")
+    build_kernels(tag)
+    if args.stream_times:
+        times, times64 = {}, {}
+        check_stream(tag, cr, dev, *STREAM_SHAPES[0], {}, times, times64)
+        print_stream_times(tag, times, "float32")
+        print_stream_times(tag, times64, "float64")
+        return 0
+    if args.history is not None:
+        history_probe(tag, cr, rc, Options, dev, groups, phase)
+        return 0
+
+    errs, times = kernel_phases(tag, cr, dev, phase)
+
+    # 3. the flagship on the card (schur backend), counting kernel launches
+    phase("3: flagship")
+    launches = flagship_phase(tag, cr, Options, dev)
+
+    # 4. the batched rocket landing on the card (riccati backend)
+    phase("4: rocket")
+    rlaunches, captured = rocket_phase(tag, cr, rc, Options, dev)
 
     # 8. the solve_batched entry point on the rocket batch's own blocks
     phase(f"8: solve_batched (the blocks of riccati factorization {min(CAPTURE_CALL, captured['calls'])} of the rocket batch)")
@@ -1113,7 +1445,10 @@ def main():
     torch.cuda.synchronize()
     cold_s = time.time() - t0
     qlaunches = dict(cr.LAUNCHES)
-    print(f"{tag} quadruped cold batch (first solve, includes one-time set-up): {cold_s:.3f} s")
+    print(
+        f"{tag} quadruped cold batch (first solve, includes one-time set-up): {cold_s:.3f} s; "
+        f"digest of its solution {x_digest(qres.state)}"
+    )
     print(f"{tag} kernel launches in the quadruped run: {qlaunches}; host syncs (loop tests): {qbts.stats['host_syncs']}")
     stream_kernels = ("factor_stream", "solve_fwd_stream", "solve_bwd_stream")
     check(all(qlaunches[k] > 0 for k in stream_kernels), f"a stream kernel never launched: {qlaunches}")
@@ -1167,8 +1502,7 @@ def main():
     phase("6: quadruped warm batches")
     from calipso_tpu_torch.solver import kkt
 
-    oracles = ("lagrangian_hessian_blocks", "gx", "hx", "fx", "gty_x", "htz_x", "f", "g", "h")
-    layers = [(qbts.fns, a) for a in oracles] + [(kkt, a) for a in ("factorize", "solve_with", "matvec")]
+    layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
     with layer_timers(layers) as spent:
         wall = warm_batches(tag, "quadruped", B_QUAD, qbts, lambda: qbts.solve(parameters=x0q), qst, WARM_REPS_QUAD)
     for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):

@@ -148,14 +148,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 @pytest.mark.parametrize(
     "B,T,d,K",
     [(128, 8, 54, 1), (128, 8, 54, 22), (13, 8, 54, 1), (9, 1, 5, 3), (5, 3, 64, 40),
-     (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33)],
+     (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33),
+     (17, 2, 8, 1), (17, 3, 9, 1), (9, 4, 16, 5), (11, 3, 55, 1), (11, 3, 56, 33), (5, 5, 64, 2)],
 )
 def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     """The batched quadruped's stage blocks (8 x 54) with one and with 22
     right-hand sides (the gait border's 2 x 11 columns), and the edges:
     T=1, d=1, d=64 (float64 needs the raised shared-memory limit), K over
-    one 32-column chunk. Lanes 2 and B-1 are not positive definite from
-    the middle stage on: NaN from that stage on, on both paths."""
+    one 32-column chunk. The factor's 8-wide panels at their edges: one
+    panel (d=8), a 1-wide last panel (d=9), a 7-wide one over ragged 4 x 4
+    tiles (d=55), whole panels (16, 56, 64); the backward sweep's second
+    row a thread (d > 32) and a one-column second chunk (K=33). Lanes 2 and B-1
+    are not positive definite from the middle stage on: NaN from that
+    stage on, on both paths."""
     rng = np.random.default_rng(T * 100 + d + K)
     bad_stage = T // 2
     D, O, _ = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))

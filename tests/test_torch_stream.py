@@ -3,7 +3,13 @@ on the CPU in float64: the plain versions of the CUDA kernels
 `factor_stream`, `solve_fwd_stream` and `solve_bwd_stream` against the
 interpret-mode Pallas stream kernels they replace and the reference scan,
 the first stage that is not positive definite, and `solve_multi` with
-several right-hand sides per lane against `calipso_tpu.ops.riccati`."""
+several right-hand sides per lane against `calipso_tpu.ops.riccati`.
+
+Also a numpy model of the order of operations of the two CUDA kernels
+redesigned for the card -- `factor_stream`'s blocked factor of the
+stacked panel [S_t ; O_t] in 8-wide panels, `solve_bwd_stream`'s
+pivot-broadcast back substitution -- held to the plain versions, so the
+panel edges are checked where no card is needed."""
 
 import jax
 import jax.numpy as jnp
@@ -96,3 +102,133 @@ def test_route_by_stage_width_and_cpu_plain():
     Lp, Mp = cuda_riccati.factor_lanes_plain(D, O)
     assert torch.equal(L, Lp) and torch.equal(M, Mp)
     np.testing.assert_allclose(x.numpy(), cuda_riccati.solve_lanes_plain(Lp, Mp, b).numpy(), atol=1e-12)
+
+
+PANEL = 8  # factor_stream's panel width (csrc/riccati_stream.cu kPanel)
+
+
+def _factor_stream_model(D, O):
+    """factor_stream's arithmetic in numpy, lane by lane: per stage the
+    stacked panel P = [S_t ; O_t] (2d x d; the last stage has no O), S_t =
+    D_t - B B' with B the previous panel's bottom rows (M_{t-1}'); then per
+    8-wide panel the diagonal block's Cholesky padded to 8 x 8 with
+    identity, the strip rows below it solved against it, and the rank-8
+    update of the trailing columns. The top rows end as L_t, the bottom
+    ones as M_t'. A failed pivot: NaN over the lower triangle of L_t and of
+    every later L, and over every M from M_t on."""
+    B, T, d = D.shape[0], D.shape[1], D.shape[-1]
+    L, M = np.zeros_like(D), np.zeros_like(O)
+    lower = np.tril(np.ones((d, d), bool))
+    for b in range(B):
+        carry, failed = None, None
+        for t in range(T):
+            nrow = 2 * d if t < T - 1 else d
+            P = np.zeros((nrow, d))
+            P[:d] = D[b, t] if carry is None else D[b, t] - carry @ carry.T
+            if t < T - 1:
+                P[d:] = O[b, t]
+            for j0 in range(0, d, PANEL):
+                w = min(PANEL, d - j0)
+                a = np.eye(PANEL)
+                a[:w, :w] = np.tril(P[j0:j0 + w, j0:j0 + w])
+                for k in range(PANEL):
+                    piv = a[k, k]
+                    if not (piv > 0 and np.isfinite(piv)):
+                        failed = t
+                    a[k, k] = np.sqrt(piv) if piv > 0 else np.nan
+                    a[k + 1:, k] /= a[k, k]
+                    for i in range(k + 1, PANEL):
+                        a[i, k + 1:i + 1] -= a[i, k] * a[k + 1:i + 1, k]
+                if failed is not None:
+                    break
+                v = np.zeros((nrow - j0 - w, PANEL))
+                v[:, :w] = P[j0 + w:, j0:j0 + w]
+                for k in range(PANEL):
+                    v[:, k] /= a[k, k]
+                    v[:, k + 1:] -= np.outer(v[:, k], a[k + 1:, k])
+                P[j0:j0 + w, j0:j0 + w] = a[:w, :w]
+                P[j0 + w:, j0:j0 + w] = v[:, :w]
+                jt = j0 + PANEL
+                if jt < d:
+                    P[jt:, jt:] -= P[jt:, j0:jt] @ P[jt:d, j0:jt].T
+            if failed is not None:
+                break
+            L[b, t] = np.where(lower, P[:d], 0.0)
+            if t < T - 1:
+                carry = P[d:]
+                M[b, t] = carry.T
+        if failed is not None:
+            L[b, failed:] = np.where(lower, np.nan, 0.0)
+            M[b, failed:] = np.nan
+    return L, M
+
+
+def _solve_bwd_stream_model(L, M, u):
+    """solve_bwd_stream's arithmetic in numpy, column by column: r = u_t -
+    M_t x_{t+1}, then from the bottom x_j = r_j / L_jj (by the reciprocal),
+    broadcast, and the rows above take row j of L_t."""
+    x = np.zeros_like(u)
+    B, T, d, K = u.shape
+    for b in range(B):
+        for c in range(K):
+            nxt = None
+            for t in reversed(range(T)):
+                r = u[b, t, :, c] - (M[b, t] @ nxt if nxt is not None else 0.0)
+                inv = 1.0 / np.diag(L[b, t])
+                for j in reversed(range(d)):
+                    xj = r[j] * inv[j]
+                    r[:j] -= L[b, t, j, :j] * xj
+                    r[j] = xj
+                x[b, t, :, c] = nxt = r
+    return x
+
+
+MODEL_D = [1, 7, 8, 9, 54, 56, 64]
+MODEL_T = [1, 2, 5]
+
+
+def _model_inputs(d, T, where):
+    """Three lanes; lane 0 not positive definite at its first, middle or
+    last stage (where = 0, 1, 2)."""
+    rng = np.random.default_rng(1000 * d + 10 * T + where)
+    D, O, _ = _tridiag_batch(rng, 3, T, d)
+    bad = (0, (T - 1) // 2, T - 1)[where]
+    D[0, bad] = -np.eye(d)
+    return D, O, bad
+
+
+@pytest.mark.parametrize("where", [0, 1, 2], ids=["first", "middle", "last"])
+@pytest.mark.parametrize("T", MODEL_T)
+@pytest.mark.parametrize("d", MODEL_D)
+def test_factor_stream_model_matches_plain(d, T, where):
+    """The blocked stacked-panel factor: one panel (d <= 8), a 1-wide last
+    panel (9), ragged ones (7, 54), whole ones (56, 64); lane 0 fails at
+    the given stage, with NaN on the same stages as the plain version."""
+    D, O, bad = _model_inputs(d, T, where)
+    Lm, Mm = _factor_stream_model(D, O)
+    Lp, Mp = (a.numpy() for a in cuda_riccati.factor_stream_plain(torch.tensor(D), torch.tensor(O)))
+    stage_nan = lambda A: np.isnan(A).any(axis=(-2, -1))
+    assert (stage_nan(Lm) == stage_nan(Lp)).all() and (stage_nan(Mm) == stage_nan(Mp)).all()
+    assert stage_nan(Lm)[0].tolist() == [t >= bad for t in range(T)]
+    assert not stage_nan(Lm)[1:].any()
+    ok = ~stage_nan(Lp)
+    np.testing.assert_allclose(Lm[ok], Lp[ok], atol=FACTOR_ATOL, rtol=0)
+    np.testing.assert_allclose(Mm[ok[:, :-1]], Mp[ok[:, :-1]], atol=FACTOR_ATOL, rtol=0)
+    assert (np.triu(Lm, 1) == 0).all()
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("T", MODEL_T)
+@pytest.mark.parametrize("d", MODEL_D)
+def test_solve_bwd_stream_model_matches_plain(d, T, K):
+    """The pivot-broadcast backward sweep from the plain forward sweep's u;
+    the lane that is not positive definite (middle stage) comes out NaN
+    over all of its x on both."""
+    D, O, _ = _model_inputs(d, T, 1)
+    b = np.random.default_rng(d + T + K).normal(size=(3, T, d, K))
+    Lp, Mp = cuda_riccati.factor_stream_plain(torch.tensor(D), torch.tensor(O))
+    u = cuda_riccati.solve_fwd_stream_plain(Lp, Mp, torch.tensor(b))
+    xp = cuda_riccati.solve_bwd_stream_plain(Lp, Mp, u).numpy()
+    xm = _solve_bwd_stream_model(Lp.numpy(), Mp.numpy(), u.numpy())
+    assert np.isnan(xm[0]).all() and np.isnan(xp[0]).all()
+    np.testing.assert_allclose(xm[1:], xp[1:], atol=SOLVE_ATOL, rtol=0)
