@@ -59,32 +59,38 @@
 // one-pivot-a-barrier design it replaces took about 3d = 165. No integer
 // division runs inside a loop.
 //
-// solve_fwd_stream: one block of 256 threads per (lane, chunk of <= 32
-// columns), blockIdx.y over the chunks; work inside a stage is spread over
-// the block, one __syncthreads() per pivot: the coupling by (row, column)
-// element, the substitution by element, applying the pivot's update with
-// the unscaled column and scaling the previous pivot's, which no thread
-// reads in that step, so a step needs no second barrier.
-//
-// solve_bwd_stream: one warp per right-hand-side column, the warps of a
-// block that lane's columns in a chunk of <= 32 (blockIdx.y over the
-// chunks; a block is one warp at K = 1). A warp holds x_t's rows in
-// registers, rows lane and lane + 32 of each thread. The coupling
-// r = u_t - M_t x_{t+1} goes through a per-warp shared buffer of x_{t+1};
-// the substitution L_t' x_t = r runs from the bottom, each pivot broadcast
-// with __shfl_sync and every thread updating its rows with row j of L_t
-// (contiguous in shared memory: no bank conflict), loaded a step ahead.
-// One block barrier a stage (the next stage's L and M have landed), none
-// in the substitution: T d dependent warp steps a lane.
+// solve_fwd_stream and solve_bwd_stream: one warp per right-hand-side
+// column, the warps of a block that lane's columns in a chunk of <= 32
+// (blockIdx.y over the chunks; a block is one warp at K = 1). A warp holds
+// the stage vector's rows in registers, rows lane and lane + 32 of each
+// thread, and the next stage's right-hand side (b_{t+1} or u_{t-1}) is read
+// from device memory into registers a stage ahead. The coupling goes
+// through a per-warp shared buffer of the neighbouring stage's solution:
+// the forward sweep's r = b_t - M_{t-1}' u_{t-1} walks column i of M_{t-1}
+// (consecutive lanes read consecutive words), the backward sweep's r = u_t
+// - M_t x_{t+1} row i of M_t from column i on (wrapping, so that the lanes'
+// reads fall in distinct banks when d is even). The substitution runs
+// pivot by pivot, from the top (L_t u_t = r) or from the bottom (L_t' x_t
+// = r): the pivot's owner scales its row by 1 / L_jj, a reciprocal each
+// thread computes for its rows once a stage, off the chain; __shfl_sync
+// broadcasts the value, and every other thread updates its rows with
+// column j of L_t (forward) or row j (backward), loaded a step ahead. One
+// block barrier a stage (the next stage's L and M have landed), none in
+// the substitution: T d dependent warp steps a lane. The forward sweep's
+// column loads are strided by d in shared memory, so at d = 54 lanes i and
+// i + 16 share a bank (a 2-way conflict, 8-way at d = 56); they are loaded
+// a step ahead, off the chain. chip_smoke.py --stream-times times both
+// sweeps at d = 50..58: on an H100 the forward sweep's time a pivot stays
+// flat across 2-, 4- and 8-way conflicts and below the backward sweep's,
+// whose row reads have none, so L_t stays row-major, as it lands.
 //
 // Shared memory: the factor holds the stacked panel (2d (d+1) words), the
 // staging of the next stage's D and O (2 d^2) and the diagonal blocks of
-// L_t (512): 48.0 KB at d=54 in float32, 96 KB in float64; the forward
-// sweep L and M of two stages and two column buffers (4 d (d+1) + 64
-// (d+1) words); the backward sweep L and M of two stages and a column of
-// d words per warp (4 d^2 + d min(K, 32)). Above 48 KB a launch needs the
-// raised dynamic shared-memory limit, set before it; a refused launch
-// returns its error.
+// L_t (512): 48.0 KB at d=54 in float32, 96 KB in float64; each sweep L
+// and M of two stages and a column of d words per warp ((4 d + min(K,
+// 32)) d words: 45.8 KiB at d=54, K=1 in float32, 50.2 KiB at K=22).
+// Above 48 KiB a launch needs the raised dynamic shared-memory limit, set
+// before it; a refused launch returns its error.
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -94,7 +100,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // factor and forward sweep
+constexpr int kThreads = 256;  // the factor
 constexpr int kMaxD = 64;
 constexpr int kMaxCols = 32;  // right-hand sides per block in the solves
 constexpr int kPanel = 8;     // factor panel width
@@ -114,19 +120,6 @@ __device__ __forceinline__ float quiet_nan<float>() {
 template <>
 __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000ULL);
-}
-
-// Asynchronous copy of a rows x cols block, element (i, j) from src[i * gs
-// + j] in device memory to dst[i * ls + j] in shared memory (or, with
-// `transpose`, to dst[j * ls + i]). The caller commits the batch.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, int ls, const T* src, long long gs, int rows,
-                                           int cols, bool transpose) {
-  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
-    const int i = e / cols, j = e % cols;
-    T* to = transpose ? dst + j * ls + i : dst + i * ls + j;
-    __pipeline_memcpy_async(to, src + i * gs + j, sizeof(T));
-  }
 }
 
 // Asynchronous copy of n contiguous elements from device to shared
@@ -373,90 +366,124 @@ __global__ void __launch_bounds__(kThreads)
   __pipeline_wait_prior(0);  // no copy may still be landing when the block exits
 }
 
-// Forward sweep, one block per (lane, chunk of <= 32 columns). Shared
-// memory: Lb[2] (L_t), Mb[2] (M_{t-1}), each d rows of ld = d + 1, and
-// Rb[2], the chunk's columns of b_t with column c in row c (ld entries),
-// turned in place into u_t; the previous stage's Rb is the carry u_{t-1}.
+// Forward sweep, one warp per right-hand-side column: block (lane, chunk
+// of <= 32 columns), warp w the chunk's column w (a warp past K only helps
+// with the copies), stages in ascending order; the mirror of the backward
+// sweep below. Shared memory: Lb[2] (L_t) and Mb[2] (M_{t-1}), each d x d
+// row-major as in device memory (so a stage's blocks land in 16-byte
+// pieces), then one column of d entries per warp (u_{t-1} for the
+// coupling). Slot t & 1 holds stage t's L_t and M_{t-1}.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxCols * 32)
     solve_fwd_stream_kernel(const T* __restrict__ L, const T* __restrict__ M,
-                            const T* __restrict__ bv, T* __restrict__ u, int T_, int d, int K) {
+                            const T* __restrict__ bv, T* __restrict__ u, int T_, int d, int K,
+                            int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = d + 1;
-  const int c0 = blockIdx.y * kMaxCols;
-  const int kc = min(kMaxCols, K - c0);
-  const int blk = d * ld, rblk = kMaxCols * ld;
+  const int blk = d * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c = blockIdx.y * kMaxCols + warp;  // this warp's column
+  const bool has_col = c < K;                  // uniform over the warp
   T* const Lb = reinterpret_cast<T*>(smem_raw);  // slots by offset, as in the factor
   T* const Mb = Lb + 2 * blk;
-  T* const Rb = Lb + 4 * blk;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const long long lane = blockIdx.x;
-  const long long dd = static_cast<long long>(d) * d, dk = static_cast<long long>(d) * K;
-  const T* Ll = L + lane * T_ * dd;
-  const T* Ml = M + lane * (T_ - 1) * dd;
-  const T* bl = bv + lane * T_ * dk + c0;
-  T* ul = u + lane * T_ * dk + c0;
-  const int nr = kc * d;
+  T* const ub = Lb + 4 * blk + warp * d;
+  const long long lane_id = blockIdx.x;
+  const long long dk = static_cast<long long>(d) * K;
+  const T* Ll = L + lane_id * T_ * blk;
+  const T* Ml = M + lane_id * (T_ - 1) * blk;
+  const T* bl = bv + lane_id * T_ * dk + c;
+  T* ul = u + lane_id * T_ * dk + c;
+  // this thread's rows lane and lane + 32, clamped to a real row to read
+  const int i0 = lane, i1 = lane + 32;
+  const bool h0 = i0 < d, h1 = i1 < d;
+  const int c0 = min(i0, d - 1), c1 = min(i1, d - 1);
+  const int m0 = c0 * d, m1 = c1 * d;
 
-  copy_async(Lb, ld, Ll, d, d, d, false);
-  copy_async(Rb, ld, bl, K, d, kc, true);
+  copy_flat_async(Lb, Ll, blk, vec);
   __pipeline_commit();
+  T r0 = T(0), r1 = T(0);  // b_t, then r, then u_t
+  if (has_col) {
+    if (h0) r0 = bl[i0 * K];
+    if (h1) r1 = bl[i1 * K];
+  }
+  T p0 = T(0), p1 = T(0);  // u_{t-1}
 
   for (int t = 0; t < T_; ++t) {
     const int s = t & 1;
-    T* Ls = Lb + s * blk;
-    T* R = Rb + s * rblk;
+    const T* Ls = Lb + s * blk;
+    const T* Ms = Mb + s * blk;
     __pipeline_wait_prior(0);
-    __syncthreads();
-
-    // r = b_t - M_{t-1}' u_{t-1}
-    if (t > 0) {
-      const T* Mp = Mb + s * blk;
-      const T* U = Rb + (1 - s) * rblk;
-      for (int e = tid; e < nr; e += nt) {
-        const int c = e / d, i = e % d;
-        T v = R[c * ld + i];
-        for (int k = 0; k < d; ++k) v -= Mp[k * ld + i] * U[c * ld + k];
-        R[c * ld + i] = v;
-      }
-    }
-    __syncthreads();
+    __syncthreads();  // L_t and M_{t-1} have landed; every warp is done with stage t-1's slot
     if (t + 1 < T_) {
-      copy_async(Lb + (1 - s) * blk, ld, Ll + (t + 1) * dd, d, d, d, false);
-      copy_async(Mb + (1 - s) * blk, ld, Ml + t * dd, d, d, d, false);
-      copy_async(Rb + (1 - s) * rblk, ld, bl + (t + 1) * dk, K, d, kc, true);
+      copy_flat_async(Lb + (1 - s) * blk, Ll + (t + 1) * blk, blk, vec);
+      copy_flat_async(Mb + (1 - s) * blk, Ml + t * blk, blk, vec);
     }
     __pipeline_commit();
-
-    // L_t u_t = r: pivot j updates the rows below it and scales row j - 1
-    for (int j = 0; j < d; ++j) {
-      const T inv = T(1) / Ls[j * ld + j];
-      for (int e = tid; e < nr; e += nt) {
-        const int c = e / d, i = e % d;
-        if (i > j)
-          R[c * ld + i] -= Ls[i * ld + j] * R[c * ld + j] * inv;
-        else if (i == j - 1)
-          R[c * ld + i] /= Ls[i * ld + i];
-      }
-      __syncthreads();
+    T n0 = T(0), n1 = T(0);  // b_{t+1}, loaded under this stage's work
+    if (has_col && t + 1 < T_) {
+      if (h0) n0 = bl[(t + 1) * dk + i0 * K];
+      if (h1) n1 = bl[(t + 1) * dk + i1 * K];
     }
-    for (int c = tid; c < kc; c += nt) R[c * ld + d - 1] /= Ls[(d - 1) * ld + d - 1];
-    __syncthreads();
-    T* ut = ul + t * dk;
-    for (int e = tid; e < nr; e += nt) {
-      const int i = e / kc, c = e % kc;
-      ut[i * K + c] = R[c * ld + i];
+    if (has_col) {
+      // r = b_t - M_{t-1}' u_{t-1}: row i takes column i of M_{t-1}, so the
+      // lanes read consecutive words
+      if (t > 0) {
+        if (h0) ub[i0] = p0;
+        if (h1) ub[i1] = p1;
+        __syncwarp();
+        T a0 = T(0), a1 = T(0);
+#pragma unroll 8
+        for (int k = 0; k < d; ++k) {
+          const T v = ub[k];
+          a0 += Ms[k * d + c0] * v;
+          a1 += Ms[k * d + c1] * v;
+        }
+        r0 -= a0;
+        r1 -= a1;
+      }
+      // L_t u_t = r from the top: pivot j's owner (lane j & 31) scales its
+      // row by 1 / L_jj, the shuffle broadcasts u_j, and the rows below it
+      // take column j of L_t, whose entries each thread loads a step ahead
+      const T inv0 = h0 ? T(1) / Ls[m0 + i0] : T(0);
+      const T inv1 = h1 ? T(1) / Ls[m1 + i1] : T(0);
+      T l0 = Ls[m0], l1 = Ls[m1];
+      const int dl = min(d, 32);
+      for (int j = 0; j < dl; ++j) {
+        const int jn = min(j + 1, d - 1);
+        const T n0l = Ls[m0 + jn], n1l = Ls[m1 + jn];
+        const T uj = __shfl_sync(kFull, r0 * inv0, j);
+        if (i0 == j)
+          r0 = uj;
+        else if (i0 > j)
+          r0 -= l0 * uj;
+        r1 -= l1 * uj;
+        l0 = n0l;
+        l1 = n1l;
+      }
+      for (int j = 32; j < d; ++j) {
+        const int jn = min(j + 1, d - 1);
+        const T n1l = Ls[m1 + jn];
+        const T uj = __shfl_sync(kFull, r1 * inv1, j - 32);
+        if (i1 == j)
+          r1 = uj;
+        else if (i1 > j)
+          r1 -= l1 * uj;
+        l1 = n1l;
+      }
+      T* ut = ul + t * dk;
+      if (h0) ut[i0 * K] = r0;
+      if (h1) ut[i1 * K] = r1;
+      p0 = r0;
+      p1 = r1;
+      r0 = n0;
+      r1 = n1;
     }
   }
   __pipeline_wait_prior(0);
 }
 
-// Backward sweep from u, one warp per right-hand-side column: block
-// (lane, chunk of <= 32 columns), warp w the chunk's column w (a warp past
-// K only helps with the copies), stages in descending order. Shared
-// memory: Lb[2] (L_t) and Mb[2] (M_t), each d x d row-major as in device
-// memory (so a stage's blocks land in 16-byte pieces), then one column of
-// d entries per warp (x_{t+1} for the coupling).
+// Backward sweep from u, one warp per right-hand-side column, stages in
+// descending order; shared memory as in the forward sweep, with M_t beside
+// L_t and x_{t+1} in the warp's column.
 template <typename T>
 __global__ void __launch_bounds__(kMaxCols * 32)
     solve_bwd_stream_kernel(const T* __restrict__ L, const T* __restrict__ M,
@@ -598,41 +625,39 @@ int factor_stream(const void* D, const void* O, void* L, void* M, int B, int T_,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward sweep: grid (B, chunks of kMaxCols columns), kThreads
-// threads a block.
-template <typename T>
-int solve_fwd(const void* L, const void* M, const void* b, void* u, int B, int T_, int d, int K,
-              void* stream) {
-  if (!shape_ok(B, T_, d, K)) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = sizeof(T) * (4 * static_cast<size_t>(d) + 2 * kMaxCols) * (d + 1);
-  cudaError_t err = allow_smem(solve_fwd_stream_kernel<T>, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(B, (K + kMaxCols - 1) / kMaxCols);
-  solve_fwd_stream_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(M), static_cast<const T*>(b),
-      static_cast<T*>(u), T_, d, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The backward sweep: grid (B, chunks of kMaxCols columns), a warp a
+// Launch a sweep kernel: grid (B, chunks of kMaxCols columns), a warp a
 // column; the stage blocks land in 16-byte pieces where their size and
 // the arrays' addresses allow it.
-template <typename T>
-int solve_bwd(const void* L, const void* M, const void* u, void* x, int B, int T_, int d, int K,
-              void* stream) {
+template <typename T, typename Kern>
+int sweep(Kern kernel, const void* L, const void* M, const void* in, void* out, int B, int T_,
+          int d, int K, void* stream) {
   if (!shape_ok(B, T_, d, K)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const int warps = K < kMaxCols ? K : kMaxCols;
   const size_t smem = sizeof(T) * (4 * static_cast<size_t>(d) + warps) * d;
-  cudaError_t err = allow_smem(solve_bwd_stream_kernel<T>, smem);
+  cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int vec = (sizeof(T) * d * d) % 16 == 0 && aligned16(L) && aligned16(M);
   const dim3 grid(B, (K + kMaxCols - 1) / kMaxCols);
-  solve_bwd_stream_kernel<T><<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(M), static_cast<const T*>(u),
-      static_cast<T*>(x), T_, d, K, vec);
+  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(L), static_cast<const T*>(M), static_cast<const T*>(in),
+      static_cast<T*>(out), T_, d, K, vec);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The forward sweep: grid (B, chunks of kMaxCols columns), a warp a
+// column, as the backward sweep.
+template <typename T>
+int solve_fwd(const void* L, const void* M, const void* b, void* u, int B, int T_, int d, int K,
+              void* stream) {
+  return sweep<T>(solve_fwd_stream_kernel<T>, L, M, b, u, B, T_, d, K, stream);
+}
+
+// The backward sweep, launched as the forward one.
+template <typename T>
+int solve_bwd(const void* L, const void* M, const void* u, void* x, int B, int T_, int d, int K,
+              void* stream) {
+  return sweep<T>(solve_bwd_stream_kernel<T>, L, M, u, x, B, T_, d, K, stream);
 }
 
 }  // namespace

@@ -8,13 +8,14 @@
 replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
 `_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`
 (`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane,
-staged in shared memory). `factor_stream` replaces `_factor_stream_kernel`
-and `solve_stream` replaces `_solve_fwd_stream_kernel` and
-`_solve_bwd_stream_kernel` (`csrc/riccati_stream.cu`: the factor a
-blocked factor of the stacked panel [S_t ; O_t] by one thread block per
-lane, the forward sweep one block per lane and chunk of columns, the
-backward sweep one warp per column; the next stage's blocks copied into
-shared memory while the current one computes). `solve_batched_fused`
+staged in shared memory; the solve copies its stage blocks a few steps
+ahead and keeps u on chip between its two sweeps). `factor_stream`
+replaces `_factor_stream_kernel` and `solve_stream` replaces
+`_solve_fwd_stream_kernel` and `_solve_bwd_stream_kernel`
+(`csrc/riccati_stream.cu`: the factor a blocked factor of the stacked
+panel [S_t ; O_t] by one thread block per lane, each sweep one warp per
+right-hand-side column; the next stage's blocks copied into shared
+memory while the current one computes). `solve_batched_fused`
 replaces `_riccati_kernel` and `solve_batched_lanes` replaces
 `_riccati_lanes_kernel`
 (`csrc/riccati_fused.cu`: factor and both sweeps in one kernel, one
@@ -23,7 +24,7 @@ it fits, or one thread per lane on (T, d, d, B) arrays); `solve_batched`,
 the public entry point, takes the first on CUDA tensors, as the
 reference does off the CPU, and no solver path calls it. All are
 hand-written CUDA for Hopper, built by `ops/_build.py`. The stream
-kernels are the wide-stage route (d >= 33, `ops/riccati.route`), and
+kernels are the wide-stage route (d >= 32, `ops/riccati.route`), and
 their solve takes K right-hand sides per lane.
 
 What bounds them on an H100: each reads its inputs once and writes its

@@ -12,10 +12,13 @@ the counterpart of `calipso_tpu/ops/riccati.py`.
   identity diagonal blocks, which decouple exactly.
 
 `route(d)` picks the block-tridiagonal kernels by the stage width alone:
-"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) below 33, where
-a warp owns a stage row per thread, and "stream" (one thread block per
-lane, `factor_stream`/`solve_stream`) from 33 on, the contact class's
-d=54. The reference splits the same two regimes (resident d=9, streamed
+"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) below 32, and
+"stream" (one thread block per lane, `factor_stream`/`solve_stream`) from
+32 on, the contact class's d=54. On an H100 the crossover moves with the
+batch: at B=1024 the lanes route is faster up to d=24 and the stream route
+at d=32, at B=128 the stream route from d=16 on (one warp a lane leaves
+most of the card idle there); d=32 is the narrowest width measured where
+the stream route wins at every batch size. The reference splits the same two regimes (resident d=9, streamed
 d=54) by TPU VMEM. `solve_multi` always takes the stream solve, the one
 that serves K columns from one factor; both routes write the same (L, M).
 
@@ -27,7 +30,7 @@ of its factor (the inertia signal), never an exception.
 
 from calipso_tpu_torch.ops import cuda_riccati
 
-STREAM_MIN_D = 33
+STREAM_MIN_D = 32
 
 
 def route(d):

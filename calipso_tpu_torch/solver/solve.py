@@ -713,6 +713,16 @@ def make_solve(fns, layout, opts, callbacks=None):
         parallel = resolve_options(opts, fns, x0.device).line_search_mode == "parallel"
         stats["host_syncs"] = 0
         _set_matmul_precision(opts.matmul_precision)
+        # the oracles' backward passes run on this thread, from one ready
+        # queue in the graph's own order. With the device's worker thread
+        # the order in which a backward's nodes ran, and so the order in
+        # which gradients were summed, depended on what the process had
+        # run before: the first batch after another solve ran the same ops
+        # in another order and came out with other bits
+        with torch.autograd.set_multithreading_enabled(False):
+            return _solve(x0, theta, warm, parallel)
+
+    def _solve(x0, theta, warm, parallel):
         # no torch.no_grad() here: under it, vmap(jacrev(.)) returns wrong
         # derivatives through torch.linalg.solve (torch 2.13); the inputs
         # are detached instead, so no autograd graph is built

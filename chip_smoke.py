@@ -59,10 +59,13 @@ Phases (each fails loudly; none catches its own failure):
   5. time each kernel at its main-path shape against its plain version
      and one PyTorch call computing the same function (for the
      block-tridiagonal kernels, on the assembled dense (B, Td, Td)
-     matrices: cholesky_ex, cholesky_solve, solve_triangular, solve);
-     the lanes and stream kernels side by side at the quadruped's and the
-     rocket's shapes; and the fused solves beside the split factor + solve
-     pair at both (run right after phase 2);
+     matrices: cholesky_ex, cholesky_solve, solve_triangular, solve), in
+     float32 and again in float64; the lanes and stream kernels side by
+     side at the quadruped's and the rocket's shapes and, for
+     ops/riccati.route's threshold, at d = 9 to 48 with the quadruped's
+     B=128, T=8 and d = 12 to 32 with the rocket's B=1024, T=31;
+     and the fused solves beside the split factor + solve pair at both
+     (run right after phase 2);
   6. solve the bench's batched quadruped (bench.py:396-503) -- 128
      contact-implicit stance MPC problems, H=8 stages (n=400, stage
      blocks d=54, 344 equality rows, 412 cone rows), stance heights from
@@ -85,14 +88,23 @@ of the kernels, the `nvidia-smi` name/power line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is not beside this script.
 
-Two partial runs print no such result:
+Partial runs print no such result:
     python3 chip_smoke.py --stream-times         # phase 1, the stream
-        # kernels checked and timed at (128, 8, 54, K=1) in float32 and
-        # float64 (copied into another checkout, times that one's kernels)
+        # kernels checked and timed at (128, 8, 54) with K=1 and K=22 and
+        # the lanes kernels at (1024, 31, 9), in float32 and float64, and
+        # the two stream sweeps across d = 50..58 (copied into another
+        # checkout, times that one's kernels)
     python3 chip_smoke.py --history rocket,cr    # phase 1, the named
-        # earlier phases, then a cold and a warm quadruped batch: digests
-        # of their solutions and of a few library calls, to find what makes
-        # the quadruped's float32 numbers depend on the process's history
+        # earlier phases (none: ''), then a cold and a warm quadruped
+        # batch: digests of their solutions and of a few library calls,
+        # and of every aten op of each batch's first gx call (--ops-out
+        # PATH keeps them; --linalg sets the preferred linalg library), to
+        # find what makes the quadruped's float32 numbers depend on the
+        # process's history
+    python3 chip_smoke.py --compare-ops REF OTHER  # two --ops-out files
+        # (no card needed): how many of the cold batches' first gx ops run
+        # in another order, and the first op whose inputs are alike and
+        # whose outputs differ
 """
 
 import contextlib
@@ -165,6 +177,14 @@ DIGEST_CALLS = 400
 # edge of 4 x 4 tiles, K=33 on a second chunk of one column
 STREAM_SHAPES = (
     (B_QUAD, HORIZON_QUAD, 54, 1), (B_QUAD, HORIZON_QUAD, 54, 22), (B_ROCKET, HORIZON_ROCKET, 9, 1), (16, 3, 61, 33),
+)
+# the stage widths at which the forward sweep's bank conflicts are timed
+# (--stream-times), and the (B, T, d) at which both routes are timed
+# (phase 5): the quadruped's B and T and the rocket's, at the widths
+# between their stage blocks, where ops/riccati.route draws its line
+CONFLICT_DS = (50, 52, 54, 56, 58)
+ROUTE_SHAPES = tuple((B_QUAD, HORIZON_QUAD, d) for d in (9, 12, 16, 24, 32, 33, 40, 48)) + tuple(
+    (B_ROCKET, HORIZON_ROCKET, d) for d in (12, 16, 24, 32)
 )
 GOLDEN_GAIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "quadruped_gait.npz")
 
@@ -311,8 +331,10 @@ def x_digest(st):
     return hashlib.sha1(st.p.x.cpu().numpy().tobytes()).hexdigest()[:12]
 
 
-def warm_batches(tag, name, B, bts, solve, st, reps=WARM_REPS):
-    """Time `reps` warm batches; returns their summed host-clock wall."""
+def warm_batches(tag, name, B, bts, solve, st, reps=WARM_REPS, same_bits=False):
+    """Time `reps` warm batches; returns their summed host-clock wall. Each
+    must solve the lanes the cold batch `st` solved and, with `same_bits`,
+    give its solution bit for bit."""
     import torch
 
     total = 0.0
@@ -338,7 +360,10 @@ def warm_batches(tag, name, B, bts, solve, st, reps=WARM_REPS):
             f"{tag} {name} warm batch {rep + 1}/{reps} B={B}: "
             f"{start.elapsed_time(end) / 1e3:.4f} s (CUDA events), {wall:.4f} s (host clock), "
             f"{B / wall:.1f} solves/s, host syncs {bts.stats['host_syncs']}; digest of its solution {x_digest(warm.state)}"
+            + (f" (cold batch {x_digest(st)})" if same_bits else "")
         )
+        if same_bits:
+            check(x_digest(warm.state) == x_digest(st), f"{name} warm batch: other solution bits than the cold batch's")
     return total
 
 
@@ -474,11 +499,12 @@ def profile(tag, name, solve, host_ops=True):
         )
 
 
-def check_lanes(tag, cr, dev, B, T, d, errs, times=None):
+def check_lanes(tag, cr, dev, B, T, d, errs, times=None, times64=None):
     """factor_lanes/solve_lanes against their plain versions at (B, T, d)
     in float32 and float64: random SPD block-tridiagonal inputs with 8
-    lanes not positive definite from the middle stage on. Into `times`,
-    when given, the float32 kernel, plain and bound times."""
+    lanes not positive definite from the middle stage on. Into `times` and
+    `times64`, when given, the float32 and the float64 kernel, plain and
+    bound times."""
     import torch
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
@@ -505,14 +531,15 @@ def check_lanes(tag, cr, dev, B, T, d, errs, times=None):
                 f"{bad_lanes.tolist()} from stage {bad_stage} on, on both paths"
             )
             check(rel_err <= RTOL[name], f"{kname} {name} {B}x{T}x{d}: relative error {rel_err:.3e}")
-        if name == "float32" and times is not None:
-            times["factor_lanes"] = (
+        into = times if name == "float32" else times64
+        if into is not None:
+            into["factor_lanes"] = (
                 cuda_ms(lambda: cr.factor_lanes(D, O), 50),
-                cuda_ms(lambda: cr.factor_lanes_plain(D, O), 10), None, factor_bound(B, T, d),
+                cuda_ms(lambda: cr.factor_lanes_plain(D, O), 10), None, factor_bound(B, T, d, name),
             )
-            times["solve_lanes"] = (
+            into["solve_lanes"] = (
                 cuda_ms(lambda: cr.solve_lanes(L, M, b), 50),
-                cuda_ms(lambda: cr.solve_lanes_plain(L, M, b), 10), None, solve_bound(B, T, d),
+                cuda_ms(lambda: cr.solve_lanes_plain(L, M, b), 10), None, solve_bound(B, T, d, dtype=name),
             )
 
 
@@ -597,13 +624,57 @@ def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None):
             )
 
 
-def print_stream_times(tag, times, name):
-    """The stream kernels' times at the main-path shape in one precision."""
+def print_times(tag, times, name, shape="main-path shape"):
+    """Kernel, plain and bound times of `times` in one precision."""
     for kname, (ms, plain_ms, _, (bms, by)) in times.items():
         print(
-            f"{tag} {kname} {name} main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{tag} {kname} {name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
         )
+
+
+def sweeps_across_d(tag, cr, dev):
+    """solve_fwd_stream beside solve_bwd_stream at the quadruped's (B, T)
+    with d in CONFLICT_DS, K=1, float32: the forward sweep reads columns of
+    L_t, strided by d in shared memory (gcd(d, 32) lanes to a bank), the
+    backward one rows (no conflict); a time that follows the bank ways and
+    not d shows the conflict's cost."""
+    import math
+
+    import torch
+
+    B, T = B_QUAD, HORIZON_QUAD
+    for d in CONFLICT_DS:
+        D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+        D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
+        D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64))
+        L, M = cr.factor_stream(D, O)
+        u = cr.solve_fwd_stream(L, M, b)
+        fwd = cuda_ms(lambda: cr.solve_fwd_stream(L, M, b), 50)
+        bwd = cuda_ms(lambda: cr.solve_bwd_stream(L, M, u), 50)
+        print(
+            f"{tag} sweeps float32 B={B} T={T} d={d} K=1 (column reads {math.gcd(d, 32)} lanes to a bank): "
+            f"solve_fwd_stream {fwd:.4f} ms, solve_bwd_stream {bwd:.4f} ms, "
+            f"{1e6 * fwd / (T * d):.1f} / {1e6 * bwd / (T * d):.1f} ns a pivot"
+        )
+
+
+def stream_times(tag, cr, dev):
+    """--stream-times: the stream kernels checked and timed at the
+    quadruped's (B, T, d) with K=1 and K=22 right-hand sides, the lanes
+    kernels at the rocket's (B, T, d), float32 and float64, and the sweeps
+    across d (sweeps_across_d)."""
+    for B, T, d, K in STREAM_SHAPES[:2]:
+        times, times64 = {}, {}
+        check_stream(tag, cr, dev, B, T, d, K, {}, times, times64)
+        for name, into in (("float32", times), ("float64", times64)):
+            print_times(tag, into, name, f"B={B} T={T} d={d} K={K}")
+    B, T, d = LANES_SHAPES[0]
+    times, times64 = {}, {}
+    check_lanes(tag, cr, dev, B, T, d, {}, times, times64)
+    for name, into in (("float32", times), ("float64", times64)):
+        print_times(tag, into, name, f"B={B} T={T} d={d}")
+    sweeps_across_d(tag, cr, dev)
 
 
 def routes_timed_at(tag, cr, dev, B, T, d):
@@ -694,14 +765,14 @@ LIBRARY_NAMES = {
 }
 
 
-def batched_bound(B, T, d):
-    """bound() of a float32 fused block-tridiagonal solve: D's lower
-    triangles, O and b read once, x written once; the factor's operations
-    and both sweeps' (a triangular solve a stage each, d^2, and a product
-    with M_t each, 2 d^2, for the T-1 couplings)."""
+def batched_bound(B, T, d, dtype="float32"):
+    """bound() of a fused block-tridiagonal solve: D's lower triangles, O
+    and b read once, x written once; the factor's operations and both
+    sweeps' (a triangular solve a stage each, d^2, and a product with M_t
+    each, 2 d^2, for the T-1 couplings)."""
     dd = d * d
     sweeps = 2 * dd * T + 4 * dd * (T - 1)
-    return bound((T * tri(d) + (T - 1) * dd + 2 * T * d) * 4 * B, (factor_flops(T, d) + sweeps) * B)
+    return bound((T * tri(d) + (T - 1) * dd + 2 * T * d) * WORD[dtype] * B, (factor_flops(T, d) + sweeps) * B, dtype)
 
 
 def check_batched(tag, cr, dev, B, T, d, errs):
@@ -735,18 +806,20 @@ def check_batched(tag, cr, dev, B, T, d, errs):
         print(f"{tag} batched solves {name} {shape}: NaN over all of lanes {bad_lanes.tolist()} (stage {bad_stage}), on every path")
 
 
-def batched_timed_at(tag, cr, dev, B, T, d, times=None):
+def batched_timed_at(tag, cr, dev, B, T, d, times=None, times64=None):
     """The fused solves, the split factor + solve pair of the route
     ops/riccati.route takes at d, and the plain version, timed side by side
     at (B, T, d), float32, every lane positive definite. The lanes
     wrapper's time includes its layout copies. Into `times`, when given,
-    the kernel, plain and bound times of the two fused solves."""
+    the kernel, plain and bound times of the two fused solves; into
+    `times64` the same in float64."""
     import torch
+    from calipso_tpu_torch.ops.riccati import route
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
     D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
     D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64[..., 0]))
-    if d >= 33:
+    if route(d) == "stream":
         split_name, split = "factor_stream + solve_stream", lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
     else:
         split_name, split = "factor_lanes + solve_lanes", lambda: cr.solve_lanes(*cr.factor_lanes(D, O), b)
@@ -770,6 +843,11 @@ def batched_timed_at(tag, cr, dev, B, T, d, times=None):
     if times is not None:
         for k in BATCHED_KERNELS:
             times[k] = (measured[k], plain_ms, None, (bms, by))
+    if times64 is not None:
+        D, O, b = (a.double() for a in (D, O, b))
+        plain_ms = cuda_ms(lambda: cr.solve_batched_plain(D, O, b), 10)
+        for k, reps in zip(BATCHED_KERNELS, (50, 10)):
+            times64[k] = (cuda_ms(lambda: getattr(cr, k)(D, O, b), reps), plain_ms, None, batched_bound(B, T, d, "float64"))
 
 
 def solve_batched_phase(tag, cr, rc, D, O):
@@ -1112,22 +1190,23 @@ def kernel_phases(tag, cr, dev, phase):
             errs[(kname, name)] = abs_err
             print(f"{tag} {kname} {name} B={B_FLAG} n={n}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (limit {RTOL[name]:g})")
             check(rel_err <= RTOL[name], f"{kname} {name}: relative error {rel_err:.3e}")
-        if name == "float32":
-            Sg, Lg, bg = S[ok].contiguous(), L[ok].contiguous(), b[ok].contiguous()
-            times["factor_t1"] = (
-                cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50),
-                cuda_ms(lambda: torch.linalg.cholesky_ex(Sg), 50),
-                bound((tri(n) + n * n) * 4 * B_FLAG, n**3 / 3 * B_FLAG),
-            )
-            times["solve_t1"] = (
-                cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50),
-                cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
-                bound((tri(n) + 2 * n) * 4 * B_FLAG, 2 * n * n * B_FLAG),
-            )
+        into = times if name == "float32" else times64
+        Sg, Lg, bg = S[ok].contiguous(), L[ok].contiguous(), b[ok].contiguous()
+        into["factor_t1"] = (
+            cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50),
+            cuda_ms(lambda: torch.linalg.cholesky_ex(Sg), 50),
+            bound((tri(n) + n * n) * WORD[name] * B_FLAG, n**3 / 3 * B_FLAG, name),
+        )
+        into["solve_t1"] = (
+            cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50),
+            cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
+            bound((tri(n) + 2 * n) * WORD[name] * B_FLAG, 2 * n * n * B_FLAG, name),
+        )
 
     # 2b. block-tridiagonal kernels against their plain versions
     for B, T, d in LANES_SHAPES:
-        check_lanes(tag, cr, dev, B, T, d, errs, times if (B, T, d) == LANES_SHAPES[0] else None)
+        main_path = (B, T, d) == LANES_SHAPES[0]
+        check_lanes(tag, cr, dev, B, T, d, errs, times if main_path else None, times64 if main_path else None)
     # 2c. the stream kernels against their plain versions
     for B, T, d, K in STREAM_SHAPES:
         main_path = (B, T, d, K) == STREAM_SHAPES[0]
@@ -1138,12 +1217,14 @@ def kernel_phases(tag, cr, dev, phase):
         check_batched(tag, cr, dev, B, T, d, errs)
 
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
-    # routes side by side at the quadruped's
+    # routes side by side at the quadruped's and the rocket's shapes and at
+    # the widths between them
     phase("5: kernel times")
-    for B, T, d in ((B_QUAD, HORIZON_QUAD, 54), (B_ROCKET, HORIZON_ROCKET, 9)):
+    for B, T, d in ((B_QUAD, HORIZON_QUAD, 54), (B_ROCKET, HORIZON_ROCKET, 9)) + ROUTE_SHAPES:
         routes_timed_at(tag, cr, dev, B, T, d)
     for B, T, d in BATCHED_SHAPES:
-        batched_timed_at(tag, cr, dev, B, T, d, times if (B, T, d) == BATCHED_SHAPES[0] else None)
+        main_path = (B, T, d) == BATCHED_SHAPES[0]
+        batched_timed_at(tag, cr, dev, B, T, d, times if main_path else None, times64 if main_path else None)
     library = {
         "rocket": library_times(cr, dev, B_ROCKET, HORIZON_ROCKET, 9),
         "quadruped": library_times(cr, dev, B_QUAD, HORIZON_QUAD, 54),
@@ -1157,7 +1238,7 @@ def kernel_phases(tag, cr, dev, phase):
             f"{tag} {kname} float32 main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
         )
-    print_stream_times(tag, times64, "float64")
+    print_times(tag, times64, "float64")
     return errs, times
 
 
@@ -1288,14 +1369,116 @@ def op_digests(dev):
     return {k: hashlib.sha1(f().cpu().numpy().tobytes()).hexdigest()[:12] for k, f in calls.items()}
 
 
-def history_probe(tag, cr, rc, Options, dev, groups, phase):
+def tensor_sig(t):
+    """[digest of a tensor's bits, shape, strides and dtype; its
+    data_ptr() % 512]."""
+    import hashlib
+
+    h = hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes())
+    h.update(repr((tuple(t.shape), t.stride(), str(t.dtype))).encode())
+    return [h.hexdigest()[:12], t.data_ptr() % 512]
+
+
+def op_recorder():
+    """A TorchDispatchMode that appends, for every aten op run under it,
+    [name, input sigs, output sigs] (tensor_sig of every tensor argument
+    and result, nested lists included) to its `ops`. Input sigs are taken
+    before the op runs: an in-place op overwrites its input."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def sigs(obj):
+        if isinstance(obj, torch.Tensor):
+            return [tensor_sig(obj)]
+        if isinstance(obj, (tuple, list)):
+            return [s for o in obj for s in sigs(o)]
+        if isinstance(obj, dict):
+            return [s for k in sorted(obj) for s in sigs(obj[k])]
+        return []
+
+    class Recorder(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            ins = sigs((args, kwargs))
+            out = func(*args, **kwargs)
+            self.ops.append([str(func), ins, sigs(out)])
+            return out
+
+    return Recorder()
+
+
+@contextlib.contextmanager
+def record_first_call(owner, attr):
+    """Run the first call of owner.attr under op_recorder(); yield the list
+    its ops land in."""
+    fn, ops = getattr(owner, attr), []
+    seen = []
+
+    def first(*a, **k):
+        if seen:
+            return fn(*a, **k)
+        seen.append(True)
+        rec = op_recorder()
+        with rec:
+            out = fn(*a, **k)
+        ops.extend(rec.ops)
+        return out
+
+    setattr(owner, attr, first)
+    try:
+        yield ops
+    finally:
+        setattr(owner, attr, fn)
+
+
+def first_op_differing(ref, ops):
+    """Compare two op lists of op_recorder(): how many positions hold
+    another op (name, input or output bits), whether the two lists hold the
+    same ops in another order (names alone, and names with their bits),
+    how many ops' data_ptr() % 512 differ, the first op alike in name and
+    input bits whose output bits differ (ops that return uninitialised
+    memory, the empty family, skipped), and the first position where the
+    ops differ; each op with both sides' sigs."""
+    import collections
+
+    key = lambda op: (op[0], tuple(s[0] for s in op[1]), tuple(s[0] for s in op[2]))
+    entry = lambda i: {"index": i, "ops": [ref[i][0], ops[i][0]], "inputs": [ref[i][1], ops[i][1]], "outputs": [ref[i][2], ops[i][2]]}
+    differ = [i for i, (a, b) in enumerate(zip(ref, ops)) if key(a) != key(b)]
+    first_out = next(
+        (
+            i for i, (a, b) in enumerate(zip(ref, ops))
+            if key(a)[:2] == key(b)[:2] and key(a) != key(b) and "empty" not in a[0]
+        ),
+        None,
+    )
+    align = lambda op: [s[1] for s in op[1] + op[2]]
+    return {
+        "ops": [len(ref), len(ops)], "ops_differing_by_position": len(differ),
+        "same_op_names_in_any_order": collections.Counter(op[0] for op in ref) == collections.Counter(op[0] for op in ops),
+        "same_ops_and_bits_in_any_order": collections.Counter(map(key, ref)) == collections.Counter(map(key, ops)),
+        "ops_whose_data_ptr_mod_512_differ": sum(align(a) != align(b) for a, b in zip(ref, ops)),
+        "first_equal_inputs_other_outputs": None if first_out is None else entry(first_out),
+        "first_difference": entry(differ[0]) if differ else None,
+    }
+
+
+def history_probe(tag, cr, rc, Options, dev, groups, phase, ops_out=None, linalg=None):
     """Run the named earlier phases as the full run does, then a cold and a
     warm quadruped batch with no check on them; print digests of both
     batches' solutions and of op_digests() before and after the phases,
     the lanes whose solved flags differ between the batches, and their
-    first oracle or KKT call that differs (layer_digests). Locates what
-    makes the quadruped's float32 numbers depend on the process's
-    history."""
+    first oracle or KKT call that differs (layer_digests). The first gx
+    call of each batch runs under op_recorder(): the first of its aten ops
+    whose inputs are alike in both batches and whose outputs differ is
+    printed, and both batches' ops go to `ops_out` for a comparison with
+    another process (--compare-ops). `linalg` sets
+    torch.backends.cuda.preferred_linalg_library before the batches.
+    Locates what makes the quadruped's float32 numbers depend on the
+    process's history."""
     import torch
 
     label = ",".join(groups) or "none"
@@ -1322,10 +1505,13 @@ def history_probe(tag, cr, rc, Options, dev, groups, phase):
     qbts = quadruped_solver(tol_options(Options, max_iterative_refinement=2), "cuda", np.float32).batched()
     x0q = torch.tensor(quadruped_scenarios(B_QUAD).astype(np.float32), device=dev)
     layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
-    runs, calls = {}, {}
+    if linalg is not None:
+        torch.backends.cuda.preferred_linalg_library(linalg)
+        print(f"{tag} history {label}: preferred linalg library {torch.backends.cuda.preferred_linalg_library()}")
+    runs, calls, ops = {}, {}, {}
     for name in ("cold", "warm"):
         phase(f"history {label}: quadruped {name} batch")
-        with layer_digests(layers, DIGEST_CALLS) as calls[name]:
+        with record_first_call(qbts.fns, "gx") as ops[name], layer_digests(layers, DIGEST_CALLS) as calls[name]:
             st = qbts.solve(parameters=x0q).state
         total = st.total_i.cpu().numpy()
         runs[name] = st
@@ -1353,6 +1539,24 @@ def history_probe(tag, cr, rc, Options, dev, groups, phase):
         },
     }))
     print(json.dumps({"history_calls": calls}))
+    print(json.dumps({"history": label, "first_gx_ops_cold_against_warm": first_op_differing(ops["warm"], ops["cold"])}))
+    if ops_out:
+        with open(ops_out, "w") as f:
+            json.dump({"history": label, **ops}, f)
+
+
+def compare_ops(ref_path, path):
+    """Print first_op_differing() of the cold batches' first gx ops of two
+    history probes (--ops-out files): `ref_path` a process with no earlier
+    phase."""
+    with open(ref_path) as f:
+        ref = json.load(f)
+    with open(path) as f:
+        other = json.load(f)
+    print(json.dumps({
+        "first_gx_ops": f"cold batch of history {other['history']} against that of history {ref['history']}",
+        **first_op_differing(ref["cold"], other["cold"]),
+    }))
 
 
 def main():
@@ -1370,10 +1574,22 @@ def main():
         help=f"only run these earlier phases (comma-separated of {', '.join(HISTORY_GROUPS)}; or none), "
         "then a cold and a warm quadruped batch; print digests of what came out",
     )
+    ap.add_argument("--ops-out", metavar="PATH", help="with --history: write the first gx call's op digests here")
+    ap.add_argument(
+        "--linalg", choices=("cusolver", "magma"),
+        help="with --history: torch.backends.cuda.preferred_linalg_library before the quadruped batches",
+    )
+    ap.add_argument(
+        "--compare-ops", nargs=2, metavar=("REF", "OTHER"),
+        help="only compare two --ops-out files: the first op of the cold batches' first gx call that differs",
+    )
     args = ap.parse_args()
-    groups = [] if args.history in (None, "none") else args.history.split(",")
+    groups = [g for g in (args.history or "").split(",") if g not in ("", "none")]
     if not set(groups) <= set(HISTORY_GROUPS):
         ap.error(f"--history: unknown phases {sorted(set(groups) - set(HISTORY_GROUPS))}")
+    if args.compare_ops:  # files of earlier runs: no card needed
+        compare_ops(*args.compare_ops)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1394,13 +1610,10 @@ def main():
     phase("1: build")
     build_kernels(tag)
     if args.stream_times:
-        times, times64 = {}, {}
-        check_stream(tag, cr, dev, *STREAM_SHAPES[0], {}, times, times64)
-        print_stream_times(tag, times, "float32")
-        print_stream_times(tag, times64, "float64")
+        stream_times(tag, cr, dev)
         return 0
     if args.history is not None:
-        history_probe(tag, cr, rc, Options, dev, groups, phase)
+        history_probe(tag, cr, rc, Options, dev, groups, phase, args.ops_out, args.linalg)
         return 0
 
     errs, times = kernel_phases(tag, cr, dev, phase)
@@ -1504,7 +1717,9 @@ def main():
 
     layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
     with layer_timers(layers) as spent:
-        wall = warm_batches(tag, "quadruped", B_QUAD, qbts, lambda: qbts.solve(parameters=x0q), qst, WARM_REPS_QUAD)
+        wall = warm_batches(
+            tag, "quadruped", B_QUAD, qbts, lambda: qbts.solve(parameters=x0q), qst, WARM_REPS_QUAD, same_bits=True
+        )
     for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
         print(
             f"{tag}   quadruped warm batches, host time in {attr}: {sec:.3f} s "

@@ -85,18 +85,24 @@ def tridiag_batch(rng, B, T, d, non_pd=()):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize(
-    "B,T,d", [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33)]
+    "B,T,d",
+    [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33),
+     (1, 101, 9), (1030, 31, 9), (2, 500, 64)],
 )
 def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     """The batched rocket's and the contact class's stage blocks (31 x 9,
-    8 x 54) and the edges of what the kernels take (T=1, d=1, d=64, whose
-    float64 working set needs the raised shared-memory limit, d=33 with
-    two rows per thread). No B is a multiple of the lanes per block
-    (ragged batch edge). Lanes 2 and B-1 are not positive definite from
-    the middle stage on: NaN from that stage on, on both paths."""
+    8 x 54), rocket101's (one lane, 101 x 9), a ragged edge past the
+    rocket's B (1030), and the edges of what the kernels take (T=1, d=1,
+    d=64, whose float64 working set needs the raised shared-memory limit,
+    d=33 with two rows per thread, and a horizon whose u does not fit in
+    shared memory in float64: 500 x 64). No B is a multiple of the lanes
+    per block (ragged batch edge). Lanes 2 and B-1 (those of them that
+    exist, with B > 1) are not positive definite from the middle stage on:
+    NaN from that stage on, on both paths."""
     rng = np.random.default_rng(T * 100 + d)
     bad_stage = T // 2
-    D, O, b = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    bad = sorted({lane for lane in (2, B - 1) if lane < B}) if B > 1 else []
+    D, O, b = tridiag_batch(rng, B, T, d, non_pd=[(lane, bad_stage) for lane in bad])
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
     before = dict(cuda_riccati.LAUNCHES)
     L, M = cuda_riccati.factor_lanes(D, O)
@@ -109,7 +115,7 @@ def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     stage_nan = lambda A: torch.isnan(A).flatten(2).any(-1).cpu().numpy()
     assert (stage_nan(L) == stage_nan(Lp)).all() and (stage_nan(M) == stage_nan(Mp)).all()
     want = np.zeros((B, T), bool)
-    want[[2, B - 1], bad_stage:] = True
+    want[bad, bad_stage:] = True
     assert (stage_nan(L) == want).all()
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
     ok = torch.tensor(~want, device=cuda)

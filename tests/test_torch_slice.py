@@ -269,6 +269,33 @@ def test_batched_nlp_matches_jax():
     assert bt.stats["host_syncs"] > 0
 
 
+def test_solve_runs_backward_on_the_calling_thread():
+    """The solve runs its oracles' backward passes on the calling thread
+    (autograd's multithreading off inside the solve, restored after): with
+    the device's worker thread beside it, the order in which a backward's
+    nodes ran depended on what the process had run before, and so did the
+    bits of a card batch's first Jacobian. The equality callable records
+    the setting at every call, its derivatives' included."""
+    seen = []
+
+    def equality(x, th):
+        seen.append(torch.autograd.is_multithreading_enabled())
+        return x[:1] - th[3:]
+
+    rng = np.random.default_rng(4)
+    th = np.concatenate([np.zeros((2, 1)), rng.uniform(0.1, 10.0, (2, 2)), rng.uniform(0.1, 1.0, (2, 1))], axis=1)
+    bt = calipso_tpu_torch.BatchedSolver(
+        lambda x, th: th[:3] @ x, equality, lambda x, th: x, 3, num_parameters=4,
+        nonnegative_indices=[], second_order_indices=[[0, 1, 2]],
+        options=options_from_jax(_pinned()), device="cpu",
+    )
+    seen.clear()  # the calls that sized the problem
+    res = bt.solve(torch.tensor(rng.normal(size=(2, 3))), torch.tensor(th))
+    assert bool(res.state.solved.all()) and len(seen) > 10
+    assert not any(seen)
+    assert torch.autograd.is_multithreading_enabled()
+
+
 def test_public_names_match_jax():
     assert sorted(calipso_tpu_torch.__all__) == sorted(calipso_tpu.__all__)
 

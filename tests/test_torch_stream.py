@@ -5,11 +5,13 @@ interpret-mode Pallas stream kernels they replace and the reference scan,
 the first stage that is not positive definite, and `solve_multi` with
 several right-hand sides per lane against `calipso_tpu.ops.riccati`.
 
-Also a numpy model of the order of operations of the two CUDA kernels
+Also a numpy model of the order of operations of the CUDA kernels
 redesigned for the card -- `factor_stream`'s blocked factor of the
-stacked panel [S_t ; O_t] in 8-wide panels, `solve_bwd_stream`'s
-pivot-broadcast back substitution -- held to the plain versions, so the
-panel edges are checked where no card is needed."""
+stacked panel [S_t ; O_t] in 8-wide panels, the pivot-broadcast
+substitutions of `solve_fwd_stream` and `solve_bwd_stream` (reciprocal
+pivots), and `solve_lanes`' two sweeps with their four-way partial-sum
+coupling -- held to the plain versions, so the panel edges and the
+orders of operations are checked where no card is needed."""
 
 import jax
 import jax.numpy as jnp
@@ -91,9 +93,9 @@ def test_solve_multi_matches_jax(d):
 
 
 def test_route_by_stage_width_and_cpu_plain():
-    """route() decides by d alone, at 33; on CPU tensors both routes take
+    """route() decides by d alone, at 32; on CPU tensors both routes take
     their plain versions and count no launch."""
-    assert [riccati.route(d) for d in (1, 9, 32, 33, 54, 64)] == ["lanes"] * 3 + ["stream"] * 3
+    assert [riccati.route(d) for d in (1, 9, 31, 32, 54, 64)] == ["lanes"] * 3 + ["stream"] * 3
     D, O, b = (torch.tensor(a) for a in _tridiag_batch(np.random.default_rng(5), 2, 3, 33))
     before = dict(cuda_riccati.LAUNCHES)
     L, M = riccati.factor(D, O)
@@ -231,4 +233,110 @@ def test_solve_bwd_stream_model_matches_plain(d, T, K):
     xp = cuda_riccati.solve_bwd_stream_plain(Lp, Mp, u).numpy()
     xm = _solve_bwd_stream_model(Lp.numpy(), Mp.numpy(), u.numpy())
     assert np.isnan(xm[0]).all() and np.isnan(xp[0]).all()
+    np.testing.assert_allclose(xm[1:], xp[1:], atol=SOLVE_ATOL, rtol=0)
+
+
+def _solve_fwd_stream_model(L, M, b):
+    """solve_fwd_stream's arithmetic in numpy, column by column: r = b_t -
+    M_{t-1}' u_{t-1} (one running sum), then from the top u_j = r_j / L_jj
+    (by the reciprocal), broadcast, and the rows below take column j of
+    L_t."""
+    u = np.zeros_like(b)
+    B, T, d, K = b.shape
+    for lane in range(B):
+        for c in range(K):
+            prev = None
+            for t in range(T):
+                r = b[lane, t, :, c].copy()
+                if prev is not None:
+                    acc = np.zeros(d)
+                    for k in range(d):
+                        acc += M[lane, t - 1, k, :] * prev[k]
+                    r -= acc
+                inv = 1.0 / np.diag(L[lane, t])
+                for j in range(d):
+                    uj = r[j] * inv[j]
+                    r[j + 1:] -= L[lane, t, j + 1:, j] * uj
+                    r[j] = uj
+                u[lane, t, :, c] = prev = r
+    return u
+
+
+def _dot4(A, v):
+    """A @ v in solve_lanes' order: four partial sums over the columns k =
+    0, 4, 8, ...; 1, 5, ...; 2, ...; 3, ..., each in increasing k, added
+    pairwise."""
+    s = [np.zeros(A.shape[0]) for _ in range(4)]
+    for k in range(A.shape[1]):
+        s[k % 4] = s[k % 4] + A[:, k] * v[k]
+    return (s[0] + s[1]) + (s[2] + s[3])
+
+
+def _solve_lanes_model(L, M, b):
+    """solve_lanes' arithmetic in numpy, lane by lane: the forward sweep
+    (r = b_t - M_{t-1}' u_{t-1} by _dot4, u_j = r_j / L_jj by the
+    reciprocal, the rows below take column j of L_t), then the backward one
+    (r = u_t - M_t x_{t+1} by _dot4, x_j from the bottom, the rows above
+    take row j of L_t)."""
+    B, T, d = b.shape
+    x = np.zeros_like(b)
+    for lane in range(B):
+        u = np.zeros((T, d))
+        for t in range(T):
+            r = b[lane, t].copy()
+            if t > 0:
+                r -= _dot4(M[lane, t - 1].T, u[t - 1])
+            inv = 1.0 / np.diag(L[lane, t])
+            for j in range(d):
+                uj = r[j] * inv[j]
+                r[j + 1:] -= L[lane, t, j + 1:, j] * uj
+                r[j] = uj
+            u[t] = r
+        nxt = None
+        for t in reversed(range(T)):
+            r = u[t].copy()
+            if nxt is not None:
+                r -= _dot4(M[lane, t], nxt)
+            inv = 1.0 / np.diag(L[lane, t])
+            for j in reversed(range(d)):
+                xj = r[j] * inv[j]
+                r[:j] -= L[lane, t, j, :j] * xj
+                r[j] = xj
+            x[lane, t] = nxt = r
+    return x
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("T", MODEL_T)
+@pytest.mark.parametrize("d", MODEL_D)
+def test_solve_fwd_stream_model_matches_plain(d, T, K):
+    """The warp-per-column forward sweep with reciprocal pivots, on the
+    plain factor; the lane that is not positive definite (middle stage)
+    comes out NaN from that stage on, on both."""
+    D, O, bad = _model_inputs(d, T, 1)
+    b = np.random.default_rng(d + T + K + 7).normal(size=(3, T, d, K))
+    Lp, Mp = cuda_riccati.factor_stream_plain(torch.tensor(D), torch.tensor(O))
+    up = cuda_riccati.solve_fwd_stream_plain(Lp, Mp, torch.tensor(b)).numpy()
+    um = _solve_fwd_stream_model(Lp.numpy(), Mp.numpy(), b)
+    stage_nan = lambda u: np.isnan(u).any(axis=(-2, -1))
+    assert (stage_nan(um) == stage_nan(up)).all()
+    assert stage_nan(um)[0].tolist() == [t >= bad for t in range(T)] and not stage_nan(um)[1:].any()
+    np.testing.assert_allclose(um[~stage_nan(up)], up[~stage_nan(up)], atol=SOLVE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 2, 31])
+@pytest.mark.parametrize("d", [1, 5, 8, 9, 16, 17, 32, 33])
+def test_solve_lanes_model_matches_plain(d, T):
+    """solve_lanes' two sweeps with reciprocal pivots and the partial-sum
+    coupling: d below, at and above the four-way split and the warp (one
+    row a thread up to 32, two from 33), the rocket's T=31; the lane that
+    is not positive definite (middle stage) is NaN over all of its x on
+    both."""
+    D, O, _ = _model_inputs(d, T, 1)
+    b = np.random.default_rng(d + T + 11).normal(size=(3, T, d))
+    Lp, Mp = cuda_riccati.factor_lanes_plain(torch.tensor(D), torch.tensor(O))
+    xp = cuda_riccati.solve_lanes_plain(Lp, Mp, torch.tensor(b)).numpy()
+    xm = _solve_lanes_model(Lp.numpy(), Mp.numpy(), b)
+    assert np.isnan(xm[0]).all() and np.isnan(xp[0]).all()
+    assert np.isfinite(xm[1:]).all()
     np.testing.assert_allclose(xm[1:], xp[1:], atol=SOLVE_ATOL, rtol=0)
