@@ -8,8 +8,6 @@
 // transposed factor that their wrapper un-transposed. Here one warp owns
 // one lane (one problem), walks its horizon in a loop and reads and writes
 // the public row-major (B, T, d, d) layout directly. 1 <= d <= 64, T >= 1.
-// The factor keeps one stage's working set in shared memory (O(d^2) per
-// warp, not O(T d^2), padded rows against bank conflicts).
 //
 // For each lane, with S the symmetric block-tridiagonal matrix of
 // diagonal blocks D_t and sub-diagonal blocks O_t:
@@ -33,6 +31,36 @@
 // 8 warps an SM, too few to hide the latency of whatever sits on the
 // chain, so the kernels are latency-bound: every step stays inside one
 // warp (no block barriers, __syncwarp only).
+//
+// factor_lanes, for d <= 32 (every lane the lanes route sends it, since
+// ops/riccati.route takes d >= 33 to the stream kernels): thread i holds
+// row i of S_t and row i of O_t in registers, and one right-looking
+// Cholesky of the stacked panel [S_t ; O_t] gives L_t (top rows) and
+// O_t L_t^{-T} = M_t' (bottom rows) together, as factor_stream does at the
+// scale of a block. At pivot k every thread takes the diagonal by one
+// shuffle from thread k (the failure test is warp-uniform), the same
+// correctly rounded sqrt and one reciprocal, scales its column-k entries,
+// and takes each l_jk (j > k) by one shuffle from thread j: independent
+// within a pivot, so they pipeline, and no barrier. The coupling D_{t+1}
+// - M_t' M_t is a Gram product of the bottom rows (its (i, j) entry is
+// o_i . o_j): each thread writes its o row to shared memory once and
+// reads the others' as broadcasts in 16-byte pieces, in four partial
+// sums. D_{t+1} and O_{t+1} land a few stages ahead in a ring of
+// shared-memory slots, by cp.async, flat as they lie in device memory (in
+// 16-byte pieces where d^2 sizeof(T) and the addresses allow it; at d = 9
+// element by element), and thread i reads its rows at a row stride of d
+// (no bank twice at d = 9). L_t goes out flat through shared memory, upper
+// zeros included; M_t[k][i] is thread i's o_i[k], so for each k the warp
+// writes d consecutive words. The register rows are indexed only by
+// compile-time indices: the loops run to a templated width (12, 16 or
+// 32), the threads past d holding zero rows (the panel padded with
+// identity), so that no branch splits a pivot's shuffles or the Gram
+// product's reads; only the pivot loop stops at d. No integer division
+// runs in any loop. A block holds up to 4 warps, fewer where the batch
+// would leave SMs idle (one at the bench's B = 128). d in 33..64, which no
+// route sends here but the contract takes, keeps the first design
+// (factor_lanes_wide_kernel): the stage in padded shared memory, a
+// separate forward substitution for M_t.
 //
 // solve_lanes keeps nothing on the chain but the pivots. A lane's 2T
 // stage steps (the forward sweep's, then the backward one's) take their L
@@ -60,11 +88,16 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxD = 64;
 constexpr int kMaxWarpsPerBlock = 8;
+// factor_lanes for d <= 32: at most this many warps a block, fewer where
+// the batch would otherwise leave SMs idle
+constexpr int kMaxFactorWarps = 4;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;  // a block's opt-in limit on Hopper
 constexpr unsigned kFull = 0xffffffffu;
@@ -80,11 +113,230 @@ __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000ULL);
 }
 
-// One warp per lane. Shared memory per warp: S (the stage's Schur block,
-// factored in place) and Mb (M_{t-1} while S_t is formed, then M_t),
-// each d rows of ld = d + 1 entries.
+// 1 / x, correctly rounded, without the division routine
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
+
+// Four consecutive words at p (16-byte aligned) in 16-byte accesses
+__device__ __forceinline__ void load4(const float* p, float& a, float& b, float& c, float& d) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  a = v.x, b = v.y, c = v.z, d = v.w;
+}
+__device__ __forceinline__ void load4(const double* p, double& a, double& b, double& c, double& d) {
+  const double2 v = *reinterpret_cast<const double2*>(p);
+  const double2 w = *reinterpret_cast<const double2*>(p + 2);
+  a = v.x, b = v.y, c = w.x, d = w.y;
+}
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
+}
+
+// Asynchronous copy of n contiguous elements from device to shared memory
+// by one warp, in 16-byte pieces when `vec` (both addresses 16-byte
+// aligned, n sizeof(T) a multiple of 16), else element by element. The
+// caller commits the batch.
 template <typename T>
-__global__ void factor_lanes_kernel(const T* __restrict__ D, const T* __restrict__ O,
+__device__ __forceinline__ void warp_copy_async(T* dst, const T* src, int n, bool vec, int lane) {
+  if (vec) {
+    constexpr int per = 16 / sizeof(T);
+    for (int e = lane; e * per < n; e += kWarp) __pipeline_memcpy_async(dst + e * per, src + e * per, 16);
+  } else {
+    for (int e = lane; e < n; e += kWarp) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
+  }
+}
+
+// n contiguous elements from shared to device memory by one warp, in
+// 16-byte pieces when `vec` (as for warp_copy_async)
+template <typename T>
+__device__ __forceinline__ void warp_store(T* dst, const T* src, int n, bool vec, int lane) {
+  if (vec) {
+    constexpr int per = 16 / sizeof(T);
+    for (int e = lane; e * per < n; e += kWarp)
+      *reinterpret_cast<int4*>(dst + e * per) = *reinterpret_cast<const int4*>(src + e * per);
+  } else {
+    for (int e = lane; e < n; e += kWarp) dst[e] = src[e];
+  }
+}
+
+// factor_lanes' stage slots for a register width kMax (a power of 2): four
+// up to 16, copied three stages ahead; two past it (a 32 x 32 float64
+// slot pair is 16 KB a warp)
+__host__ __device__ constexpr int factor_slots(int kMax) { return kMax <= 16 ? 4 : 2; }
+
+// `words` rounded up to a multiple of 16 bytes
+template <typename T>
+__host__ __device__ constexpr int round16(int words) {
+  return (words + 16 / static_cast<int>(sizeof(T)) - 1) & ~(16 / static_cast<int>(sizeof(T)) - 1);
+}
+
+// Words of a warp's shared memory in factor_lanes_reg_kernel: the ring of
+// stage slots (D_t then O_t, d x d each), rounded to 16 bytes; two
+// buffers of kMax o rows of kMax + 16 / sizeof(T) words; L_t, rounded.
+template <typename T>
+__host__ __device__ constexpr int factor_ring_words(int kMax, int d) {
+  return round16<T>(factor_slots(kMax) * 2 * d * d);
+}
+template <typename T>
+__host__ __device__ constexpr int factor_reg_words(int kMax, int d) {
+  return factor_ring_words<T>(kMax, d) + 2 * kMax * (kMax + 16 / static_cast<int>(sizeof(T))) +
+         round16<T>(d * d);
+}
+
+// Stage n's blocks of factor_lanes (D_n and, but for the last stage, O_n)
+// into slot n & (kSlots - 1); one batch committed a stage, empty past the
+// last, so that a wait counts stages.
+template <int kSlots, typename T>
+__device__ __forceinline__ void copy_factor_stage(int n, T* ring, const T* Dl, const T* Ol, int T_,
+                                                  int blk, bool vec, int lane) {
+  if (n < T_) {
+    T* slot = ring + (n & (kSlots - 1)) * 2 * blk;
+    warp_copy_async(slot, Dl + n * blk, blk, vec, lane);
+    if (n < T_ - 1) warp_copy_async(slot + blk, Ol + n * blk, blk, vec, lane);
+  }
+  __pipeline_commit();
+}
+
+// factor_lanes for d <= kMax (12, 16 or 32): one warp a lane, thread i holding
+// row i of S_t (s) and of O_t (o, then M_t') in registers (see the file
+// comment). Shared memory per warp (per_warp words, factor_reg_words):
+// the ring of stage slots, stage n in slot n & (kSlots - 1), copied kSlots
+// - 1 stages ahead; the o rows in two buffers (stage t's in buffer t & 1,
+// read by stage t + 1), row stride ldg = kMax + 16 / sizeof(T) so that
+// rows are 16-byte aligned and 16-byte writes by a quarter warp hit
+// distinct banks; and L_t on its way out.
+template <typename T, int kMax>
+__global__ void __launch_bounds__(kMaxFactorWarps * kWarp, 1)
+    factor_lanes_reg_kernel(const T* __restrict__ D, const T* __restrict__ O, T* __restrict__ L,
+                            T* __restrict__ M, int B, int T_, int d, int per_warp, int vec) {
+  constexpr int kSlots = factor_slots(kMax);
+  constexpr int ldg = kMax + 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int blk = d * d;
+  T* const ring = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * per_warp;
+  T* const G = ring + factor_ring_words<T>(kMax, d);
+  T* const Ls = G + 2 * kMax * ldg;
+  const long long b = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (b >= B) return;  // ragged batch edge; the kernel has no block barrier
+  const T* Dl = D + b * T_ * blk;
+  const T* Ol = O + b * (T_ - 1) * blk;
+  T* Ll = L + b * T_ * blk;
+  T* Ml = M + b * (T_ - 1) * blk;
+  const int c = min(lane, d - 1);  // this thread's row, clamped to a real one to read
+  const bool own = lane < d;
+  for (int n = 0; n < kSlots - 1; ++n) copy_factor_stage<kSlots>(n, ring, Dl, Ol, T_, blk, vec, lane);
+
+  // s[j]: S_t[c][j], then L_t[c][j] (j <= c; the rest is never read);
+  // o[k]: O_t[c][k], then M_t[k][c]; o[k] = 0 for k >= d throughout. The
+  // threads past d hold zero rows: with them the panel is [S_t ; O_t]
+  // padded to kMax with identity, whose extra pivots are never taken, so
+  // every loop but the pivots' runs to kMax with no branch and the
+  // shuffles of a pivot pipeline (what they add is an exact zero).
+  T s[kMax], o[kMax];
+#pragma unroll
+  for (int k = 0; k < kMax; ++k) s[k] = o[k] = T(0);
+  bool ok = true;
+  int t = 0;
+  for (; t < T_; ++t) {
+    const T* Ds = ring + (t & (kSlots - 1)) * 2 * blk;
+    const T* Os = Ds + blk;
+    __pipeline_wait_prior(kSlots - 2);
+    __syncwarp();  // stage t's blocks have landed; stage t-1's slot is free
+    copy_factor_stage<kSlots>(t + kSlots - 1, ring, Dl, Ol, T_, blk, vec, lane);
+
+    // S_t = D_t - M_{t-1}' M_{t-1}: entry (c, j) takes the dot of this
+    // thread's o row (M_{t-1}' row c) with o row j, read as a broadcast
+    // (entries j >= d read past row c: never used)
+#pragma unroll
+    for (int j = 0; j < kMax; ++j) s[j] = Ds[c * d + j];
+    if (t > 0) {
+      const T* Gp = G + ((t - 1) & 1) * kMax * ldg;
+#pragma unroll
+      for (int j = 0; j < kMax; ++j) {
+        T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+#pragma unroll
+        for (int k = 0; k < kMax; k += 4) {
+          T g0, g1, g2, g3;
+          load4(Gp + j * ldg + k, g0, g1, g2, g3);
+          p0 += o[k] * g0;
+          p1 += o[k + 1] * g1;
+          p2 += o[k + 2] * g2;
+          p3 += o[k + 3] * g3;
+        }
+        s[j] -= (p0 + p1) + (p2 + p3);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kMax; ++k) {
+      o[k] = own && k < d && t < T_ - 1 ? Os[c * d + k] : T(0);
+      if (!own) s[k] = T(0);
+    }
+
+    // right-looking Cholesky of the stacked panel [S_t ; O_t], row c of
+    // each half in this thread's registers; a pivot that is not positive,
+    // or not finite, fails the stage (the same test in every thread) once
+    // the loop is done, so that no branch on it splits the pivots
+#pragma unroll
+    for (int k = 0; k < kMax; ++k) {
+      if (k >= d) break;
+      const T pkk = __shfl_sync(kFull, s[k], k);
+      ok = ok && pkk > T(0) && pkk - pkk == T(0);
+      const T lkk = sqrt(pkk);
+      const T inv = recip(lkk);
+      s[k] = lane == k ? lkk : s[k] * inv;
+      o[k] *= inv;
+#pragma unroll
+      for (int j = k + 1; j < kMax; ++j) {
+        const T ljk = __shfl_sync(kFull, s[k], j);
+        s[j] -= s[k] * ljk;
+        o[j] -= o[k] * ljk;
+      }
+    }
+    if (!ok) break;
+
+    if (own) {
+#pragma unroll
+      for (int j = 0; j < kMax; ++j)
+        if (j < d) Ls[lane * d + j] = j <= lane ? s[j] : T(0);
+      if (t < T_ - 1) {
+        T* Gc = G + (t & 1) * kMax * ldg;
+        T* Mt = Ml + t * blk;
+#pragma unroll
+        for (int k = 0; k < kMax; k += 4) store4(Gc + lane * ldg + k, o[k], o[k + 1], o[k + 2], o[k + 3]);
+#pragma unroll
+        for (int k = 0; k < kMax; ++k)
+          if (k < d) Mt[k * d + lane] = o[k];
+      }
+    }
+    __syncwarp();  // L_t's rows are in Ls, the o rows in G
+    warp_store(Ll + t * blk, Ls, blk, vec, lane);
+  }
+  __pipeline_wait_prior(0);  // no copy is in flight past here
+
+  // a stage that is not positive definite: NaN over the lower triangle of
+  // L_t and of every later L, and over every M from M_t on
+  if (!ok && own) {
+    const T nan = quiet_nan<T>();
+    for (int st = t; st < T_; ++st) {
+      T* Lr = Ll + st * blk + lane * d;
+      for (int j = 0; j < d; ++j) Lr[j] = j > lane ? T(0) : nan;
+      if (st < T_ - 1)
+        for (int k = 0; k < d; ++k) Ml[st * blk + k * d + lane] = nan;
+    }
+  }
+}
+
+// factor_lanes for d in 33..64 (the first design): one warp per lane.
+// Shared memory per warp: S (the stage's Schur block, factored in place)
+// and Mb (M_{t-1} while S_t is formed, then M_t), each d rows of ld = d +
+// 1 entries.
+template <typename T>
+__global__ void factor_lanes_wide_kernel(const T* __restrict__ D, const T* __restrict__ O,
                                     T* __restrict__ L, T* __restrict__ M, int B,
                                     int T_, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -176,20 +428,6 @@ __global__ void factor_lanes_kernel(const T* __restrict__ D, const T* __restrict
       T* Ms = Mo + s * dd;
       for (int e = lane; e < nn; e += kWarp) Ms[e] = nan;
     }
-  }
-}
-
-// Asynchronous copy of n contiguous elements from device to shared memory
-// by one warp, in 16-byte pieces when `vec` (both addresses 16-byte
-// aligned, n sizeof(T) a multiple of 16), else element by element. The
-// caller commits the batch.
-template <typename T>
-__device__ __forceinline__ void warp_copy_async(T* dst, const T* src, int n, bool vec, int lane) {
-  if (vec) {
-    constexpr int per = 16 / sizeof(T);
-    for (int e = lane; e * per < n; e += kWarp) __pipeline_memcpy_async(dst + e * per, src + e * per, 16);
-  } else {
-    for (int e = lane; e < n; e += kWarp) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
   }
 }
 
@@ -397,11 +635,12 @@ __global__ void solve_lanes_kernel(const T* __restrict__ L, const T* __restrict_
 // (the default 48 KB unless given) where it can; a larger share runs one
 // warp per block. Above 48 KB the kernel's opt-in shared-memory limit is
 // raised.
+// At most max_warps a block.
 template <typename K>
 cudaError_t configure(K kernel, size_t per_warp, int* warps, size_t* smem,
-                      size_t budget = kDefaultSmem) {
+                      size_t budget = kDefaultSmem, int max_warps = kMaxWarpsPerBlock) {
   size_t w = budget / per_warp;
-  if (w > kMaxWarpsPerBlock) w = kMaxWarpsPerBlock;
+  if (w > static_cast<size_t>(max_warps)) w = max_warps;
   if (w < 1) w = 1;
   *warps = static_cast<int>(w);
   *smem = per_warp * w;
@@ -415,19 +654,59 @@ bool shape_ok(int B, int T_, int d) { return B >= 0 && T_ >= 1 && d >= 1 && d <=
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
 
+// The SMs of the current device, asked once a device.
+int sm_count() {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> cached[kMaxDevices];  // 0: not asked
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep && (n = cached[dev].load(std::memory_order_relaxed)) > 0) return n;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) return 1;
+  if (keep) cached[dev].store(n, std::memory_order_relaxed);
+  return n;
+}
+
+template <typename T, int kMax>
+cudaError_t launch_factor_reg(const T* D, const T* O, T* L, T* M, int B, int T_, int d,
+                              cudaStream_t stream) {
+  // warps a block: B / SMs, at least one (so that every SM has a lane
+  // where the batch allows) and at most kMaxFactorWarps
+  int want = B / sm_count();
+  if (want > kMaxFactorWarps) want = kMaxFactorWarps;
+  const int words = factor_reg_words<T>(kMax, d);
+  auto kernel = factor_lanes_reg_kernel<T, kMax>;
+  int warps;
+  size_t smem;
+  cudaError_t err = configure(kernel, sizeof(T) * words, &warps, &smem, kMaxSmem, want < 1 ? 1 : want);
+  if (err != cudaSuccess) return err;
+  const int vec = (sizeof(T) * d * d) % 16 == 0 && aligned16(D) && aligned16(O) && aligned16(L);
+  kernel<<<(B + warps - 1) / warps, warps * kWarp, smem, stream>>>(D, O, L, M, B, T_, d, words, vec);
+  return cudaGetLastError();
+}
+
+// The factor: the register kernel up to d = 32 (width 12, 16 or 32), the
+// shared-memory kernel past it.
 template <typename T>
 int factor_lanes(const void* D, const void* O, void* L, void* M, int B, int T_, int d,
                  void* stream) {
   if (!shape_ok(B, T_, d)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0) return static_cast<int>(cudaSuccess);
+  const T* Dp = static_cast<const T*>(D);
+  const T* Op = static_cast<const T*>(O);
+  T* Lp = static_cast<T*>(L);
+  T* Mp = static_cast<T*>(M);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d <= 12) return static_cast<int>(launch_factor_reg<T, 12>(Dp, Op, Lp, Mp, B, T_, d, st));
+  if (d <= 16) return static_cast<int>(launch_factor_reg<T, 16>(Dp, Op, Lp, Mp, B, T_, d, st));
+  if (d <= kWarp) return static_cast<int>(launch_factor_reg<T, kWarp>(Dp, Op, Lp, Mp, B, T_, d, st));
   int warps;
   size_t smem;
   const size_t per_warp = sizeof(T) * 2 * static_cast<size_t>(d) * (d + 1);
-  cudaError_t err = configure(factor_lanes_kernel<T>, per_warp, &warps, &smem);
+  cudaError_t err = configure(factor_lanes_wide_kernel<T>, per_warp, &warps, &smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (B + warps - 1) / warps;
-  factor_lanes_kernel<T><<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(D), static_cast<const T*>(O), static_cast<T*>(L),
-      static_cast<T*>(M), B, T_, d);
+  factor_lanes_wide_kernel<T><<<grid, warps * kWarp, smem, st>>>(Dp, Op, Lp, Mp, B, T_, d);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -13,18 +13,51 @@
 // latency-bound (about 2.7 flops per byte in float32). The pivot chain is
 // sequential, so each warp spends most of its time on the n dependent
 // pivot steps; several warps per block and several blocks per SM hide
-// that latency.
+// that latency. The solve reads L's lower triangle and b and writes x:
+// 19.4 MB at the flagship's B=8192, n=32 in float32 (5.8 us at 3.35
+// TB/s), against 4.2 MFLOP.
+//
+// solve_t1 for n <= 32 (the flagship's n = 32): one warp a system, thread
+// i owning row i. L's lower triangle lands in shared memory by cp.async,
+// only the 16-byte pieces of each row that hold columns <= the row (576
+// of 1024 words at n = 32; element by element where n sizeof(T) or L's
+// address is not a multiple of 16), at a row stride of n rounded up to 16
+// bytes plus 16 bytes (36 words at n = 32 in float32), so that 16-byte
+// row reads by a quarter warp and column reads by the warp hit distinct
+// banks. Each thread takes 1 / L_ii once, off the chain. The forward
+// sweep runs from registers: thread i reads its row into them in 16-byte
+// pieces, and each pivot is one multiply, one __shfl_sync of u_j and one
+// FMA (a select keeps the rows it does not touch). The backward sweep
+// runs the same way on column i of L, L[j][i] for j > i (consecutive
+// words of row j across the warp), read into the same registers before
+// its first step. Threads past n hold rows of the identity, so both
+// sweeps run 32 steps with no branch. b is read into a register and x
+// written from one. No barrier and no division is on the chain, and no
+// integer division runs in any loop. The grid holds as many warps as are
+// resident at once (4 a block; 5 blocks an SM in float32 on an H100, 3 in
+// float64, by cudaOccupancyMaxActiveBlocksPerMultiprocessor), and each
+// walks the systems b, b + stride, ... with the next one's L in flight
+// into the other of two slots, so a batch of 8192 does not end on a
+// part-full second wave. n in 33..128 keeps the first kernel
+// (solve_t1_wide_kernel): L and x in padded shared memory, a division and
+// two __syncwarp a pivot.
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kMaxWarpsPerBlock = 8;
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSolveWarps = 4;  // warps a block of solve_t1_reg_kernel
+constexpr int kMaxN = 128;      // the widest system the T=1 kernels take
 
 template <typename T>
 __device__ __forceinline__ T quiet_nan();
@@ -99,11 +132,112 @@ __global__ void factor_t1_kernel(const T* __restrict__ S, T* __restrict__ L,
   }
 }
 
-// One warp per system L L^T x = b: forward substitution L u = b by
-// columns, then backward substitution L^T x = u, with L and x in shared
-// memory and the same row ownership as factor_t1_kernel.
+// 1 / x, correctly rounded, without the division routine
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
+__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
+
+// 16 bytes of shared memory at p into r[j..] where `in`, else zeros
+template <int N>
+__device__ __forceinline__ void load16(const float* p, float (&r)[N], int j, bool in) {
+  const float4 v = in ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+  r[j] = v.x, r[j + 1] = v.y, r[j + 2] = v.z, r[j + 3] = v.w;
+}
+template <int N>
+__device__ __forceinline__ void load16(const double* p, double (&r)[N], int j, bool in) {
+  const double2 v = in ? *reinterpret_cast<const double2*>(p) : make_double2(0.0, 0.0);
+  r[j] = v.x, r[j + 1] = v.y;
+}
+
+// The lower triangle of the n x n row-major L at src into dst at row
+// stride ld, by one warp's cp.async: in `vec` (n sizeof(T) a multiple of
+// 16, src 16-byte aligned) the 16-byte pieces that hold a column <= their
+// row, kWarp / (kMaxN / per) rows at a time, else element by element, a
+// row at a time. The caller commits the batch.
+template <typename T, int kMaxN>
+__device__ __forceinline__ void copy_lower(T* dst, const T* src, int n, int ld, bool vec, int lane) {
+  if (vec) {
+    constexpr int per = 16 / sizeof(T);
+    constexpr int pieces = kMaxN / per;  // of a row of kMaxN
+    constexpr int rows = kWarp / pieces;
+    const int pc = (lane % pieces) * per;
+    for (int r = lane / pieces; r < n; r += rows)
+      if (pc <= r) __pipeline_memcpy_async(dst + r * ld + pc, src + r * n + pc, 16);
+  } else {
+    for (int r = 0; r < n; ++r)
+      if (lane <= r) __pipeline_memcpy_async(dst + r * ld + lane, src + r * n + lane, sizeof(T));
+  }
+}
+
+// solve_t1 for n <= kMaxN = 32 (see the file comment). Shared memory per
+// warp: two slots of slot_words (n rows of ld words: n rounded up to 16
+// bytes, plus 16 bytes); system number k of this warp in slot k & 1.
+template <typename T, int kMaxN>
+__global__ void __launch_bounds__(kSolveWarps * kWarp)
+    solve_t1_reg_kernel(const T* __restrict__ Lg, const T* __restrict__ bg, T* __restrict__ xg,
+                        int B, int n, int slot_words, int vec) {
+  constexpr int per = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warps = blockDim.x >> 5;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = ((n + per - 1) & ~(per - 1)) + per;  // 16-byte rows
+  T* const slots = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * 2 * slot_words;
+  const long long stride = static_cast<long long>(gridDim.x) * warps;
+  long long b = static_cast<long long>(blockIdx.x) * warps + warp;
+  if (b >= B) return;  // ragged batch edge; the kernel has no block barrier
+  const long long nn = static_cast<long long>(n) * n;
+  const int c = min(lane, n - 1);  // this thread's row, clamped to a real one to read
+  const bool own = lane < n;
+  copy_lower<T, kMaxN>(slots, Lg + b * nn, n, ld, vec, lane);
+  __pipeline_commit();
+  T bn = own ? bg[b * n + lane] : T(0);  // b of this warp's next system
+
+  for (int k = 0; b < B; b += stride, ++k) {
+    const T* Ls = slots + (k & 1) * slot_words;
+    const long long nb = b + stride;
+    if (nb < B) copy_lower<T, kMaxN>(slots + ((k + 1) & 1) * slot_words, Lg + nb * nn, n, ld, vec, lane);
+    __pipeline_commit();
+    T r = bn;
+    if (nb < B && own) bn = bg[nb * n + lane];
+    __pipeline_wait_prior(1);
+    __syncwarp();  // system b's L has landed
+
+    // L u = b from the top: u_j = r_j / L_jj by the reciprocal, broadcast;
+    // the rows below take column j (this thread's row, in registers). The
+    // threads past n hold rows of the identity and b = 0, so that every
+    // loop runs to kMaxN with no branch (what they add is an exact zero).
+    const T* row = Ls + c * ld;
+    const T inv = own ? recip(row[c]) : T(1);
+    T l[kMaxN];
+#pragma unroll
+    for (int j = 0; j < kMaxN; j += per) load16(row + j, l, j, j < n);
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) {
+      if (!own) l[j] = j == lane ? T(1) : T(0);
+      const T uj = __shfl_sync(kFull, r * inv, j);
+      r = lane == j ? uj : (lane > j ? r - l[j] * uj : r);
+    }
+    // L' x = u from the bottom: the rows above take row j of L (column
+    // `lane` of L', consecutive words across the warp), read into the
+    // same registers before the first step
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) l[j] = j < n ? Ls[j * ld + c] : T(0);
+#pragma unroll
+    for (int j = kMaxN - 1; j >= 0; --j) {
+      const T xj = __shfl_sync(kFull, r * inv, j);
+      r = lane == j ? xj : (lane < j ? r - l[j] * xj : r);
+    }
+    if (own) xg[b * n + lane] = r;
+    __syncwarp();  // every thread is done with this slot before it is refilled
+  }
+  __pipeline_wait_prior(0);
+}
+
+// solve_t1 for n in 33..128 (the first design): one warp per system L L^T x
+// = b, forward substitution L u = b by columns, then backward substitution
+// L^T x = u, with L and x in shared memory and the same row ownership as
+// factor_t1_kernel.
 template <typename T>
-__global__ void solve_t1_kernel(const T* __restrict__ Lg, const T* __restrict__ bg,
+__global__ void solve_t1_wide_kernel(const T* __restrict__ Lg, const T* __restrict__ bg,
                                 T* __restrict__ xg, int B, int n) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warps = blockDim.x / kWarp;
@@ -166,17 +300,113 @@ int factor_t1(const void* S, void* L, int B, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// How solve_t1 launches at n: the kernel's warps a block, shared memory
+// a block, and its resident blocks an SM (cudaOccupancy...).
+constexpr int kMaxDevices = 64;
+
+// How solve_t1 launches at n: the kernel's warps a block, shared memory
+// a block, its resident blocks an SM, and the device's SMs.
+struct SolveT1Plan {
+  bool reg;  // solve_t1_reg_kernel (n <= 32), else solve_t1_wide_kernel
+  int warps, slot_words, blocks_per_sm, sms;
+  size_t smem;
+};
+
+// Shared memory a block of solve_t1_reg_kernel<T> takes at n: two slots
+// a warp of n rows of ld words (n rounded up to 16 bytes, plus 16 bytes).
+template <typename T>
+constexpr int reg_slot_words(int n) {
+  return n * (((n + 16 / static_cast<int>(sizeof(T)) - 1) & ~(16 / static_cast<int>(sizeof(T)) - 1)) +
+              16 / static_cast<int>(sizeof(T)));
+}
+template <typename T>
+constexpr size_t reg_smem(int n) {
+  return sizeof(T) * 2 * static_cast<size_t>(reg_slot_words<T>(n)) * kSolveWarps;
+}
+
+// The residency of solve_t1_reg_kernel<T> at n on the current device,
+// asked once a device and n: the launch reads it every call. The kernel's
+// shared-memory limit is raised on the way to what n = 32 takes, where
+// that is more than 48 KB, so that no later n lowers it below what an
+// earlier one was launched with.
+template <typename T>
+cudaError_t reg_residency(int n, size_t smem, int* blocks_per_sm, int* sms) {
+  static std::atomic<int> cached[kMaxDevices][kWarp + 1][2];  // blocks an SM, SMs; 0: not asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool keep = dev >= 0 && dev < kMaxDevices;
+  if (keep && (*blocks_per_sm = cached[dev][n][0].load(std::memory_order_acquire)) > 0) {
+    *sms = cached[dev][n][1].load(std::memory_order_relaxed);
+    return cudaSuccess;
+  }
+  auto kernel = solve_t1_reg_kernel<T, kWarp>;
+  if (reg_smem<T>(kWarp) > kDefaultSmem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(reg_smem<T>(kWarp)));
+    if (err != cudaSuccess) return err;
+  }
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kSolveWarps * kWarp, smem);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (*blocks_per_sm < 1) return cudaErrorInvalidConfiguration;  // the launch would be refused
+  if (keep) {
+    cached[dev][n][1].store(*sms, std::memory_order_relaxed);
+    cached[dev][n][0].store(*blocks_per_sm, std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t plan_solve_t1(int n, SolveT1Plan* p) {
+  p->reg = n <= kWarp;
+  if (p->reg) {
+    p->slot_words = reg_slot_words<T>(n);
+    p->warps = kSolveWarps;
+    p->smem = reg_smem<T>(n);
+    return reg_residency<T>(n, p->smem, &p->blocks_per_sm, &p->sms);
+  }
+  p->slot_words = p->blocks_per_sm = p->sms = 0;  // the launch does not read them
+  const size_t per_warp = sizeof(T) * (static_cast<size_t>(n) * (n + 1) + n);
+  return configure(solve_t1_wide_kernel<T>, per_warp, &p->warps, &p->smem);
+}
+
 template <typename T>
 int solve_t1(const void* L, const void* b, void* x, int B, int n, void* stream) {
-  int warps;
-  size_t smem;
-  const size_t per_warp = sizeof(T) * (static_cast<size_t>(n) * (n + 1) + n);
-  cudaError_t err = configure(solve_t1_kernel<T>, per_warp, &warps, &smem);
+  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0) return static_cast<int>(cudaSuccess);
+  SolveT1Plan p;
+  cudaError_t err = plan_solve_t1<T>(n, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (B + warps - 1) / warps;
-  solve_t1_kernel<T><<<grid, warps * kWarp, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(b), static_cast<T*>(x), B, n);
+  const T* Lp = static_cast<const T*>(L);
+  const T* bp = static_cast<const T*>(b);
+  T* xp = static_cast<T*>(x);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (B + p.warps - 1) / p.warps;
+  if (p.reg) {
+    // every warp resident at once, each walking its systems
+    const long long resident = static_cast<long long>(p.blocks_per_sm) * p.sms;
+    const int grid = static_cast<int>(blocks < resident ? blocks : resident);
+    const int vec = (sizeof(T) * n) % 16 == 0 && reinterpret_cast<size_t>(L) % 16 == 0;
+    solve_t1_reg_kernel<T, kWarp><<<grid, p.warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n, p.slot_words, vec);
+  } else {
+    solve_t1_wide_kernel<T><<<static_cast<int>(blocks), p.warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int solve_t1_layout(int n, int* warps, int* blocks_per_sm) {
+  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  SolveT1Plan p;
+  cudaError_t err = plan_solve_t1<T>(n, &p);
+  if (err == cudaSuccess && !p.reg)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p.blocks_per_sm, solve_t1_wide_kernel<T>,
+                                                        p.warps * kWarp, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *warps = p.warps;
+  *blocks_per_sm = p.blocks_per_sm;
+  return static_cast<int>(cudaSuccess);
 }
 
 }  // namespace
@@ -199,6 +429,15 @@ int calipso_solve_t1_f32(const void* L, const void* b, void* x, int B, int n,
 int calipso_solve_t1_f64(const void* L, const void* b, void* x, int B, int n,
                          void* stream) {
   return solve_t1<double>(L, b, x, B, n, stream);
+}
+
+// How solve_t1 launches at n: warps a block and resident blocks an SM.
+int calipso_solve_t1_layout_f32(int n, int* warps, int* blocks_per_sm) {
+  return solve_t1_layout<float>(n, warps, blocks_per_sm);
+}
+
+int calipso_solve_t1_layout_f64(int n, int* warps, int* blocks_per_sm) {
+  return solve_t1_layout<double>(n, warps, blocks_per_sm);
 }
 
 }  // extern "C"

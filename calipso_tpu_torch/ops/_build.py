@@ -30,11 +30,13 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C entry point: argument types}; every entry point
 # returns a CUDA error code (int), except the fused solve's workspace
-# query (words per lane, or a negated CUDA error code)
+# query (words per lane, or a negated CUDA error code); the layout query
+# of solve_t1 writes through its two pointers
 SIGNATURES = {
     "riccati_t1": {
         **{f"calipso_factor_t1_{dt}": [_P, _P, _I, _I, _P] for dt in ("f32", "f64")},
         **{f"calipso_solve_t1_{dt}": [_P, _P, _P, _I, _I, _P] for dt in ("f32", "f64")},
+        **{f"calipso_solve_t1_layout_{dt}": [_I, _P, _P] for dt in ("f32", "f64")},
     },
     "riccati_lanes": {
         **{f"calipso_factor_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},

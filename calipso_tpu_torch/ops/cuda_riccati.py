@@ -7,9 +7,13 @@
 `calipso_tpu/ops/pallas_riccati.py:_factor_lanes_t1_kernel`, `solve_t1`
 replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
 `_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`
-(`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane,
-staged in shared memory; the solve copies its stage blocks a few steps
-ahead and keeps u on chip between its two sweeps). `factor_stream`
+(`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane;
+up to n = 32 and d = 32 thread i holds row i in registers -- `solve_t1`
+runs both sweeps by shuffles from a shared copy of L's lower triangle,
+`factor_lanes` factors the stacked panel [S_t ; O_t] into L_t and M_t'
+at once -- past that the stage is staged in shared memory; the lanes
+kernels copy their stage blocks a few stages ahead, and the solve keeps u
+on chip between its two sweeps). `factor_stream`
 replaces `_factor_stream_kernel` and `solve_stream` replaces
 `_solve_fwd_stream_kernel` and `_solve_bwd_stream_kernel`
 (`csrc/riccati_stream.cu`: the factor a blocked factor of the stacked
@@ -24,7 +28,7 @@ it fits, or one thread per lane on (T, d, d, B) arrays); `solve_batched`,
 the public entry point, takes the first on CUDA tensors, as the
 reference does off the CPU, and no solver path calls it. All are
 hand-written CUDA for Hopper, built by `ops/_build.py`. The stream
-kernels are the wide-stage route (d >= 32, `ops/riccati.route`), and
+kernels are the wide-stage route (d >= 33, `ops/riccati.route`), and
 their solve takes K right-hand sides per lane.
 
 What bounds them on an H100: each reads its inputs once and writes its
@@ -233,6 +237,25 @@ def solve_t1(L, b):
             L.data_ptr(), b.data_ptr(), x.data_ptr(), B, n,
         )
     return x
+
+
+def solve_t1_layout(dtype, n):
+    """(warps a block, resident blocks an SM) of the `solve_t1` kernel
+    at width n on the current CUDA device."""
+    import ctypes
+
+    from calipso_tpu_torch.ops import _build
+
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the T=1 kernels take 1 <= n <= {MAX_N}, got n={n}")
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the T=1 kernels take float32 or float64, got {dtype}")
+    fn = getattr(_build.load("riccati_t1"), f"calipso_solve_t1_layout_{_SUFFIX[dtype]}")
+    warps, blocks = ctypes.c_int(), ctypes.c_int()
+    err = fn(n, ctypes.byref(warps), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"solve_t1 layout query failed: CUDA error {err}")
+    return warps.value, blocks.value
 
 
 def _tridiag_factor(name, stem, plain, D, O):

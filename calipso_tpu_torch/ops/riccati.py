@@ -12,13 +12,13 @@ the counterpart of `calipso_tpu/ops/riccati.py`.
   identity diagonal blocks, which decouple exactly.
 
 `route(d)` picks the block-tridiagonal kernels by the stage width alone:
-"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) below 32, and
+"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) up to 32, and
 "stream" (one thread block per lane, `factor_stream`/`solve_stream`) from
-32 on, the contact class's d=54. On an H100 the crossover moves with the
-batch: at B=1024 the lanes route is faster up to d=24 and the stream route
-at d=32, at B=128 the stream route from d=16 on (one warp a lane leaves
-most of the card idle there); d=32 is the narrowest width measured where
-the stream route wins at every batch size. The reference splits the same two regimes (resident d=9, streamed
+33 on, the contact class's d=54. On an H100 the lanes route's factor keeps
+a stage in registers up to d=32, and there the lanes route is the faster
+at both batches measured (B=128, T=8 and B=1024, T=31, d=9 to 32); past
+32 its factor stages in shared memory and the stream route wins (d=33 at
+B=128). The reference splits the same two regimes (resident d=9, streamed
 d=54) by TPU VMEM. `solve_multi` always takes the stream solve, the one
 that serves K columns from one factor; both routes write the same (L, M).
 
@@ -30,7 +30,7 @@ of its factor (the inertia signal), never an exception.
 
 from calipso_tpu_torch.ops import cuda_riccati
 
-STREAM_MIN_D = 32
+STREAM_MIN_D = 33
 
 
 def route(d):

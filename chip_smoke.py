@@ -5,12 +5,15 @@
 
 Phases (each fails loudly; none catches its own failure):
   1. build the CUDA kernels from calipso_tpu_torch/csrc with nvcc (sm_90a),
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; require ptxas to give the
+     kernels that keep their rows in registers (factor_lanes up to d=32,
+     solve_t1 up to n=32) no stack frame and no spill;
   2. hold the T=1 kernels (factor_t1, solve_t1) against their plain PyTorch
      versions on the card at the flagship shape B=8192, n=32, the
      block-tridiagonal kernels (factor_lanes, solve_lanes) at the batched
-     rocket's shape (B=1024, T=31, d=9) and the contact class's (B=256,
-     T=8, d=54), and (2c) the stream kernels (factor_stream,
+     rocket's shape (B=1024, T=31, d=9), at the bench's rocket batch
+     (B=128) and at the contact class's (B=256, T=8, d=54), and (2c) the
+     stream kernels (factor_stream,
      solve_fwd_stream, solve_bwd_stream) at the batched quadruped's shape
      (B=128, T=8, d=54) with K=1 and K=22 right-hand sides and at
      (B=1024, T=31, d=9), in float32 and float64, with 8 lanes that are
@@ -89,10 +92,12 @@ of the kernels, the `nvidia-smi` name/power line, and last
 there is no CUDA device or the package is not beside this script.
 
 Partial runs print no such result:
-    python3 chip_smoke.py --stream-times         # phase 1, the stream
-        # kernels checked and timed at (128, 8, 54) with K=1 and K=22 and
-        # the lanes kernels at (1024, 31, 9), in float32 and float64, and
-        # the two stream sweeps across d = 50..58 (copied into another
+    python3 chip_smoke.py --stream-times         # phase 1, then the
+        # T=1 kernels checked and timed at (8192, 32), the stream kernels
+        # at (128, 8, 54) with K=1 and K=22 and the lanes kernels at
+        # (1024, 31, 9) and (128, 31, 9), in float32 and float64, those
+        # and the stream kernels also replayed from a CUDA graph, and the
+        # two stream sweeps across d = 50..58 (copied into another
         # checkout, times that one's kernels)
     python3 chip_smoke.py --history rocket,cr    # phase 1, the named
         # earlier phases (none: ''), then a cold and a warm quadruped
@@ -140,7 +145,10 @@ CPU_LANES_ROCKET = 16
 # hold rocket states to 1e-3, and the thrust, which rides the cone
 # boundary, is less determined than the states, hence 1e-2 over all
 CPU_ATOL_ROCKET = 1e-2
-LANES_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (256, 8, 54))
+# the bench's own rocket batch (bench.py:530-596), which leaves most SMs
+# without a lane on the lanes route
+B_ROCKET_BENCH = 128
+LANES_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (B_ROCKET_BENCH, HORIZON_ROCKET, 9), (256, 8, 54))
 # two warm batches of the flagship and the rocket: the quadruped phases
 # take most of the script's time limit
 WARM_REPS = 2
@@ -235,6 +243,25 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean milliseconds per call of fn() replayed from one CUDA graph of
+    `reps` calls (CUDA events around 5 replays): the device's time without
+    the host's cost of each call, which cuda_ms counts where the host is
+    the slower of the two."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(g.replay, 5) / reps
 
 
 def bound(nbytes, flops, dtype="float32"):
@@ -660,21 +687,68 @@ def sweeps_across_d(tag, cr, dev):
 
 
 def stream_times(tag, cr, dev):
-    """--stream-times: the stream kernels checked and timed at the
-    quadruped's (B, T, d) with K=1 and K=22 right-hand sides, the lanes
-    kernels at the rocket's (B, T, d), float32 and float64, and the sweeps
+    """--stream-times: the T=1 kernels checked and timed at the flagship's
+    (B, n), the stream kernels at the quadruped's (B, T, d) with K=1 and
+    K=22 right-hand sides, the lanes kernels at the rocket's (B, T, d) with
+    B = 1024 and the bench's 128, float32 and float64, and the sweeps
     across d (sweeps_across_d)."""
+    times, times64 = {}, {}
+    check_t1(tag, cr, dev, {}, times, times64)
+    for name, into in (("float32", times), ("float64", times64)):
+        print_times(tag, into, name, f"B={B_FLAG} n=32")
     for B, T, d, K in STREAM_SHAPES[:2]:
         times, times64 = {}, {}
         check_stream(tag, cr, dev, B, T, d, K, {}, times, times64)
         for name, into in (("float32", times), ("float64", times64)):
             print_times(tag, into, name, f"B={B} T={T} d={d} K={K}")
-    B, T, d = LANES_SHAPES[0]
-    times, times64 = {}, {}
-    check_lanes(tag, cr, dev, B, T, d, {}, times, times64)
-    for name, into in (("float32", times), ("float64", times64)):
-        print_times(tag, into, name, f"B={B} T={T} d={d}")
+    for B, T, d in LANES_SHAPES[:2]:
+        times, times64 = {}, {}
+        check_lanes(tag, cr, dev, B, T, d, {}, times, times64)
+        for name, into in (("float32", times), ("float64", times64)):
+            print_times(tag, into, name, f"B={B} T={T} d={d}")
+    graph_times(tag, cr, dev)
     sweeps_across_d(tag, cr, dev)
+
+
+def graph_times(tag, cr, dev):
+    """The T=1 and the lanes kernels at the shapes stream_times checks,
+    and the stream kernels at the quadruped's (K=1), timed as one CUDA
+    graph of 50 calls (graph_ms) beside the same 50 calls from the host
+    (cuda_ms), float32 and float64: where the two differ, the host sets
+    cuda_ms."""
+    import torch
+
+    n = 32
+    S64, b64 = t1_inputs(n)
+    cases = [("T=1", f"B={B_FLAG} n={n}", (S64, b64))]
+    cases += [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in LANES_SHAPES[:2]]
+    B, T, d, K = STREAM_SHAPES[0]
+    cases.append(("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)))
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        for route, shape, arrays in cases:
+            if route == "T=1":
+                S, b = (torch.tensor(a, dtype=dtype, device=dev) for a in arrays)
+                L = cr.factor_t1(S)
+                fns = {"factor_t1": lambda: cr.factor_t1(S), "solve_t1": lambda: cr.solve_t1(L, b)}
+            else:
+                D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in arrays[:3])
+                if route == "lanes":
+                    b = b[..., 0].contiguous()
+                    L, M = cr.factor_lanes(D, O)
+                    fns = {"factor_lanes": lambda: cr.factor_lanes(D, O), "solve_lanes": lambda: cr.solve_lanes(L, M, b)}
+                else:
+                    L, M = cr.factor_stream(D, O)
+                    u = cr.solve_fwd_stream(L, M, b)
+                    fns = {
+                        "factor_stream": lambda: cr.factor_stream(D, O),
+                        "solve_fwd_stream": lambda: cr.solve_fwd_stream(L, M, b),
+                        "solve_bwd_stream": lambda: cr.solve_bwd_stream(L, M, u),
+                    }
+            for kname, fn in fns.items():
+                print(
+                    f"{tag} {kname} {name} {shape}: graph {graph_ms(fn, 50):.4f} ms a call, "
+                    f"host-launched {cuda_ms(fn, 50):.4f} ms a call"
+                )
 
 
 def routes_timed_at(tag, cr, dev, B, T, d):
@@ -1153,22 +1227,64 @@ def build_kernels(tag):
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"{tag} ptxas: {line.strip()}")
+    register_kernels_fit(tag, _build.build_log, "".join(src.read_text() for src in _build.SOURCES))
 
 
-def kernel_phases(tag, cr, dev, phase):
-    """Phases 2 and 5: every kernel against its plain version, then the
-    kernel times. Returns (errs, times), which the kernels line reads."""
-    import torch
+# kernels whose rows live in registers, indexed at compile time: ptxas
+# must give each instantiation no stack frame and no spill (factor_lanes
+# at widths 12, 16 and 32, solve_t1 at 32, each in float32 and float64)
+REGISTER_KERNELS = ("factor_lanes_reg_kernel", "solve_t1_reg_kernel")
+REGISTER_INSTANTIATIONS = 8
 
-    errs, times, times64 = {}, {}, {}
-    # 2a. T=1 kernels against their plain versions at the flagship shape
-    phase("2: kernels against their plain versions")
+
+def register_kernels_fit(tag, log, sources):
+    """Check ptxas's -v report of the REGISTER_KERNELS: every
+    instantiation with 0 bytes of stack frame and of spill; print each
+    one's registers. A library built by an earlier process leaves no
+    report, and a checkout whose `sources` have no such kernel has none to
+    check."""
+    props, regs, current = {}, {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            current = line.split("'")[1]
+        elif "Function properties for" in line:
+            current = line.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in line and current:
+            props[current] = line.strip()
+        elif "Used" in line and "registers" in line and current:
+            regs[current] = line.split("Used")[1].split("registers")[0].strip()
+    if not log or not any(r in sources for r in REGISTER_KERNELS):
+        print(f"{tag} ptxas: no build in this process or no register kernel, none reported")
+        return
+    found = [k for k in props if any(r in k for r in REGISTER_KERNELS)]
+    check(len(found) == REGISTER_INSTANTIATIONS, f"ptxas reported {len(found)} register-kernel instantiations: {found}")
+    for k in sorted(found):
+        print(f"{tag} register kernel {k}: {regs.get(k, '?')} registers, {props[k]}")
+        check(
+            props[k].startswith("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+            f"{k} has a stack frame or spills: {props[k]}",
+        )
+
+
+def t1_inputs(n):
+    """The flagship-shaped T=1 inputs: B_FLAG SPD (n, n) matrices, the
+    lanes NON_PD negated, and right-hand sides (B_FLAG, n)."""
     rng = np.random.default_rng(0)
-    n = 32
     A = rng.normal(size=(B_FLAG, n, n))
     S64 = A @ np.swapaxes(A, 1, 2) + n * np.eye(n)
     S64[list(NON_PD)] *= -1.0
-    b64 = rng.normal(size=(B_FLAG, n))
+    return S64, rng.normal(size=(B_FLAG, n))
+
+
+def check_t1(tag, cr, dev, errs, times, times64):
+    """factor_t1 and solve_t1 against their plain versions at the
+    flagship's shape (B=8192, n=32) in float32 and float64, with the lanes
+    NON_PD not positive definite (NaN on both paths); into `times` and
+    `times64` the kernel, plain, library and bound times."""
+    import torch
+
+    n = 32
+    S64, b64 = t1_inputs(n)
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         S = torch.tensor(S64, dtype=dtype, device=dev)
         b = torch.tensor(b64, dtype=dtype, device=dev)
@@ -1202,6 +1318,18 @@ def kernel_phases(tag, cr, dev, phase):
             cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
             bound((tri(n) + 2 * n) * WORD[name] * B_FLAG, 2 * n * n * B_FLAG, name),
         )
+        if hasattr(cr, "solve_t1_layout"):  # a checkout from before it reports nothing
+            warps, blocks = cr.solve_t1_layout(dtype, n)
+            print(f"{tag} solve_t1 {name} n={n}: {warps} warps a block, {blocks} resident blocks an SM")
+
+
+def kernel_phases(tag, cr, dev, phase):
+    """Phases 2 and 5: every kernel against its plain version, then the
+    kernel times. Returns (errs, times), which the kernels line reads."""
+    errs, times, times64 = {}, {}, {}
+    # 2a. T=1 kernels against their plain versions at the flagship shape
+    phase("2: kernels against their plain versions")
+    check_t1(tag, cr, dev, errs, times, times64)
 
     # 2b. block-tridiagonal kernels against their plain versions
     for B, T, d in LANES_SHAPES:
@@ -1567,7 +1695,8 @@ def main():
     ap = argparse.ArgumentParser(description="Drive the port's main paths on one NVIDIA GPU (no arguments: every phase).")
     ap.add_argument(
         "--stream-times", action="store_true",
-        help="only build, check and time the stream kernels at the quadruped's shape, float32 and float64",
+        help="only build, then check and time the T=1 kernels at the flagship's shape, the stream kernels at "
+        "the quadruped's and the lanes kernels at the rocket's (B=1024 and 128), float32 and float64",
     )
     ap.add_argument(
         "--history", metavar="GROUPS",

@@ -99,8 +99,13 @@ def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     per block (ragged batch edge). Lanes 2 and B-1 (those of them that
     exist, with B > 1) are not positive definite from the middle stage on:
     NaN from that stage on, on both paths."""
-    rng = np.random.default_rng(T * 100 + d)
-    bad_stage = T // 2
+    _check_lanes_kernels(cuda, B, T, d, T // 2, dtype, np.random.default_rng(T * 100 + d))
+
+
+def _check_lanes_kernels(cuda, B, T, d, bad_stage, dtype, rng):
+    """factor_lanes and solve_lanes against their plain versions, lanes 2
+    and B-1 (those that exist, with B > 1) not positive definite from
+    bad_stage on."""
     bad = sorted({lane for lane in (2, B - 1) if lane < B}) if B > 1 else []
     D, O, b = tridiag_batch(rng, B, T, d, non_pd=[(lane, bad_stage) for lane in bad])
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
@@ -125,6 +130,48 @@ def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     lanes = torch.tensor(~want.any(axis=1), device=cuda)
     assert _rel_err(x, cuda_riccati.solve_lanes_plain(Lp, Mp, b), lanes) <= RTOL[dtype]
     assert bool(torch.isnan(x[~lanes]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "B,T,d,bad_stage",
+    [(37, 5, 16, 2), (37, 5, 17, 2), (19, 4, 31, 1), (19, 4, 32, 1), (19, 4, 33, 1),
+     (128, 31, 9, 15), (37, 31, 9, 0), (37, 31, 9, 30), (9, 3, 17, 0), (9, 3, 32, 2)],
+)
+def test_factor_lanes_register_path_edges(cuda, B, T, d, bad_stage, dtype):
+    """factor_lanes' register kernel at the edges of its widths (16 and 17
+    on either side of its two buckets, 31 and 32 where it ends, 33 on the
+    shared-memory kernel past it), the bench's rocket batch (B=128, one
+    warp a block), and lanes not positive definite from the first stage
+    or only at the last one."""
+    _check_lanes_kernels(cuda, B, T, d, bad_stage, dtype, np.random.default_rng(B + T * 100 + d + bad_stage))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,shift", [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 0)])
+def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
+    """solve_t1's register kernel below and at the warp's width and the
+    shared-memory kernel past it (n=33); past the flagship's batch (8193:
+    each warp walks several systems, the last one ragged); L starting one
+    element past a 16-byte boundary (shift=1: copied element by element).
+    Lanes 3 and B-2 are not positive definite: NaN on both paths."""
+    rng = np.random.default_rng(B + n + shift)
+    S = torch.tensor(spd_batch(rng, B, n, non_pd=(3, B - 2)), dtype=dtype, device=cuda)
+    b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=cuda)
+    Lp = cuda_riccati.factor_t1_plain(S)
+    buf = torch.empty(B * n * n + shift, dtype=dtype, device=cuda)
+    L = buf[shift:].view(B, n, n)
+    L.copy_(Lp)
+    before = cuda_riccati.LAUNCHES["solve_t1"]
+    x = cuda_riccati.solve_t1(L, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["solve_t1"] == before + 1
+    ok = ~torch.isnan(Lp).flatten(1).any(-1)
+    assert ok.sum().item() == B - 2
+    assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
+    assert bool(torch.isnan(x[~ok]).all())
+    warps, blocks = cuda_riccati.solve_t1_layout(dtype, n)
+    assert warps >= 1 and blocks >= 1
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -93,9 +93,9 @@ def test_solve_multi_matches_jax(d):
 
 
 def test_route_by_stage_width_and_cpu_plain():
-    """route() decides by d alone, at 32; on CPU tensors both routes take
+    """route() decides by d alone, at 33; on CPU tensors both routes take
     their plain versions and count no launch."""
-    assert [riccati.route(d) for d in (1, 9, 31, 32, 54, 64)] == ["lanes"] * 3 + ["stream"] * 3
+    assert [riccati.route(d) for d in (1, 9, 31, 32, 33, 54, 64)] == ["lanes"] * 4 + ["stream"] * 3
     D, O, b = (torch.tensor(a) for a in _tridiag_batch(np.random.default_rng(5), 2, 3, 33))
     before = dict(cuda_riccati.LAUNCHES)
     L, M = riccati.factor(D, O)
