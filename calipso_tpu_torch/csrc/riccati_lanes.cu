@@ -51,7 +51,9 @@
 // element by element), and thread i reads its rows at a row stride of d
 // (no bank twice at d = 9). L_t goes out flat through shared memory, upper
 // zeros included; M_t[k][i] is thread i's o_i[k], so for each k the warp
-// writes d consecutive words. The register rows are indexed only by
+// writes d consecutive words. The pivots and the Gram product are
+// riccati_reg.cuh's panel_pivots and gram_update, which the fused solve
+// (riccati_fused.cu) runs too. The register rows are indexed only by
 // compile-time indices: the loops run to a templated width (12, 16 or
 // 32), the threads past d holding zero rows (the panel padded with
 // identity), so that no branch splits a pivot's shuffles or the Gram
@@ -85,93 +87,14 @@
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
+#include "riccati_reg.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kMaxD = 64;
-constexpr int kMaxWarpsPerBlock = 8;
 // factor_lanes for d <= 32: at most this many warps a block, fewer where
 // the batch would otherwise leave SMs idle
 constexpr int kMaxFactorWarps = 4;
-constexpr size_t kDefaultSmem = 48 * 1024;
-constexpr size_t kMaxSmem = 227 * 1024;  // a block's opt-in limit on Hopper
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-__device__ __forceinline__ T quiet_nan();
-template <>
-__device__ __forceinline__ float quiet_nan<float>() {
-  return __int_as_float(0x7fc00000);
-}
-template <>
-__device__ __forceinline__ double quiet_nan<double>() {
-  return __longlong_as_double(0x7ff8000000000000ULL);
-}
-
-// 1 / x, correctly rounded, without the division routine
-__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
-__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
-
-// Four consecutive words at p (16-byte aligned) in 16-byte accesses
-__device__ __forceinline__ void load4(const float* p, float& a, float& b, float& c, float& d) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  a = v.x, b = v.y, c = v.z, d = v.w;
-}
-__device__ __forceinline__ void load4(const double* p, double& a, double& b, double& c, double& d) {
-  const double2 v = *reinterpret_cast<const double2*>(p);
-  const double2 w = *reinterpret_cast<const double2*>(p + 2);
-  a = v.x, b = v.y, c = w.x, d = w.y;
-}
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(double* p, double a, double b, double c, double d) {
-  *reinterpret_cast<double2*>(p) = make_double2(a, b);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
-}
-
-// Asynchronous copy of n contiguous elements from device to shared memory
-// by one warp, in 16-byte pieces when `vec` (both addresses 16-byte
-// aligned, n sizeof(T) a multiple of 16), else element by element. The
-// caller commits the batch.
-template <typename T>
-__device__ __forceinline__ void warp_copy_async(T* dst, const T* src, int n, bool vec, int lane) {
-  if (vec) {
-    constexpr int per = 16 / sizeof(T);
-    for (int e = lane; e * per < n; e += kWarp) __pipeline_memcpy_async(dst + e * per, src + e * per, 16);
-  } else {
-    for (int e = lane; e < n; e += kWarp) __pipeline_memcpy_async(dst + e, src + e, sizeof(T));
-  }
-}
-
-// n contiguous elements from shared to device memory by one warp, in
-// 16-byte pieces when `vec` (as for warp_copy_async)
-template <typename T>
-__device__ __forceinline__ void warp_store(T* dst, const T* src, int n, bool vec, int lane) {
-  if (vec) {
-    constexpr int per = 16 / sizeof(T);
-    for (int e = lane; e * per < n; e += kWarp)
-      *reinterpret_cast<int4*>(dst + e * per) = *reinterpret_cast<const int4*>(src + e * per);
-  } else {
-    for (int e = lane; e < n; e += kWarp) dst[e] = src[e];
-  }
-}
-
-// factor_lanes' stage slots for a register width kMax (a power of 2): four
-// up to 16, copied three stages ahead; two past it (a 32 x 32 float64
-// slot pair is 16 KB a warp)
-__host__ __device__ constexpr int factor_slots(int kMax) { return kMax <= 16 ? 4 : 2; }
-
-// `words` rounded up to a multiple of 16 bytes
-template <typename T>
-__host__ __device__ constexpr int round16(int words) {
-  return (words + 16 / static_cast<int>(sizeof(T)) - 1) & ~(16 / static_cast<int>(sizeof(T)) - 1);
-}
 
 // Words of a warp's shared memory in factor_lanes_reg_kernel: the ring of
 // stage slots (D_t then O_t, d x d each), rounded to 16 bytes; two
@@ -254,23 +177,7 @@ __global__ void __launch_bounds__(kMaxFactorWarps * kWarp, 1)
     // (entries j >= d read past row c: never used)
 #pragma unroll
     for (int j = 0; j < kMax; ++j) s[j] = Ds[c * d + j];
-    if (t > 0) {
-      const T* Gp = G + ((t - 1) & 1) * kMax * ldg;
-#pragma unroll
-      for (int j = 0; j < kMax; ++j) {
-        T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
-#pragma unroll
-        for (int k = 0; k < kMax; k += 4) {
-          T g0, g1, g2, g3;
-          load4(Gp + j * ldg + k, g0, g1, g2, g3);
-          p0 += o[k] * g0;
-          p1 += o[k + 1] * g1;
-          p2 += o[k + 2] * g2;
-          p3 += o[k + 3] * g3;
-        }
-        s[j] -= (p0 + p1) + (p2 + p3);
-      }
-    }
+    if (t > 0) gram_update<T, kMax>(s, o, G + ((t - 1) & 1) * kMax * ldg, ldg);
 #pragma unroll
     for (int k = 0; k < kMax; ++k) {
       o[k] = own && k < d && t < T_ - 1 ? Os[c * d + k] : T(0);
@@ -278,25 +185,9 @@ __global__ void __launch_bounds__(kMaxFactorWarps * kWarp, 1)
     }
 
     // right-looking Cholesky of the stacked panel [S_t ; O_t], row c of
-    // each half in this thread's registers; a pivot that is not positive,
-    // or not finite, fails the stage (the same test in every thread) once
-    // the loop is done, so that no branch on it splits the pivots
-#pragma unroll
-    for (int k = 0; k < kMax; ++k) {
-      if (k >= d) break;
-      const T pkk = __shfl_sync(kFull, s[k], k);
-      ok = ok && pkk > T(0) && pkk - pkk == T(0);
-      const T lkk = sqrt(pkk);
-      const T inv = recip(lkk);
-      s[k] = lane == k ? lkk : s[k] * inv;
-      o[k] *= inv;
-#pragma unroll
-      for (int j = k + 1; j < kMax; ++j) {
-        const T ljk = __shfl_sync(kFull, s[k], j);
-        s[j] -= s[k] * ljk;
-        o[j] -= o[k] * ljk;
-      }
-    }
+    // each half in this thread's registers (panel_pivots)
+    T inv_own = T(0);  // not read here
+    panel_pivots<true>(s, o, d, lane, ok, inv_own);
     if (!ok) break;
 
     if (own) {
@@ -631,41 +522,7 @@ __global__ void solve_lanes_kernel(const T* __restrict__ L, const T* __restrict_
   __pipeline_wait_prior(0);  // the empty batches past the last step
 }
 
-// Warps per block so that a block's shared memory stays within `budget`
-// (the default 48 KB unless given) where it can; a larger share runs one
-// warp per block. Above 48 KB the kernel's opt-in shared-memory limit is
-// raised.
-// At most max_warps a block.
-template <typename K>
-cudaError_t configure(K kernel, size_t per_warp, int* warps, size_t* smem,
-                      size_t budget = kDefaultSmem, int max_warps = kMaxWarpsPerBlock) {
-  size_t w = budget / per_warp;
-  if (w > static_cast<size_t>(max_warps)) w = max_warps;
-  if (w < 1) w = 1;
-  *warps = static_cast<int>(w);
-  *smem = per_warp * w;
-  if (*smem > kDefaultSmem)
-    return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(*smem));
-  return cudaSuccess;
-}
-
 bool shape_ok(int B, int T_, int d) { return B >= 0 && T_ >= 1 && d >= 1 && d <= kMaxD; }
-
-bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
-
-// The SMs of the current device, asked once a device.
-int sm_count() {
-  constexpr int kMaxDevices = 64;
-  static std::atomic<int> cached[kMaxDevices];  // 0: not asked
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
-  const bool keep = dev >= 0 && dev < kMaxDevices;
-  if (keep && (n = cached[dev].load(std::memory_order_relaxed)) > 0) return n;
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1) return 1;
-  if (keep) cached[dev].store(n, std::memory_order_relaxed);
-  return n;
-}
 
 template <typename T, int kMax>
 cudaError_t launch_factor_reg(const T* D, const T* O, T* L, T* M, int B, int T_, int d,

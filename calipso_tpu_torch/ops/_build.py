@@ -4,8 +4,9 @@ Each source under `calipso_tpu_torch/csrc/` is compiled by its own `nvcc`
 for Hopper (`sm_90a`) into a shared library with a plain C interface,
 loaded with `ctypes`. The builds run in parallel, at first use, into
 `build/calipso_tpu_torch/<hash>/` at the root of the checkout, keyed by a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. A failed build raises with nvcc's
+hash of the source, of every header beside it (`csrc/*.cuh`) and of the
+flags, so an edited source or header builds anew and an unchanged one is
+loaded as it is. A failed build raises with nvcc's
 output; nothing falls back.
 """
 
@@ -30,13 +31,13 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C entry point: argument types}; every entry point
 # returns a CUDA error code (int), except the fused solve's workspace
-# query (words per lane, or a negated CUDA error code); the layout query
-# of solve_t1 writes through its two pointers
+# query (words per lane, or a negated CUDA error code); the layout queries
+# of factor_t1 and solve_t1 write through their two pointers
 SIGNATURES = {
     "riccati_t1": {
         **{f"calipso_factor_t1_{dt}": [_P, _P, _I, _I, _P] for dt in ("f32", "f64")},
         **{f"calipso_solve_t1_{dt}": [_P, _P, _P, _I, _I, _P] for dt in ("f32", "f64")},
-        **{f"calipso_solve_t1_layout_{dt}": [_I, _P, _P] for dt in ("f32", "f64")},
+        **{f"calipso_{k}_t1_layout_{dt}": [_I, _P, _P] for k in ("factor", "solve") for dt in ("f32", "f64")},
     },
     "riccati_lanes": {
         **{f"calipso_factor_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
@@ -76,8 +77,9 @@ def _nvcc() -> str:
 
 def library_path(src: Path) -> Path:
     h = hashlib.sha256()
-    h.update(src.name.encode())
-    h.update(src.read_bytes())
+    for f in (src, *sorted(src.parent.glob("*.cuh"))):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{src.stem}.so"
 

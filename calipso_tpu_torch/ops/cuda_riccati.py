@@ -8,8 +8,10 @@
 replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
 `_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`
 (`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane;
-up to n = 32 and d = 32 thread i holds row i in registers -- `solve_t1`
-runs both sweeps by shuffles from a shared copy of L's lower triangle,
+up to n = 32 and d = 32 thread i holds row i in registers -- `factor_t1`
+and `solve_t1` run on a grid of resident warps that walk the batch with
+the next system's lower triangle copied ahead, the factor by a shuffle a
+pivot and a shuffle an l_jk, the solve's two sweeps by shuffles;
 `factor_lanes` factors the stacked panel [S_t ; O_t] into L_t and M_t'
 at once -- past that the stage is staged in shared memory; the lanes
 kernels copy their stage blocks a few stages ahead, and the solve keeps u
@@ -22,14 +24,17 @@ right-hand-side column; the next stage's blocks copied into shared
 memory while the current one computes). `solve_batched_fused`
 replaces `_riccati_kernel` and `solve_batched_lanes` replaces
 `_riccati_lanes_kernel`
-(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel, one
-thread block per lane with the horizon's factor in shared memory where
-it fits, or one thread per lane on (T, d, d, B) arrays); `solve_batched`,
-the public entry point, takes the first on CUDA tensors, as the
-reference does off the CPU, and no solver path calls it. All are
-hand-written CUDA for Hopper, built by `ops/_build.py`. The stream
-kernels are the wide-stage route (d >= 33, `ops/riccati.route`), and
-their solve takes K right-hand sides per lane.
+(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel -- up to
+d = 32 a warp a lane, `factor_lanes`' register stage with the forward
+sweep folded in and L_t, M_t and u_t kept for the backward sweep, past
+that a thread block a lane; the horizon's factor stays in shared memory
+where it fits -- or one thread per lane on (T, d, d, B) arrays);
+`solve_batched`, the public entry point, takes the first on CUDA
+tensors, as the reference does off the CPU, and no solver path calls it.
+All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
+register kernels share their device code (`csrc/riccati_reg.cuh`). The
+stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
+and their solve takes K right-hand sides per lane.
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -239,9 +244,7 @@ def solve_t1(L, b):
     return x
 
 
-def solve_t1_layout(dtype, n):
-    """(warps a block, resident blocks an SM) of the `solve_t1` kernel
-    at width n on the current CUDA device."""
+def _t1_layout(name, dtype, n):
     import ctypes
 
     from calipso_tpu_torch.ops import _build
@@ -250,12 +253,24 @@ def solve_t1_layout(dtype, n):
         raise ValueError(f"the T=1 kernels take 1 <= n <= {MAX_N}, got n={n}")
     if dtype not in _SUFFIX:
         raise TypeError(f"the T=1 kernels take float32 or float64, got {dtype}")
-    fn = getattr(_build.load("riccati_t1"), f"calipso_solve_t1_layout_{_SUFFIX[dtype]}")
+    fn = getattr(_build.load("riccati_t1"), f"calipso_{name}_layout_{_SUFFIX[dtype]}")
     warps, blocks = ctypes.c_int(), ctypes.c_int()
     err = fn(n, ctypes.byref(warps), ctypes.byref(blocks))
     if err != 0:
-        raise RuntimeError(f"solve_t1 layout query failed: CUDA error {err}")
+        raise RuntimeError(f"{name} layout query failed: CUDA error {err}")
     return warps.value, blocks.value
+
+
+def factor_t1_layout(dtype, n):
+    """(warps a block, resident blocks an SM) of the `factor_t1` kernel
+    at width n on the current CUDA device."""
+    return _t1_layout("factor_t1", dtype, n)
+
+
+def solve_t1_layout(dtype, n):
+    """(warps a block, resident blocks an SM) of the `solve_t1` kernel
+    at width n on the current CUDA device."""
+    return _t1_layout("solve_t1", dtype, n)
 
 
 def _tridiag_factor(name, stem, plain, D, O):
@@ -378,9 +393,10 @@ def _on_cpu(*tensors):
 
 
 def solve_batched_fused(D, O, b):
-    """x (B, T, d) of `solve_batched_plain` in one kernel, one thread block
-    per lane; L and M stay in shared memory where the horizon fits, else
-    in a workspace this wrapper allocates (the kernel says which)."""
+    """x (B, T, d) of `solve_batched_plain` in one kernel, one warp per
+    lane up to d = 32 and one thread block per lane past it; L and M stay
+    in shared memory where the horizon fits, else in a workspace this
+    wrapper allocates (the kernel says which)."""
     if _on_cpu(D, O, b):
         return solve_batched_plain(D, O, b)
     from calipso_tpu_torch.ops import _build

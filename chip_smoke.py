@@ -6,8 +6,9 @@
 Phases (each fails loudly; none catches its own failure):
   1. build the CUDA kernels from calipso_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together; require ptxas to give the
-     kernels that keep their rows in registers (factor_lanes up to d=32,
-     solve_t1 up to n=32) no stack frame and no spill;
+     kernels that keep their rows in registers (factor_lanes and the fused
+     solve up to d=32, factor_t1 and solve_t1 up to n=32) no stack frame
+     and no spill;
   2. hold the T=1 kernels (factor_t1, solve_t1) against their plain PyTorch
      versions on the card at the flagship shape B=8192, n=32, the
      block-tridiagonal kernels (factor_lanes, solve_lanes) at the batched
@@ -19,9 +20,11 @@ Phases (each fails loudly; none catches its own failure):
      (B=1024, T=31, d=9), in float32 and float64, with 8 lanes that are
      not positive definite (NaN on both paths, from the same stage on),
      and (2d) the fused block-tridiagonal solves (solve_batched_fused,
-     solve_batched_lanes) at the rocket's and the quadruped's shapes
-     against their plain version, float32 and float64, 8 lanes not
-     positive definite (NaN over all of their x);
+     solve_batched_lanes) at the rocket's and the quadruped's shapes, and
+     solve_batched_fused at (1024, 31, 32), where its register kernel
+     keeps the factor in the workspace, against their plain version,
+     float32 and float64, 8 lanes not positive definite (NaN over all of
+     their x);
   3. solve the benchmark flagship -- 8192 pendulum swing-up trajopt
      problems, T=11, n=32, 24 equality rows, initial state as the stage-0
      parameter, every tolerance 1e-4 -- through
@@ -67,8 +70,9 @@ Phases (each fails loudly; none catches its own failure):
      side at the quadruped's and the rocket's shapes and, for
      ops/riccati.route's threshold, at d = 9 to 48 with the quadruped's
      B=128, T=8 and d = 12 to 32 with the rocket's B=1024, T=31;
-     and the fused solves beside the split factor + solve pair at both
-     (run right after phase 2);
+     and the fused solves beside the split factor + solve pair at both,
+     the fused one at the rocket's also replayed from a CUDA graph (run
+     right after phase 2);
   6. solve the bench's batched quadruped (bench.py:396-503) -- 128
      contact-implicit stance MPC problems, H=8 stages (n=400, stage
      blocks d=54, 344 equality rows, 412 cone rows), stance heights from
@@ -94,11 +98,13 @@ there is no CUDA device or the package is not beside this script.
 Partial runs print no such result:
     python3 chip_smoke.py --stream-times         # phase 1, then the
         # T=1 kernels checked and timed at (8192, 32), the stream kernels
-        # at (128, 8, 54) with K=1 and K=22 and the lanes kernels at
-        # (1024, 31, 9) and (128, 31, 9), in float32 and float64, those
-        # and the stream kernels also replayed from a CUDA graph, and the
-        # two stream sweeps across d = 50..58 (copied into another
-        # checkout, times that one's kernels)
+        # at (128, 8, 54) with K=1 and K=22, the lanes kernels at
+        # (1024, 31, 9) and (128, 31, 9), and the fused solves beside the
+        # split pair at (1024, 31, 9) and (128, 8, 54), in float32 and
+        # float64, the T=1, lanes, stream and fused kernels also replayed
+        # from a CUDA graph, and the two stream sweeps across d = 50..58
+        # (copied into another checkout, times that one's kernels: the
+        # parent/change A/B)
     python3 chip_smoke.py --history rocket,cr    # phase 1, the named
         # earlier phases (none: ''), then a cold and a warm quadruped
         # batch: digests of their solutions and of a few library calls,
@@ -200,6 +206,9 @@ GOLDEN_GAIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
 # batched rocket's and the quadruped's stage blocks
 BATCHED_KERNELS = ("solve_batched_fused", "solve_batched_lanes")
 BATCHED_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (B_QUAD, HORIZON_QUAD, 54))
+# the fused solve alone where its register kernel (d <= 32) keeps the
+# horizon's factor in the workspace, not in shared memory
+FUSED_WORKSPACE_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 32),)
 # the rocket batch's riccati factorization whose blocks the solve_batched
 # phase solves again (the first ones are at the initial point)
 CAPTURE_CALL = 10
@@ -551,7 +560,7 @@ def check_lanes(tag, cr, dev, B, T, d, errs, times=None, times64=None):
         ):
             abs_err = float((got[ok].double() - ref[ok].double()).abs().max())
             rel_err = abs_err / float(ref[ok].double().abs().max())
-            errs[(kname, name, T)] = abs_err
+            errs[(kname, name, B, T, d)] = abs_err
             print(
                 f"{tag} {kname} {name} B={B} T={T} d={d}: max_abs_err {abs_err:.3e} "
                 f"max_rel_err {rel_err:.3e} (limit {RTOL[name]:g}); NaN lanes "
@@ -690,8 +699,10 @@ def stream_times(tag, cr, dev):
     """--stream-times: the T=1 kernels checked and timed at the flagship's
     (B, n), the stream kernels at the quadruped's (B, T, d) with K=1 and
     K=22 right-hand sides, the lanes kernels at the rocket's (B, T, d) with
-    B = 1024 and the bench's 128, float32 and float64, and the sweeps
-    across d (sweeps_across_d)."""
+    B = 1024 and the bench's 128, the fused solves beside the split pair
+    at the rocket's and the quadruped's (batched_timed_at), float32 and
+    float64, the graph replays (graph_times) and the sweeps across d
+    (sweeps_across_d)."""
     times, times64 = {}, {}
     check_t1(tag, cr, dev, {}, times, times64)
     for name, into in (("float32", times), ("float64", times64)):
@@ -706,16 +717,23 @@ def stream_times(tag, cr, dev):
         check_lanes(tag, cr, dev, B, T, d, {}, times, times64)
         for name, into in (("float32", times), ("float64", times64)):
             print_times(tag, into, name, f"B={B} T={T} d={d}")
+    for B, T, d in BATCHED_SHAPES:
+        times, times64 = {}, {}
+        batched_timed_at(tag, cr, dev, B, T, d, times, times64)
+        print_times(tag, times64, "float64", f"B={B} T={T} d={d}")
     graph_times(tag, cr, dev)
     sweeps_across_d(tag, cr, dev)
 
 
-def graph_times(tag, cr, dev):
+GRAPH_ROUTES = ("T=1", "lanes", "stream", "fused")
+
+
+def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
     """The T=1 and the lanes kernels at the shapes stream_times checks,
-    and the stream kernels at the quadruped's (K=1), timed as one CUDA
-    graph of 50 calls (graph_ms) beside the same 50 calls from the host
-    (cuda_ms), float32 and float64: where the two differ, the host sets
-    cuda_ms."""
+    the stream kernels at the quadruped's (K=1) and the fused solve at the
+    rocket's (of these, the `routes`), timed as one CUDA graph of 50 calls
+    (graph_ms) beside the same 50 calls from the host (cuda_ms), float32
+    and float64: where the two differ, the host sets cuda_ms."""
     import torch
 
     n = 32
@@ -724,6 +742,11 @@ def graph_times(tag, cr, dev):
     cases += [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in LANES_SHAPES[:2]]
     B, T, d, K = STREAM_SHAPES[0]
     cases.append(("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)))
+    B, T, d = BATCHED_SHAPES[0]
+    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+    D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite, as batched_timed_at times it
+    cases.append(("fused", f"B={B} T={T} d={d}", (D64, O64, b64)))
+    cases = [case for case in cases if case[0] in routes]
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         for route, shape, arrays in cases:
             if route == "T=1":
@@ -732,7 +755,10 @@ def graph_times(tag, cr, dev):
                 fns = {"factor_t1": lambda: cr.factor_t1(S), "solve_t1": lambda: cr.solve_t1(L, b)}
             else:
                 D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in arrays[:3])
-                if route == "lanes":
+                if route == "fused":
+                    b = b[..., 0].contiguous()
+                    fns = {"solve_batched_fused": lambda: cr.solve_batched_fused(D, O, b)}
+                elif route == "lanes":
                     b = b[..., 0].contiguous()
                     L, M = cr.factor_lanes(D, O)
                     fns = {"factor_lanes": lambda: cr.factor_lanes(D, O), "solve_lanes": lambda: cr.solve_lanes(L, M, b)}
@@ -849,11 +875,11 @@ def batched_bound(B, T, d, dtype="float32"):
     return bound((T * tri(d) + (T - 1) * dd + 2 * T * d) * WORD[dtype] * B, (factor_flops(T, d) + sweeps) * B, dtype)
 
 
-def check_batched(tag, cr, dev, B, T, d, errs):
-    """solve_batched_fused and solve_batched_lanes against
-    solve_batched_plain at (B, T, d) in float32 and float64, with 8 lanes
-    not positive definite from the middle stage on (NaN over all of their
-    x on every path); each wrapper's launch counter must move by one."""
+def check_batched(tag, cr, dev, B, T, d, errs, kernels=BATCHED_KERNELS):
+    """The fused solves (`kernels`) against solve_batched_plain at (B, T,
+    d) in float32 and float64, with 8 lanes not positive definite from the
+    middle stage on (NaN over all of their x on every path); each
+    wrapper's launch counter must move by one."""
     import torch
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
@@ -861,9 +887,9 @@ def check_batched(tag, cr, dev, B, T, d, errs):
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64[..., 0]))
         before = dict(cr.LAUNCHES)
-        got = {k: getattr(cr, k)(D, O, b) for k in BATCHED_KERNELS}
+        got = {k: getattr(cr, k)(D, O, b) for k in kernels}
         torch.cuda.synchronize()
-        moved = {k: cr.LAUNCHES[k] - before[k] for k in BATCHED_KERNELS}
+        moved = {k: cr.LAUNCHES[k] - before[k] for k in kernels}
         check(all(v == 1 for v in moved.values()), f"batched solves {name} {shape}: launches {moved}")
         xp = cr.solve_batched_plain(D, O, b)
         ok = ~torch.isnan(xp).flatten(1).any(1)
@@ -876,7 +902,7 @@ def check_batched(tag, cr, dev, B, T, d, errs):
                 bool(torch.isnan(x[~ok]).all()) and bool(torch.isfinite(x[ok]).all()),
                 f"{kname} {name} {shape}: the NaN lanes differ from the plain version's",
             )
-            rel_check(tag, kname, name, shape, x, xp, ok, errs, (kname, name, T))
+            rel_check(tag, kname, name, shape, x, xp, ok, errs, (kname, name, B, T, d))
         print(f"{tag} batched solves {name} {shape}: NaN over all of lanes {bad_lanes.tolist()} (stage {bad_stage}), on every path")
 
 
@@ -1230,19 +1256,23 @@ def build_kernels(tag):
     register_kernels_fit(tag, _build.build_log, "".join(src.read_text() for src in _build.SOURCES))
 
 
-# kernels whose rows live in registers, indexed at compile time: ptxas
-# must give each instantiation no stack frame and no spill (factor_lanes
-# at widths 12, 16 and 32, solve_t1 at 32, each in float32 and float64)
-REGISTER_KERNELS = ("factor_lanes_reg_kernel", "solve_t1_reg_kernel")
-REGISTER_INSTANTIATIONS = 8
+# kernels whose rows live in registers, indexed at compile time, and
+# their instantiations: ptxas must give each no stack frame and no spill
+# (factor_lanes at widths 12, 16 and 32; solve_t1 and factor_t1 at 32;
+# the fused solve at 12, 16 and 32 with its factor on chip and in the
+# workspace; each in float32 and float64)
+REGISTER_KERNELS = {
+    "factor_lanes_reg_kernel": 6, "solve_t1_reg_kernel": 2, "factor_t1_reg_kernel": 2,
+    "solve_batched_reg_kernel": 12,
+}
 
 
 def register_kernels_fit(tag, log, sources):
     """Check ptxas's -v report of the REGISTER_KERNELS: every
     instantiation with 0 bytes of stack frame and of spill; print each
     one's registers. A library built by an earlier process leaves no
-    report, and a checkout whose `sources` have no such kernel has none to
-    check."""
+    report, and a checkout's `sources` are checked for the register
+    kernels they have (an older checkout has fewer)."""
     props, regs, current = {}, {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1253,11 +1283,15 @@ def register_kernels_fit(tag, log, sources):
             props[current] = line.strip()
         elif "Used" in line and "registers" in line and current:
             regs[current] = line.split("Used")[1].split("registers")[0].strip()
-    if not log or not any(r in sources for r in REGISTER_KERNELS):
+    present = {r: n for r, n in REGISTER_KERNELS.items() if r in sources}
+    if not log or not present:
         print(f"{tag} ptxas: no build in this process or no register kernel, none reported")
         return
-    found = [k for k in props if any(r in k for r in REGISTER_KERNELS)]
-    check(len(found) == REGISTER_INSTANTIATIONS, f"ptxas reported {len(found)} register-kernel instantiations: {found}")
+    found = [k for k in props if any(r in k for r in present)]
+    check(
+        len(found) == sum(present.values()),
+        f"ptxas reported {len(found)} register-kernel instantiations of {sorted(present)}: {found}",
+    )
     for k in sorted(found):
         print(f"{tag} register kernel {k}: {regs.get(k, '?')} registers, {props[k]}")
         check(
@@ -1318,9 +1352,10 @@ def check_t1(tag, cr, dev, errs, times, times64):
             cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
             bound((tri(n) + 2 * n) * WORD[name] * B_FLAG, 2 * n * n * B_FLAG, name),
         )
-        if hasattr(cr, "solve_t1_layout"):  # a checkout from before it reports nothing
-            warps, blocks = cr.solve_t1_layout(dtype, n)
-            print(f"{tag} solve_t1 {name} n={n}: {warps} warps a block, {blocks} resident blocks an SM")
+        for kname in ("factor_t1", "solve_t1"):
+            if hasattr(cr, f"{kname}_layout"):  # a checkout from before it reports nothing
+                warps, blocks = getattr(cr, f"{kname}_layout")(dtype, n)
+                print(f"{tag} {kname} {name} n={n}: {warps} warps a block, {blocks} resident blocks an SM")
 
 
 def kernel_phases(tag, cr, dev, phase):
@@ -1343,6 +1378,8 @@ def kernel_phases(tag, cr, dev, phase):
     phase("2d: fused block-tridiagonal solves against their plain version")
     for B, T, d in BATCHED_SHAPES:
         check_batched(tag, cr, dev, B, T, d, errs)
+    for B, T, d in FUSED_WORKSPACE_SHAPES:
+        check_batched(tag, cr, dev, B, T, d, errs, kernels=BATCHED_KERNELS[:1])
 
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
     # routes side by side at the quadruped's and the rocket's shapes and at
@@ -1353,6 +1390,7 @@ def kernel_phases(tag, cr, dev, phase):
     for B, T, d in BATCHED_SHAPES:
         main_path = (B, T, d) == BATCHED_SHAPES[0]
         batched_timed_at(tag, cr, dev, B, T, d, times if main_path else None, times64 if main_path else None)
+    graph_times(tag, cr, dev, routes=("fused",))
     library = {
         "rocket": library_times(cr, dev, B_ROCKET, HORIZON_ROCKET, 9),
         "quadruped": library_times(cr, dev, B_QUAD, HORIZON_QUAD, 54),
@@ -1696,7 +1734,8 @@ def main():
     ap.add_argument(
         "--stream-times", action="store_true",
         help="only build, then check and time the T=1 kernels at the flagship's shape, the stream kernels at "
-        "the quadruped's and the lanes kernels at the rocket's (B=1024 and 128), float32 and float64",
+        "the quadruped's, the lanes kernels at the rocket's (B=1024 and 128) and the fused solves at both, "
+        "float32 and float64",
     )
     ap.add_argument(
         "--history", metavar="GROUPS",
@@ -1922,19 +1961,20 @@ def main():
         "stream": "calipso_tpu_torch/csrc/riccati_stream.cu",
         "fused": "calipso_tpu_torch/csrc/riccati_fused.cu",
     }
+    rocket = (B_ROCKET, HORIZON_ROCKET, 9)  # the lanes and fused kernels' main-path shape
     meta = {
         "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32")),
         "solve_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:661", launches, ("solve_t1", "float32")),
-        "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", HORIZON_ROCKET)),
-        "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", HORIZON_ROCKET)),
+        "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", *rocket)),
+        "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", *rocket)),
         "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", HORIZON_QUAD, 1)),
         "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", HORIZON_QUAD, 1)),
         "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", HORIZON_ROCKET)),
-        "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", HORIZON_ROCKET)),
+        "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", *rocket)),
+        "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", *rocket)),
     }
-    errs[("factor_lanes", "float32", HORIZON_ROCKET)] = max(
-        errs[("factor_lanes", "float32", HORIZON_ROCKET)], errs[("factor_lanes M", "float32", HORIZON_ROCKET)]
+    errs[("factor_lanes", "float32", *rocket)] = max(
+        errs[("factor_lanes", "float32", *rocket)], errs[("factor_lanes M", "float32", *rocket)]
     )
     errs[("factor_stream", "float32", HORIZON_QUAD, 1)] = max(
         errs[("factor_stream", "float32", HORIZON_QUAD, 1)], errs[("factor_stream M", "float32", HORIZON_QUAD, 1)]

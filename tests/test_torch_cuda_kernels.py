@@ -174,6 +174,35 @@ def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
     assert warps >= 1 and blocks >= 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,shift", [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 1)])
+def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
+    """factor_t1's register kernel below and at the warp's width and the
+    shared-memory kernel past it (n=33); past the flagship's batch (8193:
+    each warp walks several systems, the last one ragged); S starting one
+    element past a 16-byte boundary (shift=1: copied and stored element by
+    element). Lanes 3 and B-2 are not positive definite: NaN over their
+    lower triangles on both paths, zeros above every diagonal."""
+    rng = np.random.default_rng(B + n + shift + 1)
+    S0 = torch.tensor(spd_batch(rng, B, n, non_pd=(3, B - 2)), dtype=dtype, device=cuda)
+    buf = torch.empty(B * n * n + shift, dtype=dtype, device=cuda)
+    S = buf[shift:].view(B, n, n)
+    S.copy_(S0)
+    before = cuda_riccati.LAUNCHES["factor_t1"]
+    L = cuda_riccati.factor_t1(S)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["factor_t1"] == before + 1
+    Lp = cuda_riccati.factor_t1_plain(S0)
+    bad = nan_lanes(L.cpu().numpy())
+    assert bad.tolist() == nan_lanes(Lp.cpu().numpy()).tolist() == [i in (3, B - 2) for i in range(B)]
+    lower = torch.ones(n, n, dtype=torch.bool, device=cuda).tril()
+    assert bool(torch.isnan(L[torch.tensor(bad, device=cuda)][:, lower]).all())
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert _rel_err(L, Lp, torch.tensor(~bad, device=cuda)) <= RTOL[dtype]
+    warps, blocks = cuda_riccati.factor_t1_layout(dtype, n)
+    assert warps >= 1 and blocks >= 1
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     S = torch.eye(4, device=cuda).expand(3, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -266,6 +295,34 @@ def test_batched_solve_kernels_match_plain(cuda, name, B, T, d, dtype):
     x = getattr(cuda_riccati, name)(D, O, b)
     torch.cuda.synchronize()
     assert cuda_riccati.LAUNCHES[name] == before[name] + 1
+    xp = cuda_riccati.solve_batched_plain(D, O, b)
+    lanes = torch.ones(B, dtype=torch.bool, device=cuda)
+    lanes[[2, B - 1]] = False
+    assert bool(torch.isnan(x[~lanes]).all()) and bool(torch.isnan(xp[~lanes]).all())
+    assert bool(torch.isfinite(x[lanes]).all())
+    assert _rel_err(x, xp, lanes) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(
+    "B,T,d,bad_stage",
+    [(37, 31, 9, 0), (37, 31, 9, 30), (37, 5, 16, 0), (37, 5, 17, 4), (37, 5, 31, 2), (37, 5, 32, 4),
+     (37, 1, 9, 0), (37, 1, 32, 0), (133, 31, 32, 30), (9, 200, 12, 199)],
+)
+def test_fused_register_path_edges(cuda, B, T, d, bad_stage, dtype):
+    """solve_batched_fused's register kernel (d <= 32) at the edges of its
+    width buckets (16, 17) and of the warp (31, 32), T=1, and shapes where
+    the horizon's factor leaves shared memory for the workspace (T=31 at
+    d=32, T=200 at d=12, and the rocket's T=31, d=9 in float64); lanes 2
+    and B-1 are not positive definite from their first or only at their
+    last stage: all of their x NaN, the other lanes untouched."""
+    rng = np.random.default_rng(B + 10 * T + d + bad_stage)
+    D, O, b = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    before = cuda_riccati.LAUNCHES["solve_batched_fused"]
+    x = cuda_riccati.solve_batched_fused(D, O, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["solve_batched_fused"] == before + 1
     xp = cuda_riccati.solve_batched_plain(D, O, b)
     lanes = torch.ones(B, dtype=torch.bool, device=cuda)
     lanes[[2, B - 1]] = False
