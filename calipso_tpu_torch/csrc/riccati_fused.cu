@@ -10,8 +10,8 @@
 //            M_t = L_t^{-1} O_t'
 //   fwd:     u_t = L_t^{-1} (b_t - M_{t-1}' u_{t-1})      (t = 0..T-1)
 //   bwd:     x_t = L_t^{-T} (u_t - M_t x_{t+1})          (t = T-1..0)
-// D (B, T, d, d), O (B, T-1, d, d) and b (B, T, d) go in, x (B, T, d)
-// comes out. A stage whose S_t is not positive definite (a pivot <= 0 or
+// Both entry points' wrappers take D (B, T, d, d), O (B, T-1, d, d) and b
+// (B, T, d) and give x (B, T, d). A stage whose S_t is not positive definite (a pivot <= 0 or
 // not finite) ends the lane: every entry of its x is written as NaN (what
 // the plain version gives by propagation through both sweeps). The other
 // lanes are untouched. 1 <= d <= 64, T >= 1.
@@ -24,10 +24,26 @@
 // second, in principle. In practice the stages and the pivots of a stage
 // are a chain of dependent steps, and the designs keep that chain short.
 //
-// fused (kernel 8), the TPU ran one grid program per scenario with the
-// horizon's L, M and u in VMEM scratch. For d <= 32 (the rocket's d = 9;
-// solve_batched_reg_kernel, templated widths 12, 16 and 32 as
-// factor_lanes) one warp owns one lane and walks its horizon twice:
+// The TPU ran kernel 8 (fused) as one grid program per scenario with the
+// horizon's L, M and u in VMEM scratch, and kernel 9 (lanes) with the
+// batch on the 128-wide lane axis, (T, d, d, B) blocks, every scenario's
+// sequence in lockstep on the vector unit. Here both are one kernel
+// template with the address map as its parameter (kBatchLast): the
+// batch-first arrays D (B, T, d, d), O (B, T-1, d, d), b and x (B, T, d)
+// hold a lane's stages one after the other; the batch-last ones, D (T, d,
+// d, B), O' (T-1, d, d, B) with O'_t = O_t' and b, x (T, d, B), which the
+// lanes wrapper makes with permute(...).contiguous() as the reference's
+// wrapper transposes outside its kernel, hold element e of a stage of
+// every lane side by side, lane b's at e B + b. Only three things differ
+// between the two: how a stage's blocks reach shared memory, how a
+// thread reads its row of O_t (O_t's row c is O'_t's column c), and where
+// x goes (and, in the workspace, u). The arithmetic, the kept rows, the
+// shared-memory plans, the workspace rule and the NaN fill are the same
+// device code.
+//
+// For d <= 32 (the rocket's d = 9; solve_batched_reg_kernel, templated
+// widths 12, 16 and 32 as factor_lanes) one warp owns one lane and walks
+// its horizon twice:
 //  - forward, a stage as factor_lanes' register stage does it, with the
 //    same device code (riccati_reg.cuh): thread i holds row i of S_t and
 //    of O_t in registers, S_t = D_t - M_{t-1}' M_{t-1} is a Gram product
@@ -41,9 +57,15 @@
 //    reciprocal pivots the factor already took. Each thread keeps its row
 //    of L_t (1 / l_ii on the diagonal, zeros above it), its o row and u_t.
 //    D_{t+1}, O_{t+1} and b_{t+1} land a few stages ahead in a ring of
-//    shared-memory slots by cp.async, flat as they lie in device memory
-//    (16-byte pieces where the sizes and addresses allow it, at d = 9
-//    element by element);
+//    shared-memory slots by cp.async. Batch-first, a stage's blocks are
+//    copied flat as they lie in device memory (16-byte pieces where the
+//    sizes and addresses allow it, at d = 9 element by element).
+//    Batch-last, element e of a block is gathered from e B + b, element
+//    by element, an index linear in e; the slot then holds O'_t flat, so
+//    thread c reads its o row as column c of the slot, consecutive words
+//    across the warp. A block's warps own consecutive lanes, so their
+//    gathers share 32-byte sectors (8 float32 lanes each) in L1 and L2,
+//    and device memory is read about once;
 //  - backward, as solve_lanes' backward sweep: thread i reads column i of
 //    L_t and row i of M_t (column i of the kept o rows) from the warp's
 //    store, takes the coupling M_t x_{t+1} in four partial sums, and each
@@ -55,30 +77,30 @@
 // (31, 9) in float32), D, O and b are read once, x is written once, and L
 // and M never reach device memory; past that (float64 at (31, 9), d = 32
 // at T = 31) L and M go to the workspace the caller allocates
-// (calipso_solve_batched_fused_workspace says how many words a lane needs)
-// and u_t to x, and the kernel's registers, not its shared memory, set how
-// many warps an SM holds: float64 at (1024, 31, 9) took 0.220 ms on chip
-// (4 warps an SM, two waves) and 0.154 in the workspace (one wave) on an
-// H100, float32 0.0995 on chip and 0.118 in the workspace. No barrier, no division
-// and no integer division runs in any loop; the failure test is
-// warp-uniform. A block holds up to 4 warps, fewer where the batch would
-// leave SMs idle. d in 33..64 (the quadruped's d = 54) keeps the first
-// design (solve_batched_fused_wide_kernel): one thread block a lane, the
+// (calipso_solve_batched_fused_workspace says how many words a lane needs,
+// the same for both layouts) and u_t to x, and the kernel's registers, not
+// its shared memory, set how many warps an SM holds: float64 at (1024, 31,
+// 9) took 0.220 ms on chip (4 warps an SM, two waves) and 0.154 in the
+// workspace (one wave) on an H100, float32 0.0995 on chip and 0.118 in the
+// workspace. No barrier, no division and no integer division runs in any
+// loop; the failure test is warp-uniform. A block holds up to 4 warps,
+// fewer where the batch would leave SMs idle.
+//
+// d in 33..64 (the quadruped's d = 54) keeps the first design
+// (solve_batched_fused_wide_kernel): one thread block a lane, the
 // horizon's L and M in shared memory where they fit ((2T - 1) d (d+1)
 // words plus two vectors, 178 KB at the quadruped's T=8, d=54; else the
 // workspace), the work of a stage spread over the block with one
 // __syncthreads() per pivot, M_t and u_t out of one substitution.
+// Batch-last, its reads and writes take the same address map, each
+// element its own sector, which consecutive lanes' blocks share in L2.
 //
-// lanes (kernel 9): the TPU put the batch on the 128-wide lane axis,
-// (T, d, d, B) blocks, and ran every scenario's sequence in lockstep on
-// the vector unit. Here one thread owns one scenario and runs the
-// sequence alone; the batch stays the fastest axis of every array, so
-// neighbouring threads read and write neighbouring words and every access
-// coalesces. The caller hands in its own transposed copies, D (T, d, d,
-// B), O' (T-1, d, d, B) with O'_t = O_t' and b (T, d, B); the kernel turns
-// D_t into L_t and O'_t into M_t in place and keeps u_t in x (T, d, B).
-// It is latency-bound by design: the d^3 dependent loads a stage of one
-// thread, at a few warps for the whole card.
+// The lanes wrapper's layout moves (batch-first into batch-last, x back)
+// are transpose_kernel's: 32 x 32 tiles through shared memory, one launch
+// each way. torch's strided copies (permute(...).contiguous()) read or
+// write one word a sector and took 0.050-0.093 ms for the four moves at
+// the rocket's shape in float32 on an H100, a third to a half of the
+// wrapper's time.
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -87,11 +109,10 @@
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // fused, d > 32: threads per block
-constexpr int kLanesThreads = 32;  // lanes: one warp per block, so lanes spread over SMs
+constexpr int kMaxThreads = 256;  // d > 32: threads per block
 constexpr int kMaxD = 64;
-constexpr int kMaxFusedWarps = 4;  // fused, d <= 32: at most this many warps a block
-// fused, d <= 32: the horizon's factor stays on chip where this many warps
+constexpr int kMaxFusedWarps = 4;  // d <= 32: at most this many warps a block
+// d <= 32: the horizon's factor stays on chip where this many warps
 // can hold theirs in a block's shared memory (two blocks of 4 an SM: the
 // rocket batch's 1024 lanes over 132 SMs in one wave)
 constexpr int kOnChipWarps = 8;
@@ -108,31 +129,58 @@ __host__ __device__ constexpr int fused_slot_words(int d) {
   return round16<T>(2 * d * d + d);
 }
 
+// Offset of lane b's first element in an array of `per_lane` elements a
+// lane: batch-first arrays hold a lane's elements together, batch-last
+// ones element e of every lane side by side, lane b's at e B + b (the
+// lane's elements sB = B words apart)
+template <bool kBatchLast>
+__device__ __forceinline__ long long lane_offset(long long b, long long per_lane) {
+  return kBatchLast ? b : b * per_lane;
+}
+
+// n elements `stride` words apart in device memory into n consecutive
+// shared-memory words, element by element, by one warp; the caller
+// commits the batch
+template <typename T>
+__device__ __forceinline__ void warp_gather_async(T* dst, const T* src, int n, long long stride, int lane) {
+  for (int e = lane; e < n; e += kWarp) __pipeline_memcpy_async(dst + e, src + e * stride, sizeof(T));
+}
+
 // Stage n's inputs of solve_batched_reg_kernel (D_n, O_n but for the last
-// stage, b_n) into slot n & (kSlots - 1); one batch committed a stage,
-// empty past the last, so that a wait counts stages.
-template <int kSlots, typename T>
+// stage, b_n; batch-last, O'_n) into slot n & (kSlots - 1), each block flat
+// as it is row-major; one batch committed a stage, empty past the last, so
+// that a wait counts stages. sB: the words between a lane's consecutive
+// elements (1 batch-first, B batch-last)
+template <int kSlots, bool kBatchLast, typename T>
 __device__ __forceinline__ void copy_fused_stage(int n, T* ring, int slot_words, const T* Dl, const T* Ol,
-                                                 const T* bl, int T_, int d, bool vec, bool vecb, int lane) {
+                                                 const T* bl, long long sB, int T_, int d, bool vec, bool vecb,
+                                                 int lane) {
   if (n < T_) {
     const int blk = d * d;
     T* slot = ring + (n & (kSlots - 1)) * slot_words;
-    warp_copy_async(slot, Dl + n * blk, blk, vec, lane);
-    if (n < T_ - 1) warp_copy_async(slot + blk, Ol + n * blk, blk, vec, lane);
-    warp_copy_async(slot + 2 * blk, bl + n * d, d, vecb, lane);
+    if (kBatchLast) {
+      warp_gather_async(slot, Dl + n * blk * sB, blk, sB, lane);
+      if (n < T_ - 1) warp_gather_async(slot + blk, Ol + n * blk * sB, blk, sB, lane);
+      warp_gather_async(slot + 2 * blk, bl + n * d * sB, d, sB, lane);
+    } else {
+      warp_copy_async(slot, Dl + n * blk, blk, vec, lane);
+      if (n < T_ - 1) warp_copy_async(slot + blk, Ol + n * blk, blk, vec, lane);
+      warp_copy_async(slot + 2 * blk, bl + n * d, d, vecb, lane);
+    }
   }
   __pipeline_commit();
 }
 
-// fused for d <= kMax (12, 16 or 32): one warp a lane (see the file
-// comment). Shared memory per warp (per_warp words, fused_reg_words): the
-// ring of stage slots, stage n in slot n & (kSlots - 1), copied kSlots - 1
-// stages ahead; the o rows in two buffers (stage t's in buffer t & 1, read
-// by stage t + 1), row stride ldg = kMax + 16 / sizeof(T); the vector V in
-// two buffers; and, where kOnChip, the kept rows and u. Without kOnChip the
-// kept rows are the lane's part of `work` ((2T - 1) d (d|1) words) and u_t
-// waits in x.
-template <typename T, int kMax, bool kOnChip>
+// The fused solve for d <= kMax (12, 16 or 32): one warp a lane (see the
+// file comment), on batch-first or, where kBatchLast, batch-last arrays
+// (O then holds O_t'). Shared memory per warp (per_warp words,
+// fused_reg_words): the ring of stage slots, stage n in slot n & (kSlots -
+// 1), copied kSlots - 1 stages ahead; the o rows in two buffers (stage t's
+// in buffer t & 1, read by stage t + 1), row stride ldg = kMax + 16 /
+// sizeof(T); the vector V in two buffers; and, where kOnChip, the kept
+// rows and u. Without kOnChip the kept rows are the lane's part of `work`
+// ((2T - 1) d (d|1) words) and u_t waits in x, where x_t goes.
+template <typename T, int kMax, bool kOnChip, bool kBatchLast>
 __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
     solve_batched_reg_kernel(const T* __restrict__ D, const T* __restrict__ O, const T* __restrict__ bv,
                              T* __restrict__ x, T* __restrict__ work, int B, int T_, int d, int per_warp,
@@ -149,18 +197,21 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
   T* const V = G + 2 * kMax * ldg;
   const long long b = static_cast<long long>(blockIdx.x) * warps + warp;
   if (b >= B) return;  // ragged batch edge; the kernel has no block barrier
-  const T* Dl = D + b * T_ * blk;
-  const T* Ol = O + b * (T_ - 1) * blk;
-  const T* bl = bv + b * T_ * d;
-  T* const xl = x + b * T_ * d;
+  const long long sB = kBatchLast ? B : 1;  // words between a lane's consecutive elements
+  const T* Dl = D + lane_offset<kBatchLast>(b, static_cast<long long>(T_) * blk);
+  const T* Ol = O + lane_offset<kBatchLast>(b, static_cast<long long>(T_ - 1) * blk);
+  const T* bl = bv + lane_offset<kBatchLast>(b, static_cast<long long>(T_) * d);
+  T* const xl = x + lane_offset<kBatchLast>(b, static_cast<long long>(T_) * d);  // x_t[i] at xl[(t d + i) sB]
   // the kept rows: L_t's at Lh + t hblk, M_t''s at Mh + t hblk, row i at i ldw
   T* const Lh = kOnChip ? V + 2 * kMax : work + b * (2LL * T_ - 1) * hblk;
   T* const Mh = Lh + static_cast<long long>(T_) * hblk;
-  T* const uh = kOnChip ? Mh + static_cast<long long>(T_ - 1) * hblk : xl;  // u_t at uh + t d
+  // u_t[i] at uh[(t d + i) su]: on chip after the kept rows, else in x
+  T* const uh = kOnChip ? Mh + static_cast<long long>(T_ - 1) * hblk : xl;
+  const long long su = kOnChip ? 1 : sB;
   const int c = min(lane, d - 1);  // this thread's row, clamped to a real one to read
   const bool own = lane < d;
   for (int n = 0; n < kSlots - 1; ++n)
-    copy_fused_stage<kSlots>(n, ring, slot_words, Dl, Ol, bl, T_, d, vec, vecb, lane);
+    copy_fused_stage<kSlots, kBatchLast>(n, ring, slot_words, Dl, Ol, bl, sB, T_, d, vec, vecb, lane);
 
   // s[j]: S_t[c][j], then L_t[c][j]; o[k]: O_t[c][k], then M_t[k][c]
   // (zero past d); r: this thread's entry of r_t, then of u_t. The threads
@@ -176,10 +227,11 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
     const T* bs = Os + blk;
     __pipeline_wait_prior(kSlots - 2);
     __syncwarp();  // stage t's inputs have landed; stage t-1's slot is free
-    copy_fused_stage<kSlots>(t + kSlots - 1, ring, slot_words, Dl, Ol, bl, T_, d, vec, vecb, lane);
+    copy_fused_stage<kSlots, kBatchLast>(t + kSlots - 1, ring, slot_words, Dl, Ol, bl, sB, T_, d, vec, vecb, lane);
 
     // S_t = D_t - M_{t-1}' M_{t-1} and r_t = b_t - M_{t-1}' u_{t-1}, both
-    // from this thread's o row of stage t-1
+    // from this thread's o row of stage t-1; then row c of O_t (batch-last,
+    // column c of the slot's O_t')
 #pragma unroll
     for (int j = 0; j < kMax; ++j) s[j] = Ds[c * d + j];
     r = own ? bs[c] : T(0);
@@ -189,7 +241,7 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
     }
 #pragma unroll
     for (int k = 0; k < kMax; ++k) {
-      o[k] = own && k < d && t < T_ - 1 ? Os[c * d + k] : T(0);
+      o[k] = own && k < d && t < T_ - 1 ? Os[kBatchLast ? k * d + c : c * d + k] : T(0);
       if (!own) s[k] = T(0);
     }
 
@@ -222,7 +274,7 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
 #pragma unroll
         for (int k = 0; k < kMax; k += 4) store4(Gc + k, o[k], o[k + 1], o[k + 2], o[k + 3]);
       }
-      uh[t * d + lane] = r;
+      uh[(t * d + lane) * su] = r;
     }
     if (lane < kMax) V[(t & 1) * kMax + lane] = r;
     __syncwarp();  // the o rows are in G, u_t in V
@@ -231,7 +283,7 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
 
   if (!ok) {  // uniform over the warp
     const T nan = quiet_nan<T>();
-    for (int e = lane; e < T_ * d; e += kWarp) xl[e] = nan;
+    for (int e = lane; e < T_ * d; e += kWarp) xl[e * sB] = nan;
     return;
   }
 
@@ -250,7 +302,7 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
       T m[kMax];
 #pragma unroll
       for (int k = 0; k < kMax; ++k) m[k] = k < d ? Mt[k * ldw + c] : T(0);
-      r = own ? uh[t * d + lane] - dot_bcast<T, kMax>(m, V + ((t + 1) & 1) * kMax) : T(0);
+      r = own ? uh[(t * d + lane) * su] - dot_bcast<T, kMax>(m, V + ((t + 1) & 1) * kMax) : T(0);
     }
 #pragma unroll
     for (int j = kMax - 1; j >= 0; --j) {
@@ -258,23 +310,25 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
       const T xj = __shfl_sync(kFull, r * inv, j);
       r = lane == j ? xj : (lane < j ? r - l[j] * xj : r);
     }
-    if (own) xl[t * d + lane] = r;
+    if (own) xl[(t * d + lane) * sB] = r;
     if (lane < kMax) V[(t & 1) * kMax + lane] = r;
     __syncwarp();  // x_t is in V
   }
 }
 
-// fused for d in 33..64 (the first design): one block per lane. Lf[t]
-// (t < T) holds S_t, factored in place into L_t; Mf[t] (t < T-1) holds O_t row-major, i.e. column c of O_t' in row
-// c, turned in place into M_t with column c in row c (the carry the next
-// stage's Schur update reads); each d rows of ld = d + 1. Both live in
-// shared memory when `work` is null, else in the lane's part of `work`.
-// Shared memory always holds v (the carry: u_{t-1} forward, x_{t+1}
-// backward) and r (the stage's right-hand side); u_t waits in x.
-template <typename T>
+// The fused solve for d in 33..64 (the first design): one block per lane,
+// on batch-first or, where kBatchLast, batch-last arrays (O then holds
+// O_t'). Lf[t] (t < T) holds S_t, factored in place into L_t; Mf[t] (t <
+// T-1) holds O_t row-major, i.e. column c of O_t' in row c, turned in
+// place into M_t with column c in row c (the carry the next stage's Schur
+// update reads); each d rows of ld = d + 1. Both live in shared memory
+// when `work` is null, else in the lane's part of `work`. Shared memory
+// always holds v (the carry: u_{t-1} forward, x_{t+1} backward) and r
+// (the stage's right-hand side); u_t waits in x.
+template <typename T, bool kBatchLast>
 __global__ void __launch_bounds__(kMaxThreads)
     solve_batched_fused_wide_kernel(const T* __restrict__ D, const T* __restrict__ O,
-                                    const T* __restrict__ bv, T* x, T* work, int T_, int d) {
+                                    const T* __restrict__ bv, T* x, T* work, int B, int T_, int d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = d + 1;
   const int blk = d * ld;
@@ -287,10 +341,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int tid = threadIdx.x, nt = blockDim.x;
   const long long dd = static_cast<long long>(d) * d;
   const int nn = d * d;
-  const T* Dl = D + lane * T_ * dd;
-  const T* Ol = O + lane * (T_ - 1) * dd;
-  const T* bl = bv + lane * T_ * d;
-  T* xl = x + lane * T_ * d;
+  const long long sB = kBatchLast ? B : 1;  // words between a lane's consecutive elements
+  const T* Dl = D + lane_offset<kBatchLast>(lane, T_ * dd);
+  const T* Ol = O + lane_offset<kBatchLast>(lane, (T_ - 1) * dd);
+  const T* bl = bv + lane_offset<kBatchLast>(lane, static_cast<long long>(T_) * d);
+  T* xl = x + lane_offset<kBatchLast>(lane, static_cast<long long>(T_) * d);  // x_t[i] at xl[(t d + i) sB]
 
   bool ok = true;
   for (int t = 0; t < T_ && ok; ++t) {
@@ -299,20 +354,20 @@ __global__ void __launch_bounds__(kMaxThreads)
     const T* C = Mf + static_cast<long long>(t - 1) * blk;  // M_{t-1}, read for t > 0
     const bool coupled = t < T_ - 1;
 
-    // S_t = D_t - M_{t-1}' M_{t-1} (lower triangle), O_t into R, and
-    // r = b_t - M_{t-1}' u_{t-1}
+    // S_t = D_t - M_{t-1}' M_{t-1} (lower triangle), O_t into R (element e
+    // of O_t' is O_t's (j, i)), and r = b_t - M_{t-1}' u_{t-1}
     for (int e = tid; e < nn; e += nt) {
       const int i = e / d, j = e % d;
       if (j <= i) {
-        T s = Dl[t * dd + e];
+        T s = Dl[(t * dd + e) * sB];
         if (t > 0)
           for (int k = 0; k < d; ++k) s -= C[i * ld + k] * C[j * ld + k];
         S[i * ld + j] = s;
       }
-      if (coupled) R[i * ld + j] = Ol[t * dd + e];
+      if (coupled) R[kBatchLast ? j * ld + i : i * ld + j] = Ol[(t * dd + e) * sB];
     }
     for (int i = tid; i < d; i += nt) {
-      T s = bl[t * d + i];
+      T s = bl[(t * d + i) * sB];
       if (t > 0)
         for (int k = 0; k < d; ++k) s -= C[i * ld + k] * v[k];
       r[i] = s;
@@ -371,14 +426,14 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     for (int i = tid; i < d; i += nt) {
       v[i] = r[i];
-      xl[t * d + i] = r[i];  // u_t, read back by the same thread below
+      xl[(t * d + i) * sB] = r[i];  // u_t, read back by the same thread below
     }
     __syncthreads();
   }
 
   if (!ok) {
     const T nan = quiet_nan<T>();
-    for (int e = tid; e < T_ * d; e += nt) xl[e] = nan;
+    for (int e = tid; e < T_ * d; e += nt) xl[e * sB] = nan;
     return;  // uniform over the block: no barrier follows
   }
 
@@ -387,7 +442,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const T* Ct = Mf + static_cast<long long>(t) * blk;  // row k = column k of M_t
     // r = u_t - M_t x_{t+1}
     for (int i = tid; i < d; i += nt) {
-      T s = xl[t * d + i];
+      T s = xl[(t * d + i) * sB];
       if (t < T_ - 1)
         for (int k = 0; k < d; ++k) s -= Ct[k * ld + i] * v[k];
       r[i] = s;
@@ -409,105 +464,112 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     for (int i = tid; i < d; i += nt) {
       v[i] = r[i];
-      xl[t * d + i] = r[i];
+      xl[(t * d + i) * sB] = r[i];
     }
     __syncthreads();
   }
 }
 
-// One thread per lane b. Element (t, i, j) of a (., d, d, B) array is at
-// ((t d + i) d + j) B + b, element (t, i) of a (., d, B) array at
-// (t d + i) B + b.
+// The lanes wrapper's layout moves, the transposes that the reference
+// leaves to XLA around its kernel. A job is out (C, R) = in (R, C)', where
+// d > 0 with each d x d block of a row of `in` transposed on the way
+// (input column c = t d^2 + j d + i lands in output row t d^2 + i d + j:
+// O (B, T-1, d, d) into O' (T-1, d, d, B)); its 32 x 32 tiles, row-major
+// over ceil(R / 32) x col_tiles, are the blocks from the previous job's
+// `end` to its own. One launch takes up to three jobs (D, O and b on the
+// way in), so that the wrapper's host cost is one launch a way.
+constexpr int kTile = 32, kTileRows = 8;
+
 template <typename T>
-__global__ void __launch_bounds__(kLanesThreads)
-    solve_batched_lanes_kernel(T* DL, T* OM, const T* __restrict__ bv, T* x, int B, int T_,
-                               int d) {
-  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= B) return;  // ragged batch edge; the kernel has no barrier
-  const long long sB = B;
-  const long long blk = static_cast<long long>(d) * d * sB;  // one (d, d, B) block
-  const long long vec = static_cast<long long>(d) * sB;      // one (d, B) vector
+struct TransposeJob {
+  const T* in;
+  T* out;
+  int R, C, d, col_tiles;
+  long long end;
+};
 
-  bool ok = true;
-  for (int t = 0; t < T_ && ok; ++t) {
-    T* S = DL + t * blk + b;                       // S[(i d + j) B]
-    const T* C = OM + (t - 1) * blk + b;           // M_{t-1}[k][i] at C[(k d + i) B]
-    T* ut = x + t * vec + b;                       // u_t[i] at ut[i B]
-    const T* up = x + (t - 1) * vec + b;
-
-    // S_t = D_t - M_{t-1}' M_{t-1}, lower triangle, in place
-    if (t > 0) {
-      for (int i = 0; i < d; ++i)
-        for (int j = 0; j <= i; ++j) {
-          T s = S[(i * d + j) * sB];
-          for (int k = 0; k < d; ++k) s -= C[(k * d + i) * sB] * C[(k * d + j) * sB];
-          S[(i * d + j) * sB] = s;
-        }
-    }
-    // right-looking Cholesky in place
-    for (int k = 0; k < d; ++k) {
-      const T pkk = S[(k * d + k) * sB];
-      if (!pivot_ok(pkk)) {
-        ok = false;
-        break;
-      }
-      const T lkk = sqrt(pkk);
-      S[(k * d + k) * sB] = lkk;
-      for (int i = k + 1; i < d; ++i) S[(i * d + k) * sB] /= lkk;
-      for (int j = k + 1; j < d; ++j) {
-        const T ljk = S[(j * d + k) * sB];
-        for (int i = j; i < d; ++i) S[(i * d + j) * sB] -= S[(i * d + k) * sB] * ljk;
-      }
-    }
-    if (!ok) break;
-
-    // M_t = L_t^{-1} O_t', column by column, in place
-    if (t < T_ - 1) {
-      T* X = OM + t * blk + b;
-      for (int c = 0; c < d; ++c)
-        for (int j = 0; j < d; ++j) {
-          T s = X[(j * d + c) * sB];
-          for (int k = 0; k < j; ++k) s -= S[(j * d + k) * sB] * X[(k * d + c) * sB];
-          X[(j * d + c) * sB] = s / S[(j * d + j) * sB];
-        }
-    }
-    // u_t = L_t^{-1} (b_t - M_{t-1}' u_{t-1}), into x_t
-    for (int i = 0; i < d; ++i) {
-      T s = bv[t * vec + i * sB + b];
-      if (t > 0)
-        for (int k = 0; k < d; ++k) s -= C[(k * d + i) * sB] * up[k * sB];
-      for (int k = 0; k < i; ++k) s -= S[(i * d + k) * sB] * ut[k * sB];
-      ut[i * sB] = s / S[(i * d + i) * sB];
-    }
+// A 32 x 32 tile a block through shared memory, so that a warp reads 32
+// consecutive words of a row of `in` and writes 32 consecutive words of a
+// row of `out` (a strided copy reads or writes one word a sector); the
+// padded tile row keeps the column reads free of bank conflicts
+template <typename T>
+__global__ void __launch_bounds__(kTile * kTileRows)
+    transpose_kernel(TransposeJob<T> j0, TransposeJob<T> j1, TransposeJob<T> j2) {
+  __shared__ T tile[kTile][kTile + 1];
+  const long long bid = blockIdx.x;
+  const bool first = bid < j0.end, second = !first && bid < j1.end;
+  const TransposeJob<T> j = first ? j0 : (second ? j1 : j2);
+  const int q = static_cast<int>(bid - (first ? 0 : (second ? j0.end : j1.end)));
+  const int tr = q / j.col_tiles;
+  const int r0 = tr * kTile, c0 = (q - tr * j.col_tiles) * kTile;
+  for (int k = threadIdx.y; k < kTile; k += kTileRows) {
+    const int r = r0 + k, c = c0 + threadIdx.x;
+    if (r < j.R && c < j.C) tile[k][threadIdx.x] = j.in[static_cast<long long>(r) * j.C + c];
   }
-
-  if (!ok) {
-    const T nan = quiet_nan<T>();
-    for (long long e = 0; e < static_cast<long long>(T_) * d; ++e) x[e * sB + b] = nan;
-    return;
-  }
-
-  // x_t = L_t^{-T} (u_t - M_t x_{t+1}), in place over u_t
-  for (int t = T_ - 1; t >= 0; --t) {
-    const T* Lt = DL + t * blk + b;
-    const T* Mt = OM + t * blk + b;  // M_t[i][k] at Mt[(i d + k) B]
-    T* xt = x + t * vec + b;
-    const T* xn = x + (t + 1) * vec + b;
-    if (t < T_ - 1)
-      for (int i = 0; i < d; ++i) {
-        T s = xt[i * sB];
-        for (int k = 0; k < d; ++k) s -= Mt[(i * d + k) * sB] * xn[k * sB];
-        xt[i * sB] = s;
-      }
-    for (int i = d - 1; i >= 0; --i) {
-      T s = xt[i * sB];
-      for (int k = i + 1; k < d; ++k) s -= Lt[(k * d + i) * sB] * xt[k * sB];
-      xt[i * sB] = s / Lt[(i * d + i) * sB];
+  __syncthreads();
+  const int dd = j.d * j.d;
+  for (int k = threadIdx.y; k < kTile; k += kTileRows) {
+    int c = c0 + k;
+    const int r = r0 + threadIdx.x;
+    if (c >= j.C || r >= j.R) continue;
+    if (j.d > 0) {
+      const int t = c / dd, e = c - t * dd, row = e / j.d;
+      c = t * dd + (e - row * j.d) * j.d + row;
     }
+    j.out[static_cast<long long>(c) * j.R + r] = tile[threadIdx.x][k];
   }
 }
 
+// The job of an (R, C) `in`, its tiles after block `start`
+template <typename T>
+TransposeJob<T> transpose_job(const void* in, void* out, long long R, long long C, int d, long long start) {
+  const long long col_tiles = (C + kTile - 1) / kTile;
+  return {static_cast<const T*>(in), static_cast<T*>(out), static_cast<int>(R), static_cast<int>(C), d,
+          static_cast<int>(col_tiles), start + (R + kTile - 1) / kTile * col_tiles};
+}
+
+template <typename T>
+int launch_transposes(const TransposeJob<T>& j0, const TransposeJob<T>& j1, const TransposeJob<T>& j2,
+                      void* stream) {
+  if (j2.end == 0) return static_cast<int>(cudaSuccess);
+  dim3 block;
+  block.x = kTile;
+  block.y = kTileRows;
+  const unsigned grid = static_cast<unsigned>(j2.end);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  transpose_kernel<T><<<grid, block, 0, st>>>(j0, j1, j2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A job's sizes fit the kernel's int indices and a launch's blocks
+bool transpose_fits(long long R, long long C) {
+  constexpr long long kMax = 0x7fffffffLL;
+  return R <= kMax && C <= kMax && (R + kTile - 1) / kTile * ((C + kTile - 1) / kTile) <= kMax / 4;
+}
+
 bool shape_ok(int B, int T_, int d) { return B >= 0 && T_ >= 1 && d >= 1 && d <= kMaxD; }
+
+// The way in: D (B, T d^2) into Dl (T d^2, B), O (B, (T-1) d^2) into Ol,
+// each block transposed, b (B, T d) into bl (T d, B); one launch
+template <typename T>
+int batch_last(const void* D, const void* O, const void* b, void* Dl, void* Ol, void* bl, int B, int T_, int d,
+               void* stream) {
+  const long long dd = static_cast<long long>(d) * d;
+  if (!shape_ok(B, T_, d) || !transpose_fits(B, T_ * dd)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto jD = transpose_job<T>(D, Dl, B, T_ * dd, 0, 0);
+  const auto jO = transpose_job<T>(O, Ol, B, (T_ - 1) * dd, d, jD.end);
+  const auto jb = transpose_job<T>(b, bl, B, static_cast<long long>(T_) * d, 0, jO.end);
+  return launch_transposes(jD, jO, jb, stream);
+}
+
+// The way back: xl (T d, B) into x (B, T d); one launch
+template <typename T>
+int batch_first(const void* xl, void* x, int B, int T_, int d, void* stream) {
+  const long long Td = static_cast<long long>(T_) * d;
+  if (!shape_ok(B, T_, d) || !transpose_fits(Td, B)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto j = transpose_job<T>(xl, x, Td, B, 0, 0);
+  return launch_transposes(j, j, j, stream);
+}
 
 // Shared memory of solve_batched_fused_wide_kernel with the horizon
 // resident, in bytes.
@@ -554,31 +616,34 @@ int fused_workspace(int T_, int d) {
   return (2 * T_ - 1) * d * (d + 1);
 }
 
-// solve_batched_reg_kernel<T, kMax>, on chip where `work` is null: warps a
-// block B / SMs, at least one (so that every SM has a lane where the batch
-// allows) and at most kMaxFusedWarps
-template <typename T, int kMax>
+// solve_batched_reg_kernel<T, kMax, ., kBatchLast>, on chip where `work`
+// is null: warps a block B / SMs, at least one (so that every SM has a
+// lane where the batch allows) and at most kMaxFusedWarps; 16-byte copies
+// batch-first where the sizes and addresses allow them
+template <typename T, int kMax, bool kBatchLast>
 cudaError_t launch_fused_reg(const T* D, const T* O, const T* b, T* x, T* work, int B, int T_, int d,
                              cudaStream_t stream) {
   int want = B / sm_count();
   if (want > kMaxFusedWarps) want = kMaxFusedWarps;
   const bool on_chip = work == nullptr;
   const size_t words = fused_reg_words<T>(kMax, T_, d, on_chip);
-  auto kernel = on_chip ? solve_batched_reg_kernel<T, kMax, true> : solve_batched_reg_kernel<T, kMax, false>;
+  auto kernel = on_chip ? solve_batched_reg_kernel<T, kMax, true, kBatchLast>
+                        : solve_batched_reg_kernel<T, kMax, false, kBatchLast>;
   int warps;
   size_t smem;
   cudaError_t err = configure(kernel, sizeof(T) * words, &warps, &smem, kMaxSmem, want < 1 ? 1 : want);
   if (err != cudaSuccess) return err;
-  const int vec = (sizeof(T) * d * d) % 16 == 0 && aligned16(D) && aligned16(O);
+  const int vec = !kBatchLast && (sizeof(T) * d * d) % 16 == 0 && aligned16(D) && aligned16(O);
   const int vecb = vec && (sizeof(T) * d) % 16 == 0 && aligned16(b);
   kernel<<<(B + warps - 1) / warps, warps * kWarp, smem, stream>>>(D, O, b, x, work, B, T_, d,
                                                                   static_cast<int>(words), vec, vecb);
   return cudaGetLastError();
 }
 
-// The fused solve: the register kernel up to d = 32 (width 12, 16 or 32),
-// a block a lane past it; L and M in shared memory where `work` is null
-template <typename T>
+// The fused solve on batch-first or, where kBatchLast, batch-last arrays:
+// the register kernel up to d = 32 (width 12, 16 or 32), a block a lane
+// past it; L and M in shared memory where `work` is null
+template <typename T, bool kBatchLast>
 int solve_batched_fused(const void* D, const void* O, const void* b, void* x, void* work, int B,
                         int T_, int d, void* stream) {
   if (!shape_ok(B, T_, d)) return static_cast<int>(cudaErrorInvalidValue);
@@ -589,32 +654,20 @@ int solve_batched_fused(const void* D, const void* O, const void* b, void* x, vo
   T* xp = static_cast<T*>(x);
   T* wp = static_cast<T*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d <= 12) return static_cast<int>(launch_fused_reg<T, 12>(Dp, Op, bp, xp, wp, B, T_, d, st));
-  if (d <= 16) return static_cast<int>(launch_fused_reg<T, 16>(Dp, Op, bp, xp, wp, B, T_, d, st));
-  if (d <= kWarp) return static_cast<int>(launch_fused_reg<T, kWarp>(Dp, Op, bp, xp, wp, B, T_, d, st));
+  if (d <= 12) return static_cast<int>(launch_fused_reg<T, 12, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
+  if (d <= 16) return static_cast<int>(launch_fused_reg<T, 16, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
+  if (d <= kWarp) return static_cast<int>(launch_fused_reg<T, kWarp, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
   const size_t smem =
       work == nullptr ? resident_smem<T>(T_, d) : sizeof(T) * 2 * (static_cast<size_t>(d) + 1);
   if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(solve_batched_fused_wide_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(solve_batched_fused_wide_kernel<T, kBatchLast>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int threads = (d * d + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  solve_batched_fused_wide_kernel<T><<<B, threads, smem, st>>>(Dp, Op, bp, xp, wp, T_, d);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int solve_batched_lanes(void* DL, void* OM, const void* b, void* x, int B, int T_, int d,
-                        void* stream) {
-  if (!shape_ok(B, T_, d)) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0) return static_cast<int>(cudaSuccess);
-  const int grid = (B + kLanesThreads - 1) / kLanesThreads;
-  solve_batched_lanes_kernel<T><<<grid, kLanesThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<T*>(DL), static_cast<T*>(OM), static_cast<const T*>(b), static_cast<T*>(x), B,
-      T_, d);
+  solve_batched_fused_wide_kernel<T, kBatchLast><<<B, threads, smem, st>>>(Dp, Op, bp, xp, wp, B, T_, d);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -632,22 +685,44 @@ int calipso_solve_batched_fused_workspace_f64(int T, int d) {
 
 int calipso_solve_batched_fused_f32(const void* D, const void* O, const void* b, void* x,
                                     void* work, int B, int T, int d, void* stream) {
-  return solve_batched_fused<float>(D, O, b, x, work, B, T, d, stream);
+  return solve_batched_fused<float, false>(D, O, b, x, work, B, T, d, stream);
 }
 
 int calipso_solve_batched_fused_f64(const void* D, const void* O, const void* b, void* x,
                                     void* work, int B, int T, int d, void* stream) {
-  return solve_batched_fused<double>(D, O, b, x, work, B, T, d, stream);
+  return solve_batched_fused<double, false>(D, O, b, x, work, B, T, d, stream);
 }
 
-int calipso_solve_batched_lanes_f32(void* D, void* O, const void* b, void* x, int B, int T,
-                                    int d, void* stream) {
-  return solve_batched_lanes<float>(D, O, b, x, B, T, d, stream);
+// D (T, d, d, B), O' (T-1, d, d, B) with O'_t = O_t', b and x (T, d, B)
+int calipso_solve_batched_lanes_f32(const void* D, const void* O, const void* b, void* x,
+                                    void* work, int B, int T, int d, void* stream) {
+  return solve_batched_fused<float, true>(D, O, b, x, work, B, T, d, stream);
 }
 
-int calipso_solve_batched_lanes_f64(void* D, void* O, const void* b, void* x, int B, int T,
-                                    int d, void* stream) {
-  return solve_batched_lanes<double>(D, O, b, x, B, T, d, stream);
+int calipso_solve_batched_lanes_f64(const void* D, const void* O, const void* b, void* x,
+                                    void* work, int B, int T, int d, void* stream) {
+  return solve_batched_fused<double, true>(D, O, b, x, work, B, T, d, stream);
+}
+
+// solve_batched_lanes' layout moves: D (B, T, d, d), O (B, T-1, d, d), b
+// (B, T, d) into D (T, d, d, B), O' (T-1, d, d, B), b (T, d, B); and x
+// (T, d, B) back into x (B, T, d)
+int calipso_batch_last_f32(const void* D, const void* O, const void* b, void* Dl, void* Ol, void* bl, int B, int T,
+                           int d, void* stream) {
+  return batch_last<float>(D, O, b, Dl, Ol, bl, B, T, d, stream);
+}
+
+int calipso_batch_last_f64(const void* D, const void* O, const void* b, void* Dl, void* Ol, void* bl, int B, int T,
+                           int d, void* stream) {
+  return batch_last<double>(D, O, b, Dl, Ol, bl, B, T, d, stream);
+}
+
+int calipso_batch_first_f32(const void* xl, void* x, int B, int T, int d, void* stream) {
+  return batch_first<float>(xl, x, B, T, d, stream);
+}
+
+int calipso_batch_first_f64(const void* xl, void* x, int B, int T, int d, void* stream) {
+  return batch_first<double>(xl, x, B, T, d, stream);
 }
 
 }  // extern "C"

@@ -53,8 +53,13 @@ SIGNATURES = {
     },
     "riccati_fused": {
         **{f"calipso_solve_batched_fused_workspace_{dt}": [_I, _I] for dt in ("f32", "f64")},
-        **{f"calipso_solve_batched_fused_{dt}": [_P, _P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
-        **{f"calipso_solve_batched_lanes_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
+        **{
+            f"calipso_solve_batched_{layout}_{dt}": [_P, _P, _P, _P, _P, _I, _I, _I, _P]
+            for layout in ("fused", "lanes")
+            for dt in ("f32", "f64")
+        },
+        **{f"calipso_batch_last_{dt}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
+        **{f"calipso_batch_first_{dt}": [_P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
     },
 }
 SOURCES = tuple(PACKAGE_DIR / "csrc" / f"{stem}.cu" for stem in SIGNATURES)

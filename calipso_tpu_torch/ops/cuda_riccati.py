@@ -24,13 +24,17 @@ right-hand-side column; the next stage's blocks copied into shared
 memory while the current one computes). `solve_batched_fused`
 replaces `_riccati_kernel` and `solve_batched_lanes` replaces
 `_riccati_lanes_kernel`
-(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel -- up to
-d = 32 a warp a lane, `factor_lanes`' register stage with the forward
-sweep folded in and L_t, M_t and u_t kept for the backward sweep, past
-that a thread block a lane; the horizon's factor stays in shared memory
-where it fits -- or one thread per lane on (T, d, d, B) arrays);
-`solve_batched`, the public entry point, takes the first on CUDA
-tensors, as the reference does off the CPU, and no solver path calls it.
+(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel template
+that takes the batch-first (B, T, d, d) arrays of the first or the
+batch-last (T, d, d, B) copies the second makes -- up to d = 32 a warp a
+lane, `factor_lanes`' register stage with the forward sweep folded in
+and L_t, M_t and u_t kept for the backward sweep, past that a thread
+block a lane; the horizon's factor stays in shared memory where it
+fits; the batch-last copies and x's way back are `batch_last` and
+`batch_first`, one launch each of a tiled transpose kernel, the layout
+moves the reference leaves to XLA); `solve_batched`, the public entry
+point, takes the first on CUDA tensors, as the reference does off the
+CPU, and no solver path calls it.
 All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
 register kernels share their device code (`csrc/riccati_reg.cuh`). The
 stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
@@ -65,7 +69,7 @@ import torch
 LAUNCHES = {
     "factor_t1": 0, "solve_t1": 0, "factor_lanes": 0, "solve_lanes": 0,
     "factor_stream": 0, "solve_fwd_stream": 0, "solve_bwd_stream": 0,
-    "solve_batched_fused": 0, "solve_batched_lanes": 0,
+    "solve_batched_fused": 0, "solve_batched_lanes": 0, "transpose": 0,
 }
 MAX_N = 128  # T=1 kernels
 MAX_D = 64  # block-tridiagonal kernels (lanes and stream)
@@ -200,12 +204,13 @@ def _lanes_dims(L):
     return B, T, d
 
 
-def _launch(name, stem, dtype, device, *args):
-    """Launch C entry point `calipso_<name>_<dtype>` of csrc/<stem>.cu on
-    the current stream; raise if the launch failed."""
+def _launch(name, stem, dtype, device, *args, entry=None):
+    """Launch C entry point `calipso_<entry>_<dtype>` (entry: `name`) of
+    csrc/<stem>.cu on the current stream, counted under `name`; raise if
+    the launch failed."""
     from calipso_tpu_torch.ops import _build
 
-    fn = getattr(_build.load(stem), f"calipso_{name}_{_SUFFIX[dtype]}")
+    fn = getattr(_build.load(stem), f"calipso_{entry or name}_{_SUFFIX[dtype]}")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
@@ -392,6 +397,24 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _solve_fused(name, D, O, b, x, B, T, d):
+    """Launch the fused solve `name` on D, O and b into x (in the layout
+    of its entry point), with the workspace the kernel asks for, if any."""
+    from calipso_tpu_torch.ops import _build
+
+    query = getattr(_build.load("riccati_fused"), f"calipso_solve_batched_fused_workspace_{_SUFFIX[D.dtype]}")
+    with torch.cuda.device(D.device):
+        words = query(T, d)
+    if words < 0:
+        raise RuntimeError(f"{name} workspace query failed: CUDA error {-words}")
+    work = torch.empty(B * words, dtype=D.dtype, device=D.device) if words else None
+    _launch(
+        name, "riccati_fused", D.dtype, D.device,
+        D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
+        None if work is None else work.data_ptr(), B, T, d,
+    )
+
+
 def solve_batched_fused(D, O, b):
     """x (B, T, d) of `solve_batched_plain` in one kernel, one warp per
     lane up to d = 32 and one thread block per lane past it; L and M stay
@@ -399,42 +422,77 @@ def solve_batched_fused(D, O, b):
     wrapper allocates (the kernel says which)."""
     if _on_cpu(D, O, b):
         return solve_batched_plain(D, O, b)
-    from calipso_tpu_torch.ops import _build
-
     B, T, d = _batched_args(D, O, b)
     x = torch.empty_like(b)
     if B > 0:
-        query = getattr(_build.load("riccati_fused"), f"calipso_solve_batched_fused_workspace_{_SUFFIX[D.dtype]}")
-        with torch.cuda.device(D.device):
-            words = query(T, d)
-        if words < 0:
-            raise RuntimeError(f"solve_batched_fused workspace query failed: CUDA error {-words}")
-        work = torch.empty(B * words, dtype=D.dtype, device=D.device) if words else None
-        _launch(
-            "solve_batched_fused", "riccati_fused", D.dtype, D.device,
-            D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
-            None if work is None else work.data_ptr(), B, T, d,
-        )
+        _solve_fused("solve_batched_fused", D, O, b, x, B, T, d)
     return x
 
 
+def batch_last_plain(D, O, b):
+    """The reference's batch-last layout of D (B, T, d, d), O (B, T-1, d,
+    d) and b (B, T, d): contiguous D (T, d, d, B), O' (T-1, d, d, B) with
+    O'_t = O_t', and b (T, d, B)."""
+    return D.permute(1, 2, 3, 0).contiguous(), O.permute(1, 3, 2, 0).contiguous(), b.permute(1, 2, 0).contiguous()
+
+
+def batch_first_plain(x):
+    """x (B, T, d) of the batch-last x (T, d, B)."""
+    return x.permute(2, 0, 1).contiguous()
+
+
+def batch_last(D, O, b):
+    """`batch_last_plain` of CUDA tensors by the transpose kernel, one
+    launch for the three (CPU tensors: the plain version)."""
+    if _on_cpu(D, O, b):
+        return batch_last_plain(D, O, b)
+    B, T, d = _batched_args(D, O, b)
+    return _batch_last(D, O, b, B, T, d)
+
+
+def _batch_last(D, O, b, B, T, d):
+    out = (D.new_empty(T, d, d, B), O.new_empty(T - 1, d, d, B), b.new_empty(T, d, B))
+    if B > 0:
+        _launch(
+            "transpose", "riccati_fused", D.dtype, D.device,
+            D.data_ptr(), O.data_ptr(), b.data_ptr(), *(a.data_ptr() for a in out), B, T, d, entry="batch_last",
+        )
+    return out
+
+
+def batch_first(x):
+    """`batch_first_plain` of a CUDA tensor by the transpose kernel (a CPU
+    tensor: the plain version)."""
+    if x.device.type == "cpu":
+        return batch_first_plain(x)
+    if x.dim() != 3 or not 1 <= x.shape[1] <= MAX_D or x.shape[0] < 1:
+        raise ValueError(f"expected a batch-last (T, d, B) x with T >= 1 and 1 <= d <= {MAX_D}, got {tuple(x.shape)}")
+    _dtype_ok(x, "block-tridiagonal")
+    _check_device("x", x)
+    T, d, B = x.shape
+    return _batch_first(x, B, T, d)
+
+
+def _batch_first(x, B, T, d):
+    out = x.new_empty(B, T, d)
+    if B > 0:
+        _launch("transpose", "riccati_fused", x.dtype, x.device, x.data_ptr(), out.data_ptr(), B, T, d, entry="batch_first")
+    return out
+
+
 def solve_batched_lanes(D, O, b):
-    """x (B, T, d) of `solve_batched_plain` in one kernel, one thread per
-    lane on (T, d, d, B) copies made here (the transposed O as (T-1, d, d,
-    B)), which the kernel factors in place; x comes back as (B, T, d)."""
+    """x (B, T, d) of `solve_batched_plain` by the kernel of
+    `solve_batched_fused` on the reference's batch-last layout: the copies
+    of `batch_last` made here, x (T, d, B) back by `batch_first`."""
     if _on_cpu(D, O, b):
         return solve_batched_plain(D, O, b)
     B, T, d = _batched_args(D, O, b)
-    Dl = D.permute(1, 2, 3, 0).contiguous()
-    OTl = O.permute(1, 3, 2, 0).contiguous()
-    bl = b.permute(1, 2, 0).contiguous()
+    if B == 0:
+        return torch.empty_like(b)
+    Dl, OTl, bl = _batch_last(D, O, b, B, T, d)
     xl = torch.empty_like(bl)
-    if B > 0:
-        _launch(
-            "solve_batched_lanes", "riccati_fused", D.dtype, D.device,
-            Dl.data_ptr(), OTl.data_ptr(), bl.data_ptr(), xl.data_ptr(), B, T, d,
-        )
-    return xl.permute(2, 0, 1).contiguous()
+    _solve_fused("solve_batched_lanes", Dl, OTl, bl, xl, B, T, d)
+    return _batch_first(xl, B, T, d)
 
 
 def solve_batched(D, O, b):

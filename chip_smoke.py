@@ -20,11 +20,13 @@ Phases (each fails loudly; none catches its own failure):
      (B=1024, T=31, d=9), in float32 and float64, with 8 lanes that are
      not positive definite (NaN on both paths, from the same stage on),
      and (2d) the fused block-tridiagonal solves (solve_batched_fused,
-     solve_batched_lanes) at the rocket's and the quadruped's shapes, and
-     solve_batched_fused at (1024, 31, 32), where its register kernel
-     keeps the factor in the workspace, against their plain version,
-     float32 and float64, 8 lanes not positive definite (NaN over all of
-     their x);
+     solve_batched_lanes: one kernel template, batch-first and
+     batch-last) at the rocket's and the quadruped's shapes and at (1024,
+     31, 32), where the register kernel keeps the factor in the
+     workspace, against their plain version, float32 and float64, 8 lanes
+     not positive definite (NaN over all of their x), and the transpose
+     kernel of the lanes wrapper's layout moves bit for bit against
+     torch's permute(...).contiguous();
   3. solve the benchmark flagship -- 8192 pendulum swing-up trajopt
      problems, T=11, n=32, 24 equality rows, initial state as the stage-0
      parameter, every tolerance 1e-4 -- through
@@ -43,7 +45,8 @@ Phases (each fails loudly; none catches its own failure):
      profile one; keep the blocks of its tenth riccati factorization;
   8. call the public solve_batched (the fused kernel) and
      solve_batched_lanes on those blocks with a seeded right-hand side,
-     counts zeroed just before: both must launch and nothing else, and
+     counts zeroed just before: both must launch, and the transposes of
+     the lanes wrapper's layout moves, and nothing else, and
      both agree with ops/riccati's factor + solve on the card;
   9. the cr backend: rocket101 as bench.py:598-645 runs it (T=101, n=903,
      100 cones, float32, tolerances 1e-4, max_iterative_refinement=2), a
@@ -71,8 +74,10 @@ Phases (each fails loudly; none catches its own failure):
      ops/riccati.route's threshold, at d = 9 to 48 with the quadruped's
      B=128, T=8 and d = 12 to 32 with the rocket's B=1024, T=31;
      and the fused solves beside the split factor + solve pair at both,
-     the fused one at the rocket's also replayed from a CUDA graph (run
-     right after phase 2);
+     with the lanes wrapper's kernel alone and its layout moves (by the
+     transpose kernel, and by torch's strided copies) timed alone and its
+     time over the fused solve's, both at the rocket's also replayed from
+     a CUDA graph (run right after phase 2);
   6. solve the bench's batched quadruped (bench.py:396-503) -- 128
      contact-implicit stance MPC problems, H=8 stages (n=400, stage
      blocks d=54, 344 equality rows, 412 cone rows), stance heights from
@@ -103,8 +108,16 @@ Partial runs print no such result:
         # split pair at (1024, 31, 9) and (128, 8, 54), in float32 and
         # float64, the T=1, lanes, stream and fused kernels also replayed
         # from a CUDA graph, and the two stream sweeps across d = 50..58
-        # (copied into another checkout, times that one's kernels: the
-        # parent/change A/B)
+        # (copied into another checkout, times that one's kernels)
+    python3 chip_smoke.py --batched-times        # phase 1, then the two
+        # fused solves (and the lanes wrapper's kernel and layout moves) at
+        # (1024, 31, 9) and (128, 8, 54), float32 and float64, and at the
+        # first replayed from a CUDA graph: the parent/change A/B of the
+        # fused solves, copied into a `git archive` of the parent
+    python3 chip_smoke.py --sass                 # no card needed: compile
+        # csrc/riccati_fused.cu to a cubin for sm_90a, disassemble it, and
+        # print each solve_batched_reg_kernel instantiation's static
+        # instructions and outermost loops (the stage loops)
     python3 chip_smoke.py --history rocket,cr    # phase 1, the named
         # earlier phases (none: ''), then a cold and a warm quadruped
         # batch: digests of their solutions and of a few library calls,
@@ -206,8 +219,8 @@ GOLDEN_GAIT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", 
 # batched rocket's and the quadruped's stage blocks
 BATCHED_KERNELS = ("solve_batched_fused", "solve_batched_lanes")
 BATCHED_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 9), (B_QUAD, HORIZON_QUAD, 54))
-# the fused solve alone where its register kernel (d <= 32) keeps the
-# horizon's factor in the workspace, not in shared memory
+# where the fused solves' register kernel (d <= 32) keeps the horizon's
+# factor in the workspace, not in shared memory
 FUSED_WORKSPACE_SHAPES = ((B_ROCKET, HORIZON_ROCKET, 32),)
 # the rocket batch's riccati factorization whose blocks the solve_batched
 # phase solves again (the first ones are at the initial point)
@@ -730,8 +743,8 @@ GRAPH_ROUTES = ("T=1", "lanes", "stream", "fused")
 
 def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
     """The T=1 and the lanes kernels at the shapes stream_times checks,
-    the stream kernels at the quadruped's (K=1) and the fused solve at the
-    rocket's (of these, the `routes`), timed as one CUDA graph of 50 calls
+    the stream kernels at the quadruped's (K=1) and the two fused solves
+    at the rocket's (of these, the `routes`), timed as one CUDA graph of 50 calls
     (graph_ms) beside the same 50 calls from the host (cuda_ms), float32
     and float64: where the two differ, the host sets cuda_ms."""
     import torch
@@ -757,7 +770,7 @@ def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
                 D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in arrays[:3])
                 if route == "fused":
                     b = b[..., 0].contiguous()
-                    fns = {"solve_batched_fused": lambda: cr.solve_batched_fused(D, O, b)}
+                    fns = {k: (lambda k=k: getattr(cr, k)(D, O, b)) for k in BATCHED_KERNELS}
                 elif route == "lanes":
                     b = b[..., 0].contiguous()
                     L, M = cr.factor_lanes(D, O)
@@ -906,55 +919,124 @@ def check_batched(tag, cr, dev, B, T, d, errs, kernels=BATCHED_KERNELS):
         print(f"{tag} batched solves {name} {shape}: NaN over all of lanes {bad_lanes.tolist()} (stage {bad_stage}), on every path")
 
 
+def layout_moves(cr, D, O, b, plain=False):
+    """solve_batched_lanes' layout moves alone: the batch-last copies of D,
+    O' and b and x's way back (here b's), by the transpose kernel or, where
+    `plain`, by torch's strided copies (permute(...).contiguous())."""
+    if plain:
+        D.permute(1, 2, 3, 0).contiguous()
+        O.permute(1, 3, 2, 0).contiguous()
+        return b.permute(1, 2, 0).contiguous().permute(2, 0, 1).contiguous()
+    return cr.batch_first(cr.batch_last(D, O, b)[2])
+
+
+def transpose_bound(B, T, d, dtype="float32"):
+    """bound() of solve_batched_lanes' layout moves: D, O, b and x each read
+    once and written once."""
+    return bound(2 * (T * d * d + (T - 1) * d * d + 2 * T * d) * WORD[dtype] * B, 0, dtype)
+
+
 def batched_timed_at(tag, cr, dev, B, T, d, times=None, times64=None):
     """The fused solves, the split factor + solve pair of the route
-    ops/riccati.route takes at d, and the plain version, timed side by side
-    at (B, T, d), float32, every lane positive definite. The lanes
-    wrapper's time includes its layout copies. Into `times`, when given,
-    the kernel, plain and bound times of the two fused solves; into
-    `times64` the same in float64."""
+    ops/riccati.route takes at d (float32), the plain version, and the
+    lanes wrapper's parts (its kernel alone and its layout moves by the
+    transpose kernel and by torch's strided copies, where the checkout has
+    them), timed side by side at (B, T, d), every lane positive definite,
+    in float32 and, where `times64` is given, float64. The lanes wrapper's
+    time includes its layout moves. Into `times` and `times64`, when given,
+    the kernel, plain and bound times of the two fused solves and of the
+    layout moves ("transpose")."""
     import torch
     from calipso_tpu_torch.ops.riccati import route
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
     D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
-    D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64[..., 0]))
-    if route(d) == "stream":
-        split_name, split = "factor_stream + solve_stream", lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
-    else:
-        split_name, split = "factor_lanes + solve_lanes", lambda: cr.solve_lanes(*cr.factor_lanes(D, O), b)
-    bms, by = batched_bound(B, T, d)
-    plain_ms = cuda_ms(lambda: cr.solve_batched_plain(D, O, b), 10)
-    measured = {}
-    for kname, fn, reps in (
-        ("solve_batched_fused", lambda: cr.solve_batched_fused(D, O, b), 50),
-        ("solve_batched_lanes", lambda: cr.solve_batched_lanes(D, O, b), 10),
-        (split_name, split, 50),
-    ):
-        measured[kname] = ms = cuda_ms(fn, reps)
-        print(
-            f"{tag} {kname} float32 B={B} T={T} d={d}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.2f}% of the bound"
-        )
-    print(
-        f"{tag} fused against split at B={B} T={T} d={d}: solve_batched_fused "
-        f"{measured['solve_batched_fused'] / measured[split_name]:.3f}x the time of {split_name}"
-    )
-    if times is not None:
-        for k in BATCHED_KERNELS:
-            times[k] = (measured[k], plain_ms, None, (bms, by))
-    if times64 is not None:
-        D, O, b = (a.double() for a in (D, O, b))
+    shape = f"B={B} T={T} d={d}"
+    for name, dtype, into in (("float32", torch.float32, times), ("float64", torch.float64, times64)):
+        if name == "float64" and into is None:
+            break
+        D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64[..., 0]))
+        runs = [
+            ("solve_batched_fused", lambda: cr.solve_batched_fused(D, O, b)),
+            ("solve_batched_lanes", lambda: cr.solve_batched_lanes(D, O, b)),
+        ]
+        if name == "float32":
+            if route(d) == "stream":
+                split_name, split = "factor_stream + solve_stream", lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
+            else:
+                split_name, split = "factor_lanes + solve_lanes", lambda: cr.solve_lanes(*cr.factor_lanes(D, O), b)
+            runs.append((split_name, split))
+        bms, by = batched_bound(B, T, d, name)
         plain_ms = cuda_ms(lambda: cr.solve_batched_plain(D, O, b), 10)
-        for k, reps in zip(BATCHED_KERNELS, (50, 10)):
-            times64[k] = (cuda_ms(lambda: getattr(cr, k)(D, O, b), reps), plain_ms, None, batched_bound(B, T, d, "float64"))
+        measured = {}
+        for kname, fn in runs:
+            measured[kname] = ms = cuda_ms(fn, 50)
+            print(
+                f"{tag} {kname} {name} {shape}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.2f}% of the bound"
+            )
+        lanes, fused = measured["solve_batched_lanes"], measured["solve_batched_fused"]
+        # the wrapper's parts replayed from a CUDA graph: their device times,
+        # which host-launched calls of a few launches each do not show
+        moves_plain = graph_ms(lambda: layout_moves(cr, D, O, b, plain=True), 50)
+        parts = f"layout moves by torch's strided copies {moves_plain:.4f} ms"
+        if hasattr(cr, "batch_first"):  # a checkout from before them has neither
+            moves = graph_ms(lambda: layout_moves(cr, D, O, b), 50)
+            Dl, OTl, bl = cr.batch_last(D, O, b)
+            xl = torch.empty_like(bl)
+            alone = graph_ms(lambda: cr._solve_fused("solve_batched_lanes", Dl, OTl, bl, xl, B, T, d), 50)
+            tms, tby = transpose_bound(B, T, d, name)
+            parts = (
+                f"kernel alone {alone:.4f} ms; layout moves by the transpose kernel {moves:.4f} ms "
+                f"(bound {tms * 1e3:.2f} us, {100.0 * tms / moves:.1f}% of it), " + parts
+            )
+            if into is not None:
+                into["transpose"] = (moves, moves_plain, None, (tms, tby))
+        print(
+            f"{tag} solve_batched_lanes {name} {shape}, replayed from a CUDA graph: {parts}; host-launched, "
+            f"the wrapper {lanes:.4f} ms, {lanes / fused:.3f}x the time of solve_batched_fused"
+        )
+        if name == "float32":
+            print(
+                f"{tag} fused against split at {shape}: solve_batched_fused "
+                f"{fused / measured[split_name]:.3f}x the time of {split_name}"
+            )
+        if into is not None:
+            for k in BATCHED_KERNELS:
+                into[k] = (measured[k], plain_ms, None, (bms, by))
+
+
+def check_transpose(tag, cr, dev, B, T, d, errs):
+    """The transpose kernel (solve_batched_lanes' layout moves) against its
+    plain version at (B, T, d), float32 and float64: batch_last and
+    batch_first bit for bit, one launch each."""
+    import torch
+
+    D64, O64, b64, _, _ = tridiag_inputs(B, T, d, 1)
+    shape = f"B={B} T={T} d={d}"
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64[..., 0]))
+        before = cr.LAUNCHES["transpose"]
+        got = cr.batch_last(D, O, b)
+        back = cr.batch_first(got[2])
+        torch.cuda.synchronize()
+        moved = cr.LAUNCHES["transpose"] - before
+        check(moved == 2, f"transpose {name} {shape}: {moved} launches")
+        want = cr.batch_last_plain(D, O, b)
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if w.numel())
+        errs[("transpose", name, B, T, d)] = err
+        print(f"{tag} transpose {name} {shape}: batch-last copies and the way back, max_abs_err {err:.3e} (must be 0)")
+        check(
+            all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(back, b),
+            f"transpose {name} {shape}: a copy differs from its plain version",
+        )
 
 
 def solve_batched_phase(tag, cr, rc, D, O):
     """The solve_batched entry point and its lanes variant on blocks one of
     the rocket batch's riccati factorizations received, with a seeded
-    right-hand side, counts zeroed just before: both kernels must launch
-    and nothing else, and both solutions must agree with ops/riccati's
+    right-hand side, counts zeroed just before: both kernels and the lanes
+    wrapper's transposes must launch and nothing else, and both solutions must agree with ops/riccati's
     factor + solve on the card within that route's own float32 error (both
     held to the float64 plain solution). Returns the launch counts."""
     import torch
@@ -966,8 +1048,9 @@ def solve_batched_phase(tag, cr, rc, D, O):
     torch.cuda.synchronize()
     launches = dict(cr.LAUNCHES)
     print(f"{tag} kernel launches in the solve_batched run (B={B} T={T} d={d}, rocket blocks): {launches}")
-    check(all(launches[k] > 0 for k in BATCHED_KERNELS), f"a fused solve never launched: {launches}")
-    check(all(v == 0 for k, v in launches.items() if k not in BATCHED_KERNELS), f"another kernel launched: {launches}")
+    path = BATCHED_KERNELS + ("transpose",)  # the lanes wrapper's layout moves
+    check(all(launches[k] > 0 for k in path), f"a kernel of the fused solves never launched: {launches}")
+    check(all(v == 0 for k, v in launches.items() if k not in path), f"another kernel launched: {launches}")
     xr = rc.solve(*rc.factor(D, O), b)
     x64 = cr.solve_batched_plain(D.double(), O.double(), b.double())
     ok = torch.isfinite(x64).flatten(1).all(1)
@@ -1256,15 +1339,87 @@ def build_kernels(tag):
     register_kernels_fit(tag, _build.build_log, "".join(src.read_text() for src in _build.SOURCES))
 
 
+def sass_loops(tag, stem="riccati_fused", kernel="solve_batched_reg_kernel"):
+    """--sass: compile csrc/<stem>.cu to a cubin for sm_90a (the build's
+    target and optimization), disassemble it with cuobjdump, and print for
+    each instantiation of `kernel` its static instructions and its
+    outermost loops (a branch back to an earlier address closes one): each
+    loop's instructions, cp.async copies (LDGSTS), shuffles (SHFL),
+    floating-point FMAs, shared-memory (LDS, STS) and global (LDG, STG)
+    accesses. The full listing goes beside the cubin, under build/."""
+    import re
+
+    from calipso_tpu_torch.ops import _build
+
+    src = _build.PACKAGE_DIR / "csrc" / f"{stem}.cu"
+    out = _build.BUILD_ROOT / "sass"
+    out.mkdir(parents=True, exist_ok=True)
+    cubin, listing = out / f"{stem}.cubin", out / f"{stem}.sass"
+    nvcc = _build._nvcc()
+    subprocess.run(
+        [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-cubin", "-o", str(cubin), str(src)],
+        check=True, timeout=600,
+    )
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", str(cubin)],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    listing.write_text(text)
+    classes = {"LDGSTS": ("LDGSTS",), "SHFL": ("SHFL",), "FMA": ("FFMA", "DFMA"), "LDS/STS": ("LDS", "STS"),
+               "LDG/STG": ("LDG", "STG")}
+    funcs, name = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            funcs[name] = ([], {})
+            continue
+        if name is None:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if label:
+            funcs[name][1][label.group(1)] = len(funcs[name][0])
+        elif ins:
+            funcs[name][0].append((int(ins.group(1), 16), ins.group(2).strip()))
+    for fname, (code, labels) in funcs.items():
+        if kernel not in fname:
+            continue
+        at = {addr: i for i, (addr, _) in enumerate(code)}
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0] for _, op in code]
+        loops = []
+        for i, (_, op) in enumerate(code):
+            if not ops[i].endswith("BRA"):
+                continue
+            target = re.search(r"`\((\.L_x_\d+)\)", op)
+            j = labels.get(target.group(1)) if target else at.get(int(op.split("0x")[-1].split()[0], 16)) if "0x" in op else None
+            if j is not None and j < i:  # not the self-branch that pads a function's end
+                loops.append((j, i))
+        outer = []
+        for j, i in sorted(loops, key=lambda ji: (ji[0], -ji[1])):
+            if not outer or i > outer[-1][1]:
+                outer.append((j, i))
+        desc = []
+        for j, i in outer:
+            body = ops[j:i + 1]
+            counts = ", ".join(f"{sum(op in names for op in body)} {c}" for c, names in classes.items())
+            inner = sum(1 for a, z in loops if j <= a and z <= i and (a, z) != (j, i))
+            desc.append(f"[{i - j + 1} instructions: {counts}; {inner} inner loops]")
+        print(f"{tag} sass {fname}: {len(code)} instructions; outermost loops " + " ".join(desc))
+
+
 # kernels whose rows live in registers, indexed at compile time, and
 # their instantiations: ptxas must give each no stack frame and no spill
 # (factor_lanes at widths 12, 16 and 32; solve_t1 and factor_t1 at 32;
 # the fused solve at 12, 16 and 32 with its factor on chip and in the
-# workspace; each in float32 and float64)
+# workspace, batch-first and batch-last; each in float32 and float64)
 REGISTER_KERNELS = {
     "factor_lanes_reg_kernel": 6, "solve_t1_reg_kernel": 2, "factor_t1_reg_kernel": 2,
-    "solve_batched_reg_kernel": 12,
+    "solve_batched_reg_kernel": 24,
 }
+# an older checkout's register kernel without a later template parameter,
+# and its instantiations there (the batch-first fused solve alone)
+OLDER_REGISTER_KERNELS = {"solve_batched_reg_kernel": ("kBatchLast", 12)}
 
 
 def register_kernels_fit(tag, log, sources):
@@ -1284,6 +1439,9 @@ def register_kernels_fit(tag, log, sources):
         elif "Used" in line and "registers" in line and current:
             regs[current] = line.split("Used")[1].split("registers")[0].strip()
     present = {r: n for r, n in REGISTER_KERNELS.items() if r in sources}
+    for r, (param, n) in OLDER_REGISTER_KERNELS.items():
+        if r in present and param not in sources:
+            present[r] = n
     if not log or not present:
         print(f"{tag} ptxas: no build in this process or no register kernel, none reported")
         return
@@ -1379,7 +1537,9 @@ def kernel_phases(tag, cr, dev, phase):
     for B, T, d in BATCHED_SHAPES:
         check_batched(tag, cr, dev, B, T, d, errs)
     for B, T, d in FUSED_WORKSPACE_SHAPES:
-        check_batched(tag, cr, dev, B, T, d, errs, kernels=BATCHED_KERNELS[:1])
+        check_batched(tag, cr, dev, B, T, d, errs)
+    for B, T, d in BATCHED_SHAPES:
+        check_transpose(tag, cr, dev, B, T, d, errs)
 
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
     # routes side by side at the quadruped's and the rocket's shapes and at
@@ -1400,9 +1560,10 @@ def kernel_phases(tag, cr, dev, phase):
         times[kname] = (ms, plain_ms, library[cell][call], bnd)
         print(f"{tag} {kname}: library yardstick {LIBRARY_NAMES[call]} on the dense {cell} matrices")
     for kname, (ms, plain_ms, lib_ms, (bms, by)) in times.items():
+        library = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
         print(
             f"{tag} {kname} float32 main-path shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
+            f"library {library}, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
         )
     print_times(tag, times64, "float64")
     return errs, times
@@ -1738,6 +1899,16 @@ def main():
         "float32 and float64",
     )
     ap.add_argument(
+        "--batched-times", action="store_true",
+        help="only build, then time the two fused solves (and the lanes wrapper's layout copies) at the rocket's "
+        "and the quadruped's shapes, float32 and float64, and replayed from a CUDA graph at the rocket's",
+    )
+    ap.add_argument(
+        "--sass", action="store_true",
+        help="only compile csrc/riccati_fused.cu to a cubin and print its register kernel's static instructions "
+        "and stage loops (no card needed)",
+    )
+    ap.add_argument(
         "--history", metavar="GROUPS",
         help=f"only run these earlier phases (comma-separated of {', '.join(HISTORY_GROUPS)}; or none), "
         "then a cold and a warm quadruped batch; print digests of what came out",
@@ -1757,6 +1928,10 @@ def main():
         ap.error(f"--history: unknown phases {sorted(set(groups) - set(HISTORY_GROUPS))}")
     if args.compare_ops:  # files of earlier runs: no card needed
         compare_ops(*args.compare_ops)
+        return 0
+    if args.sass:  # the compiler alone: no card needed
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sass_loops("[sass]")
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1779,6 +1954,12 @@ def main():
     build_kernels(tag)
     if args.stream_times:
         stream_times(tag, cr, dev)
+        return 0
+    if args.batched_times:
+        for B, T, d in BATCHED_SHAPES:
+            times, times64 = {}, {}
+            batched_timed_at(tag, cr, dev, B, T, d, times, times64)
+        graph_times(tag, cr, dev, routes=("fused",))
         return 0
     if args.history is not None:
         history_probe(tag, cr, rc, Options, dev, groups, phase, args.ops_out, args.linalg)
@@ -1972,6 +2153,8 @@ def main():
         "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
         "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", *rocket)),
         "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", *rocket)),
+        # the layout moves the reference leaves to XLA around _riccati_lanes_kernel
+        "transpose": ("fused", "calipso_tpu/ops/pallas_riccati.py:295", blaunches, ("transpose", "float32", *rocket)),
     }
     errs[("factor_lanes", "float32", *rocket)] = max(
         errs[("factor_lanes", "float32", *rocket)], errs[("factor_lanes M", "float32", *rocket)]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels (the T=1 Cholesky factor and solve, the
 block-tridiagonal factor and solve over T stages, one warp per lane,
 their stream versions, one block per lane with K right-hand sides per
-lane, and the two fused block-tridiagonal solves) against their plain
+lane, the two fused block-tridiagonal solves and the transpose of the
+second's layout moves) against their plain
 PyTorch versions on the card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 skip without one. The card's machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
@@ -304,31 +305,70 @@ def test_batched_solve_kernels_match_plain(cuda, name, B, T, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["solve_batched_fused", "solve_batched_lanes"])
 @pytest.mark.parametrize(
     "B,T,d,bad_stage",
     [(37, 31, 9, 0), (37, 31, 9, 30), (37, 5, 16, 0), (37, 5, 17, 4), (37, 5, 31, 2), (37, 5, 32, 4),
      (37, 1, 9, 0), (37, 1, 32, 0), (133, 31, 32, 30), (9, 200, 12, 199)],
 )
-def test_fused_register_path_edges(cuda, B, T, d, bad_stage, dtype):
-    """solve_batched_fused's register kernel (d <= 32) at the edges of its
-    width buckets (16, 17) and of the warp (31, 32), T=1, and shapes where
-    the horizon's factor leaves shared memory for the workspace (T=31 at
-    d=32, T=200 at d=12, and the rocket's T=31, d=9 in float64); lanes 2
-    and B-1 are not positive definite from their first or only at their
+def test_fused_register_path_edges(cuda, name, B, T, d, bad_stage, dtype):
+    """The fused solves' register kernel (d <= 32), batch-first and
+    batch-last, at the edges of its width buckets (16, 17) and of the warp
+    (31, 32), T=1, and shapes where the horizon's factor leaves shared
+    memory for the workspace (T=31 at d=32, T=200 at d=12, and the
+    rocket's T=31, d=9 in float64); B=37 and 133 leave ragged blocks; lanes
+    2 and B-1 are not positive definite from their first or only at their
     last stage: all of their x NaN, the other lanes untouched."""
     rng = np.random.default_rng(B + 10 * T + d + bad_stage)
     D, O, b = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
-    before = cuda_riccati.LAUNCHES["solve_batched_fused"]
-    x = cuda_riccati.solve_batched_fused(D, O, b)
+    before = cuda_riccati.LAUNCHES[name]
+    x = getattr(cuda_riccati, name)(D, O, b)
     torch.cuda.synchronize()
-    assert cuda_riccati.LAUNCHES["solve_batched_fused"] == before + 1
+    assert cuda_riccati.LAUNCHES[name] == before + 1
     xp = cuda_riccati.solve_batched_plain(D, O, b)
     lanes = torch.ones(B, dtype=torch.bool, device=cuda)
     lanes[[2, B - 1]] = False
     assert bool(torch.isnan(x[~lanes]).all()) and bool(torch.isnan(xp[~lanes]).all())
     assert bool(torch.isfinite(x[lanes]).all())
     assert _rel_err(x, xp, lanes) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("T,d", [(31, 9), (8, 54)])
+def test_batched_lanes_single_lane(cuda, T, d, dtype):
+    """solve_batched_lanes at B=1, where a lane has no neighbour in its
+    sectors (the batch-last stride is one word), on the register kernel
+    and the wide one; then the same lane not positive definite at its
+    last stage: all of its x NaN."""
+    rng = np.random.default_rng(T + d)
+    D, O, b = tridiag_batch(rng, 1, T, d)
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    x = cuda_riccati.solve_batched_lanes(D, O, b)
+    xp = cuda_riccati.solve_batched_plain(D, O, b)
+    assert bool(torch.isfinite(x).all())
+    assert _rel_err(x, xp, torch.ones(1, dtype=torch.bool, device=cuda)) <= RTOL[dtype]
+    D[0, -1] *= -1.0
+    assert bool(torch.isnan(cuda_riccati.solve_batched_lanes(D, O, b)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,T,d", [(37, 31, 9), (13, 8, 54), (1, 3, 64), (40, 1, 33), (1030, 2, 1)])
+def test_transpose_matches_plain(cuda, B, T, d, dtype):
+    """The transpose kernel of solve_batched_lanes' layout moves, bit for
+    bit against torch's permute(...).contiguous(): ragged 32 x 32 tiles
+    (B = 37, 13, 1030; T d^2 not a multiple of 32), one lane, T = 1 (an
+    empty O) and d = 1; one launch each way."""
+    rng = np.random.default_rng(B + T + d)
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d))
+    before = cuda_riccati.LAUNCHES["transpose"]
+    got = cuda_riccati.batch_last(D, O, b)
+    back = cuda_riccati.batch_first(got[2])
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["transpose"] == before + 2
+    want = cuda_riccati.batch_last_plain(D, O, b)
+    assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(back, b)
 
 
 def test_batched_solve_wrappers_refuse_what_the_kernels_do_not_take(cuda):

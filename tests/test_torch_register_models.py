@@ -4,8 +4,10 @@ panel [S_t ; O_t] with shuffled l_jk and a Gram coupling), `solve_t1` and
 `factor_t1` for n <= 32 (reciprocal pivots; the solve's forward sweep
 down the columns of L and backward sweep down its rows; the factor's
 shuffled l_jk) and the fused `solve_batched_fused` for d <= 32 (the
-panel factor with the forward sweep folded in, then the backward sweep)
--- held to the plain versions on the CPU in float64, so the widths at the
+panel factor with the forward sweep folded in, then the backward sweep),
+also on `solve_batched_lanes`' batch-last copies through a model of the
+kernel's stage gather, and the tiled transpose that makes those copies --
+held to the plain versions on the CPU in float64, so the widths at the
 kernels' edges and the lanes that are not positive definite are checked
 where no card is needed. Also the build key of the kernels' libraries,
 which covers the header they share."""
@@ -163,7 +165,22 @@ def _factor_t1_model(S):
     return L
 
 
-def _solve_batched_model(D, O, b):
+def _gather_stage_batch_last(Dl, OTl, bl, n, b):
+    """Stage n's slot of lane b as the fused register kernel fills it from
+    the batch-last arrays (csrc/riccati_fused.cu, copy_fused_stage): slot
+    element e of D_n from flat index (n d^2 + e) B + b of Dl (T, d, d, B),
+    of O'_n from the same index of OTl (T-1, d, d, B) but at the last stage
+    (nothing: zeros), of b_n from (n d + e) B + b of bl (T, d, B). Returns
+    the three flat blocks."""
+    T, d, B = bl.shape
+    e = np.arange(d * d)
+    Ds = Dl.reshape(-1)[(n * d * d + e) * B + b]
+    Os = OTl.reshape(-1)[(n * d * d + e) * B + b] if n < T - 1 else np.zeros(d * d)
+    bs = bl.reshape(-1)[(n * d + np.arange(d)) * B + b]
+    return Ds, Os, bs
+
+
+def _solve_batched_model(D, O, b, batch_last=False):
     """solve_batched_fused's arithmetic for d <= 32, lane by lane. Forward,
     a stage at a time: S_t = D_t - _gram4 of the previous o rows and r_t =
     b_t - _dot4 of those rows with u_{t-1} (row i is column i of M_{t-1}),
@@ -171,17 +188,29 @@ def _solve_batched_model(D, O, b):
     the rows below take column j of L_t. Backward from the last stage: r =
     u_t - _dot4(M_t, x_{t+1}) (M_t = o', row i the column i of the o rows),
     x_j = r_j (1 / l_jj) from the bottom, the rows above take row j of L_t.
-    A stage that fails puts NaN over all of the lane's x."""
+    A stage that fails puts NaN over all of the lane's x. With
+    `batch_last`, solve_batched_lanes: each stage's blocks come through
+    _gather_stage_batch_last from the wrapper's copies, and thread c reads
+    its o row as column c of the slot's O_t' (Os[k d + c])."""
     B, T, d = b.shape
+    if batch_last:
+        copies = [a.numpy() for a in cuda_riccati.batch_last(*(torch.tensor(a) for a in (D, O, b)))]
+
+    def stage(lane, t):
+        if batch_last:
+            Ds, Os, bs = _gather_stage_batch_last(*copies, t, lane)
+            return Ds.reshape(d, d).copy(), Os.reshape(d, d).T.copy(), bs.copy()
+        return D[lane, t].copy(), O[lane, t].copy() if t < T - 1 else np.zeros((d, d)), b[lane, t].copy()
+
     x = np.full_like(b, np.nan)
     for lane in range(B):
         kept, o, u = [], np.zeros((d, d)), None
         for t in range(T):
-            s, r = D[lane, t].copy(), b[lane, t].copy()
+            s, o_t, r = stage(lane, t)
             if t > 0:
                 s -= _gram4(o)
                 r -= _dot4(o, u)
-            o = O[lane, t].copy() if t < T - 1 else np.zeros((d, d))
+            o = o_t
             inv = _panel_pivots(s, o)
             if inv is None:
                 break
@@ -241,6 +270,87 @@ def test_solve_batched_model_matches_plain(d, T, where):
     assert np.isnan(xm[0]).all() and np.isnan(xp[0]).all()
     assert np.isfinite(xm[1:]).all()
     np.testing.assert_allclose(xm[1:], xp[1:], atol=SOLVE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("T", [1, 2, 8])
+@pytest.mark.parametrize("d", [1, 9, 32, 54])
+def test_batch_last_gather_matches_batch_first(d, T):
+    """The batch-last stage gather, on solve_batched_lanes' copies of seeded
+    (B, T, d, d) inputs at B = 7 (not a multiple of the 4 lanes a block):
+    every lane's slot at every stage holds D_n, O_n' and b_n of that lane,
+    bit for bit, at d = 1, the rocket's 9, the warp's 32 and the
+    quadruped's 54."""
+    rng = np.random.default_rng(3000 + 10 * d + T)
+    B = 7
+    D, O, b = _tridiag_batch(rng, B, T, d)
+    copies = [a.numpy() for a in cuda_riccati.batch_last(*(torch.tensor(a) for a in (D, O, b)))]
+    assert [c.shape for c in copies] == [(T, d, d, B), (T - 1, d, d, B), (T, d, B)]
+    for lane in range(B):
+        for n in range(T):
+            Ds, Os, bs = _gather_stage_batch_last(*copies, n, lane)
+            assert np.array_equal(Ds.reshape(d, d), D[lane, n])
+            assert np.array_equal(Os.reshape(d, d), O[lane, n].T if n < T - 1 else np.zeros((d, d)))
+            assert np.array_equal(bs, b[lane, n])
+
+
+@pytest.mark.parametrize("T", [1, 31])
+@pytest.mark.parametrize("d", [1, 9, 32])
+def test_solve_batched_lanes_model_matches_plain(d, T):
+    """The fused register solve driven through the batch-last gather and
+    the transposed o read gives the batch-first model's x bit for bit and
+    holds to the plain version, at d = 1, the rocket's 9 and the warp's 32,
+    T = 1 and the rocket's 31, B = 5; lane 3 is not positive definite at
+    its middle stage: all of its x NaN on both, the others finite."""
+    rng = np.random.default_rng(4000 + 10 * d + T)
+    D, O, b = _tridiag_batch(rng, 5, T, d)
+    D[3, T // 2] = -np.eye(d)
+    xp = cuda_riccati.solve_batched_plain(torch.tensor(D), torch.tensor(O), torch.tensor(b)).numpy()
+    xm = _solve_batched_model(D, O, b, batch_last=True)
+    assert np.array_equal(xm, _solve_batched_model(D, O, b), equal_nan=True)
+    assert np.isnan(xm[3]).all() and np.isnan(xp[3]).all()
+    keep = [0, 1, 2, 4]
+    assert np.isfinite(xm[keep]).all()
+    np.testing.assert_allclose(xm[keep], xp[keep], atol=SOLVE_ATOL, rtol=0)
+
+
+def _transpose_model(X, R, C, d=0):
+    """The transpose kernel (csrc/riccati_fused.cu) tile by tile: each 32 x
+    32 tile of X read as (R, C), input column c of a tile written to
+    output row c or, where d > 0, to t d^2 + i d + j for c = t d^2 + j d +
+    i; returns the flat (C, R) result."""
+    X = X.reshape(R, C)
+    out = np.full(R * C, np.nan)
+    for r0 in range(0, R, 32):
+        for c0 in range(0, C, 32):
+            tile = X[r0:r0 + 32, c0:c0 + 32]
+            for k in range(tile.shape[1]):
+                c = c0 + k
+                if d > 0:
+                    t, e = divmod(c, d * d)
+                    j, i = divmod(e, d)
+                    c = t * d * d + i * d + j
+                out[c * R + r0:c * R + r0 + tile.shape[0]] = tile[:, k]
+    return out
+
+
+@pytest.mark.parametrize("B,T,d", [(7, 3, 9), (33, 2, 54), (40, 1, 5), (1, 4, 32)])
+def test_transpose_model_matches_batch_last_plain(B, T, d):
+    """The transpose kernel's tiling and its in-block index map give the
+    batch-last copies of batch_last_plain and, read back, batch_first_plain,
+    bit for bit: ragged tiles (B = 7, 33; T d^2 not a multiple of 32), T
+    = 1 (an empty O) and one lane."""
+    rng = np.random.default_rng(5000 + B + T + d)
+    D, O, b = _tridiag_batch(rng, B, T, d)
+    want = [a.numpy() for a in cuda_riccati.batch_last_plain(*(torch.tensor(a) for a in (D, O, b)))]
+    got = [
+        _transpose_model(D, B, T * d * d).reshape(T, d, d, B),
+        _transpose_model(O, B, (T - 1) * d * d, d).reshape(T - 1, d, d, B),
+        _transpose_model(b, B, T * d).reshape(T, d, B),
+    ]
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    back = _transpose_model(got[2], T * d, B).reshape(B, T, d)
+    assert np.array_equal(back, cuda_riccati.batch_first_plain(torch.tensor(want[2])).numpy())
+    assert np.array_equal(back, b)
 
 
 def test_build_key_covers_the_shared_header(tmp_path):
