@@ -19,13 +19,15 @@ is written in closed form, a foot velocity is J(q) v, and the momentum
 dL/dv is M(q) v: only dL/dq is taken by autodiff. The foot axis stays
 vectorised, as in the reference: the oracles are bound by the number of
 operations, and on the card every operation is a kernel launch. Numeric
-constants are made once per (device, dtype) (`_Const`): a copy from host
+constants are made once per (device, dtype) (`Const`): a copy from host
 memory to the card waits for the card's queue.
 """
 
 import numpy as np
 import torch
 from torch.func import grad
+
+from calipso_tpu_torch.models.constants import Const
 
 MASS_BODY, INERTIA_BODY = 1.0, 0.1
 MASS_FOOT = 0.05
@@ -41,25 +43,6 @@ NU_CTRL = 8
 NU = NU_CTRL + 4 + 8 + 8  # 28
 
 
-class _Const:
-    """A numpy constant as a tensor on the device and in the dtype of the
-    tensor it meets, made once per (device, dtype)."""
-
-    def __init__(self, value):
-        self.value = np.asarray(value, dtype=float)
-        self._made = {}
-
-    def like(self, x):
-        key = (x.device, x.dtype)
-        if key not in self._made:
-            # made outside the torch.func transforms the call may sit in: a
-            # tensor made inside one is wrapped at its level and must not
-            # outlive it
-            with torch._C._DisableFuncTorch():
-                self._made[key] = torch.as_tensor(self.value, dtype=x.dtype, device=x.device)
-        return self._made[key]
-
-
 def _onehot(cols, rows=4):
     """(rows, 1, NQ) with a one at column cols[f] of row f."""
     out = np.zeros((rows, 1, NQ))
@@ -67,13 +50,13 @@ def _onehot(cols, rows=4):
     return out
 
 
-_HIPS = _Const(HIPS)
+_HIPS = Const(HIPS)
 # J = J_BASE + dtheta x E_PITCH + dalpha x E_ALPHA + dr x E_LEG (see foot_jacobians)
-_J_BASE = _Const(np.tile(np.eye(2, NQ)[None], (4, 1, 1)))
-_E_PITCH = _Const(_onehot([2, 2, 2, 2]))
-_E_ALPHA = _Const(_onehot(3 + 2 * np.arange(4)))
-_E_LEG = _Const(_onehot(4 + 2 * np.arange(4)))
-_M_BODY = _Const(np.diag([MASS_BODY, MASS_BODY, INERTIA_BODY] + [0.0] * 8))
+_J_BASE = Const(np.tile(np.eye(2, NQ)[None], (4, 1, 1)))
+_E_PITCH = Const(_onehot([2, 2, 2, 2]))
+_E_ALPHA = Const(_onehot(3 + 2 * np.arange(4)))
+_E_LEG = Const(_onehot(4 + 2 * np.arange(4)))
+_M_BODY = Const(np.diag([MASS_BODY, MASS_BODY, INERTIA_BODY] + [0.0] * 8))
 
 
 def _legs(q):
@@ -215,7 +198,7 @@ def _bounds_rows(x, u):
 
 
 def _objectives(horizon, x_ref):
-    ref = _Const(x_ref)
+    ref = Const(x_ref)
 
     def obj_t(x, u):
         dx = x[: 2 * NQ] - ref.like(x)
@@ -240,7 +223,7 @@ def drop_problem(horizon=8, drop_height=0.1):
     x1 = np.concatenate([q0, q0])
     q_ref = _nominal_q()
     x_ref = np.concatenate([q_ref, q_ref])
-    x1_c = _Const(x1)
+    x1_c = Const(x1)
 
     def eq_1(x, u):
         return torch.cat([friction_equality(x, u), x[: 2 * NQ] - x1_c.like(x)])
@@ -321,7 +304,7 @@ def gait_problem(horizon=11, travel=0.2):
     q0 = _nominal_q()
     q_ref = _nominal_q(x=travel)
     prob["objective"] = _objectives(horizon, np.concatenate([q_ref, q_ref]))
-    q0_c, q0_tail = _Const(q0), _Const(q0[1:NQ])
+    q0_c, q0_tail = Const(q0), Const(q0[1:NQ])
 
     def eq_1(x, u):
         # pin config 1 only; config 2 is set by the border and the dynamics
@@ -363,9 +346,9 @@ def gait_problem_v2(horizon=11, travel=0.2, t_fix=4):
     q_ref = _nominal_q(x=travel)
     prob["objective"] = _objectives(horizon, np.concatenate([q_ref, q_ref]))
     q0_t = torch.as_tensor(q0)
-    pins = _Const(np.stack([foot_position(q0_t, i).numpy() for i in (1, 3)]))
-    q0_c = _Const(q0)
-    pq0_tail = _Const(mirror_config(q0_t).numpy()[1:NQ])
+    pins = Const(np.stack([foot_position(q0_t, i).numpy() for i in (1, 3)]))
+    q0_c = Const(q0)
+    pq0_tail = Const(mirror_config(q0_t).numpy()[1:NQ])
 
     def pinned_feet(q):
         return (foot_positions(q)[1::2] - pins.like(q)).reshape(4)

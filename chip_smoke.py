@@ -87,13 +87,42 @@ Phases (each fails loudly; none catches its own failure):
      have launched and the lanes and T=1 kernels not, at least 120 lanes
      solved and no foot of a solved lane below -1e-3; print the iteration
      counts beside the JAX reference's; re-solve the first 4 lanes on the
-     CPU in float64; time a cold and 2 warm batches and profile the first
+     CPU in float64; time a cold and a warm batch and profile the first
      5 lockstep iterations of a warm one;
   7. solve the quadruped gait (horizon 11, travel 0.2) in float64 with
      default Options on the card -- its equality_general rows ride the
      riccati border, through solve_multi on the stream solve kernels --
      and hold it to tests/golden/quadruped_gait.npz (solved, states within
-     1e-2, iterations within +-15%).
+     1e-2, iterations within +-15%);
+  11. the contact models, each step with the launch counts set to 0 just
+     before it and read just after, each required to launch its route's
+     kernels and no other: (a) the bench's hopper gait (bench.py:648-688:
+     T=21, n=528, stage blocks d=26 on the lanes route, 4 equality_general
+     rows on the border through solve_multi, K=4, on the stream sweeps;
+     every tolerance 1e-4, central_path_initial=0.1,
+     max_iterative_refinement=2), a cold and a warm float32 solve, solved,
+     iterations beside the reference's, and a CPU float64 re-solve held to
+     the branch rule (states within 1e-2, or the card's solution meets the
+     contract in float64); (c) the hopper gait in float64 with default
+     Options against tests/golden/hopper_gait.npz (states within 1e-2 and
+     iterations within +-15%, or, on another local solution, the contract
+     in float64 and the reference test's travel and friction); (d)
+     ball-in-cup (d=12, lanes), the box move (d=33, stream) and the bunny
+     hop (a flat NLP, n=110, on the T=1 kernels) in float64 with their
+     reference tests' options, guesses and assertions; (b) a B=1024 hopper
+     batch in float32, guesses perturbed by 0.01 N(0, 1), at least B-32
+     solved, a CPU float64 re-solve of 4 lanes under the branch rule, a
+     timed warm batch with per-layer host timers and a profile of its
+     first 5 lockstep iterations. Phases 2 and 5 hold and time the lanes
+     kernels at (1024, 21, 26), the stream kernels at (1024, 21, 26) with
+     K=4 and at (1024, 11, 33) with K=1, and the T=1 kernels at (1024, 110).
+
+The solves are bound by the host's dispatch and leave the card idle most
+of the time, so two things run beside the card's main thread: the CPU
+float64 re-solves of the quadruped (phase 6) and the hopper (11a, 11b) in
+a background process from the start, and phases 7, 11c and 11d (float64
+single solves) in a second process on the card beside the hopper batch's
+cold batch; the warm batches and profiles have the card to themselves.
 
 Prints each number with the card's name and power limit, then a JSON line
 of the kernels, the `nvidia-smi` name/power line, and last
@@ -114,6 +143,9 @@ Partial runs print no such result:
         # (1024, 31, 9) and (128, 8, 54), float32 and float64, and at the
         # first replayed from a CUDA graph: the parent/change A/B of the
         # fused solves, copied into a `git archive` of the parent
+    python3 chip_smoke.py --contact              # phase 1, the kernels
+        # checked and timed at the contact models' shapes, then phase 11
+        # (and phase 7, which runs beside the hopper batch)
     python3 chip_smoke.py --sass                 # no card needed: compile
         # csrc/riccati_fused.cu to a cubin for sm_90a, disassemble it, and
         # print each solve_batched_reg_kernel instantiation's static
@@ -189,7 +221,10 @@ CPU_ATOL_QUAD = 1e-2
 BRANCH_TOL = 1e-3
 FOOT_DEPTH_LIMIT = 1e-3
 JAX_QUAD_ITERATIONS = (52, 3876)  # BENCH_r05.json: lockstep, total (TPU run)
-WARM_REPS_QUAD = 2
+QUAD_STREAM_KERNELS = ("factor_stream", "solve_fwd_stream", "solve_bwd_stream")
+# one warm quadruped batch (it must repeat the cold batch's bits): the
+# contact phases (11) take half of the script's time limit
+WARM_REPS_QUAD = 1
 # a whole warm quadruped batch launches ~2M device kernels, whose trace the
 # profiler takes minutes to digest; the profile covers the first
 # lockstep iterations of a warm batch
@@ -237,6 +272,40 @@ CPU_ATOL_DENSE = 1e-6
 # the fallback's escalation made to fire: the schur factor of every 4th
 # lane scaled by 1e4 (broken_factor)
 BROKEN_EVERY, BROKEN_SCALE = 4, 1.0e4
+
+# phase 11: the contact models. The hopper gait (bench.py:648-688; T=21,
+# n=528, stage blocks d=26 on the lanes route, its 4-row border through
+# solve_multi on the stream sweeps) once, as a B=1024 batch (one warp a
+# lane on the lanes route: 128 lanes would leave most SMs idle) and on its
+# float64 golden; ball-in-cup (d=12), the box move (d=33, the stream
+# route) and the bunny hop (a flat NLP, n=110, on the T=1 kernels) in
+# float64 as their reference tests run them
+HORIZON_HOPPER = 21
+# torch threads of the background process that runs the CPU float64
+# re-solves: it leaves the other cores to the host threads driving the card
+CPU_REF_THREADS = 3
+B_HOPPER = 1024
+MIN_SOLVED_HOPPER = B_HOPPER - 32
+CPU_LANES_HOPPER = 4
+JAX_HOPPER_ITERATIONS = 53  # README.md:390: the bench's single solve (a TPU run)
+PROFILE_ITERS_HOPPER = 5
+GOLDEN_HOPPER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "hopper_gait.npz")
+GOLDEN_BAND = 0.15  # tests/test_golden.py:_iteration_band
+# the kernels each contact path must launch; every other kernel must not
+HOPPER_KERNELS = ("factor_lanes", "solve_lanes", "solve_fwd_stream", "solve_bwd_stream")
+CONTACT_KERNELS = {
+    "hopper gait": HOPPER_KERNELS,
+    "ball-in-cup": ("factor_lanes", "solve_lanes"),
+    "box move": ("factor_stream", "solve_fwd_stream", "solve_bwd_stream"),
+    "bunny hop": ("factor_t1", "solve_t1"),
+}
+# the kernels at the contact paths' shapes (phases 2 and 5): the lanes
+# pair at the hopper's (B, T, d), the stream sweeps at its border's K=4
+# and the stream kernels at the box's, the T=1 pair at the bunny hop's n
+B_CONTACT = 1024
+CONTACT_LANES_SHAPES = ((B_CONTACT, HORIZON_HOPPER, 26),)
+CONTACT_STREAM_SHAPES = ((B_CONTACT, HORIZON_HOPPER, 26, 4), (B_CONTACT, 11, 33, 1))
+CONTACT_T1_SHAPES = ((B_CONTACT, 110),)
 
 
 def check(cond, msg):
@@ -741,14 +810,11 @@ def stream_times(tag, cr, dev):
 GRAPH_ROUTES = ("T=1", "lanes", "stream", "fused")
 
 
-def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
-    """The T=1 and the lanes kernels at the shapes stream_times checks,
-    the stream kernels at the quadruped's (K=1) and the two fused solves
-    at the rocket's (of these, the `routes`), timed as one CUDA graph of 50 calls
-    (graph_ms) beside the same 50 calls from the host (cuda_ms), float32
-    and float64: where the two differ, the host sets cuda_ms."""
-    import torch
-
+def graph_cases(routes=GRAPH_ROUTES):
+    """graph_times' default cases: the T=1 and the lanes kernels at the
+    shapes stream_times checks, the stream kernels at the quadruped's
+    (K=1) and the two fused solves at the rocket's (of these, the
+    `routes`), as (route, shape, input arrays)."""
     n = 32
     S64, b64 = t1_inputs(n)
     cases = [("T=1", f"B={B_FLAG} n={n}", (S64, b64))]
@@ -759,7 +825,19 @@ def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
     D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite, as batched_timed_at times it
     cases.append(("fused", f"B={B} T={T} d={d}", (D64, O64, b64)))
-    cases = [case for case in cases if case[0] in routes]
+    return [case for case in cases if case[0] in routes]
+
+
+def graph_times(tag, cr, dev, routes=GRAPH_ROUTES, cases=None):
+    """The kernels of `cases` (graph_cases(routes) unless given), timed as
+    one CUDA graph of 50 calls (graph_ms) beside the same 50 calls from
+    the host (cuda_ms), float32 and float64: where the two differ, the
+    host sets cuda_ms. Returns {(kernel, dtype name, shape): (graph ms,
+    host-launched ms)}."""
+    import torch
+
+    cases = graph_cases(routes) if cases is None else cases
+    out = {}
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         for route, shape, arrays in cases:
             if route == "T=1":
@@ -784,10 +862,9 @@ def graph_times(tag, cr, dev, routes=GRAPH_ROUTES):
                         "solve_bwd_stream": lambda: cr.solve_bwd_stream(L, M, u),
                     }
             for kname, fn in fns.items():
-                print(
-                    f"{tag} {kname} {name} {shape}: graph {graph_ms(fn, 50):.4f} ms a call, "
-                    f"host-launched {cuda_ms(fn, 50):.4f} ms a call"
-                )
+                gms, hms = out[(kname, name, shape)] = graph_ms(fn, 50), cuda_ms(fn, 50)
+                print(f"{tag} {kname} {name} {shape}: graph {gms:.4f} ms a call, host-launched {hms:.4f} ms a call")
+    return out
 
 
 def routes_timed_at(tag, cr, dev, B, T, d):
@@ -838,21 +915,21 @@ def dense_factor(L, M):
     return F
 
 
-def library_times(cr, dev, B, T, d):
+def library_times(cr, dev, B, T, d, K=1):
     """The library yardsticks of the block-tridiagonal kernels at (B, T, d),
-    float32, every lane positive definite, one right-hand side: one
+    float32, every lane positive definite, K right-hand sides: one
     PyTorch call on the assembled dense (B, Td, Td) matrices (O((Td)^3)
     work where the kernels do O(T d^3)), milliseconds by CUDA events. The
     port never calls them."""
     import torch
 
-    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, 1)
+    D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, K)
     D64[bad_lanes, bad_stage] *= -1.0  # back to positive definite
     D, O, b = (torch.tensor(a, dtype=torch.float32, device=dev) for a in (D64, O64, b64))
     S = dense_tridiag(D, O)
     F = dense_factor(*cr.factor_stream_plain(D, O))
     FT = F.mT.contiguous()
-    bv = b.reshape(B, T * d, 1)
+    bv = b.reshape(B, T * d, K)
     return {
         "factor": cuda_ms(lambda: torch.linalg.cholesky_ex(S), 10),
         "both sweeps": cuda_ms(lambda: torch.cholesky_solve(bv, F), 10),
@@ -1322,6 +1399,597 @@ def foot_depth(ts, x):
     return torch.func.vmap(torch.func.vmap(quadruped.signed_distance))(qs).flatten(1).amin(dim=1)
 
 
+def hopper_solver(options, device):
+    """The hopper gait (bench.py:648-688, T=21) as a TrajOptSolver."""
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import hopper
+
+    prob = hopper.gait_problem(horizon=HORIZON_HOPPER)
+    kw = {k: v for k, v in prob.items() if k not in ("state_guess", "state_initial", "action_guess")}
+    ts = TrajOptSolver(options=options, device=device, **kw)
+    ts.initialize_states(prob["state_guess"])
+    ts.initialize_actions(prob["action_guess"])
+    return ts
+
+
+def check_route(tag, name, launches):
+    """The kernels CONTACT_KERNELS names for the path `name` launched, and
+    no other kernel did."""
+    want = CONTACT_KERNELS[name]
+    print(f"{tag} kernel launches in the {name} run: {launches}")
+    check(all(launches[k] > 0 for k in want), f"{name}: a kernel of its route never launched: {launches}")
+    off = {k: v for k, v in launches.items() if k not in want and v}
+    check(not off, f"{name}: kernels off its route launched: {off}")
+
+
+def hopper_gait_checks(ts, x):
+    """Per lane of x (B, n): the travel x_T[0] - x_1[0] and the least
+    friction-cone margin beta_1 - |beta_2| of both contacts over every
+    action (what tests/test_contact.py:test_hopper_gait asserts)."""
+    import torch
+
+    travel = x[:, ts._state_indices[-1][0]] - x[:, ts._state_indices[0][0]]
+    U = torch.stack([x[:, idx] for idx in ts._action_indices], dim=1)
+    margin = torch.minimum(U[..., 6] - U[..., 7].abs(), U[..., 8] - U[..., 9].abs()).amin(dim=1)
+    return travel, margin
+
+
+def contract_met(st, opts):
+    """tests/test_solver_nlp.py:assert_contract on one solve's state."""
+    return (
+        bool(st.solved)
+        and float(st.residual_violation) < opts.residual_tolerance
+        and float(st.slack_violation) < opts.slack_tolerance
+        and float(st.equality_violation) <= opts.equality_tolerance
+        and float(st.cone_product_violation) <= opts.complementarity_tolerance
+    )
+
+
+def hopper_resolve(tag, name, cpu_ts, x, solved, iters, ref):
+    """The branch rule for the hopper's lanes: a lane solved on the card
+    either lands within CPU_ATOL_QUAD of its CPU float64 re-solve (`ref`,
+    hopper_cpu_reference's arrays over the same lanes), or, on another
+    local solution or where the re-solve did not solve, its solution
+    evaluated in float64 meets the equality rows and the cones to
+    BRANCH_TOL. The hopper's solution depends on the last bits of its
+    guess (a float64 reference solve from the guess scaled by 1 + 1e-15
+    ends 2.0 away from its golden, PERF.md), so the flags need not
+    agree."""
+    lanes = x.shape[0]
+    states = np.concatenate(cpu_ts._state_indices)
+    xd = x.double().cpu()
+    eq_viol, cone_margin = contract_in_float64(cpu_ts, xd, np.zeros((lanes, 0)))
+    travel, friction = hopper_gait_checks(cpu_ts, xd)
+    ref_x, ref_solved, ref_iters = ref
+    for lane in range(lanes):
+        gap = float(np.abs(xd[lane, states].numpy() - ref_x[lane, states]).max())
+        same = bool(ref_solved[lane]) and gap <= CPU_ATOL_QUAD
+        print(
+            f"{tag} {name} lane {lane}: card solved {bool(solved[lane])} in {int(iters[lane])} iterations, "
+            f"CPU float64 re-solve solved {bool(ref_solved[lane])} in {int(ref_iters[lane])}, "
+            f"max state gap {gap:.3e} (limit {CPU_ATOL_QUAD:g}); the card's solution in float64: max |g| "
+            f"{eq_viol[lane]:.3e}, least cone margin {cone_margin[lane]:.3e} (limits {BRANCH_TOL:g}), travel "
+            f"{float(travel[lane]):.6f}, least friction margin {float(friction[lane]):.3e}"
+            + ("" if same or not solved[lane] else "; another local solution")
+        )
+        check(
+            not solved[lane] or same or (eq_viol[lane] <= BRANCH_TOL and cone_margin[lane] >= -BRANCH_TOL),
+            f"{name} lane {lane}: {gap:.3e} from the CPU re-solve and off the contract in float64",
+        )
+
+
+def hopper_guesses(g0):
+    """The hopper batch's B_HOPPER guesses: the bench guess g0 (float32)
+    plus 0.01 N(0, 1) (default_rng(0)), as the rocket batch's
+    (bench.py:530-596)."""
+    return g0[None] + 0.01 * np.random.default_rng(0).normal(size=(B_HOPPER, g0.size)).astype(np.float32)
+
+
+def hopper_cpu_reference(which):
+    """A CPU float64 re-solve of phase 11, run in the background process
+    (cpu_references): the bench's single solve from its guess ("single",
+    11a) or the batch's first CPU_LANES_HOPPER lanes ("batch", 11b), as
+    (x, solved, iterations) numpy arrays."""
+    import torch
+
+    from calipso_tpu_torch import Options
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    ts = hopper_solver(hopper_tol_options(Options), "cpu")
+    g0 = np.asarray(ts._guess, np.float32)
+    guess = g0[None] if which == "single" else hopper_guesses(g0)[:CPU_LANES_HOPPER]
+    st = ts.batched().solve(guess=torch.tensor(guess, dtype=torch.float64)).state
+    return st.p.x.numpy(), st.solved.numpy(), st.total_i.numpy()
+
+
+def quadruped_cpu_reference():
+    """Phase 6's CPU float64 re-solve of the quadruped batch's first
+    CPU_LANES_QUAD lanes, run in the background process, as (x, solved,
+    iterations) numpy arrays."""
+    import torch
+
+    from calipso_tpu_torch import Options
+
+    torch.set_num_threads(CPU_REF_THREADS)
+    x0 = quadruped_scenarios(B_QUAD).astype(np.float32)[:CPU_LANES_QUAD]
+    ts = quadruped_solver(tol_options(Options, max_iterative_refinement=2), "cpu", np.float64)
+    st = ts.batched().solve(parameters=torch.tensor(x0, dtype=torch.float64)).state
+    return st.p.x.numpy(), st.solved.numpy(), st.total_i.numpy()
+
+
+def cpu_references(pool, quadruped=True):
+    """Start the CPU float64 re-solves in `pool` (one process beside the
+    card's work, so that the card never waits on the CPU); returns their
+    futures by name."""
+    refs = {"quadruped": pool.submit(quadruped_cpu_reference)} if quadruped else {}
+    refs["hopper single"] = pool.submit(hopper_cpu_reference, "single")
+    refs["hopper batch"] = pool.submit(hopper_cpu_reference, "batch")
+    return refs
+
+
+def spawn_pool():
+    """A pool of one spawned process (the parent holds a CUDA context)."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def hopper_tol_options(Options):
+    """bench.py:664-668: every tolerance 1e-4, a shorter first central-path
+    leg and two refinement trips."""
+    return tol_options(Options, central_path_initial=0.1, max_iterative_refinement=2)
+
+
+def hopper_single_phase(tag, cr, Options, dev, refs):
+    """Phase 11a: the bench's hopper gait, a cold and a warm float32 solve
+    on the card (the warm one from the guess plus 1e-5, as the bench
+    runs it), and the cold one against its CPU float64 re-solve (the
+    future `refs`, hopper_cpu_reference("single")). Returns the cold
+    solve's launches."""
+    import torch
+
+    opts = hopper_tol_options(Options)
+    ts = hopper_solver(opts, "cuda")
+    st = ts.solver.fns.stage_structure
+    check(
+        ts.solver.options.linear_solver == "riccati" and st.dmax == 26 and st.num_general == 4,
+        f"hopper gait: {ts.solver.options.linear_solver}, d={st.dmax}, {st.num_general} border rows",
+    )
+    dims = ts.dims
+    print(
+        f"{tag} hopper gait: n={dims.variables}, {dims.equality} equality rows ({st.num_general} on the border), "
+        f"{dims.cone} cone rows, stage blocks d={st.dmax}, linear_solver auto -> {ts.solver.options.linear_solver}"
+    )
+    g0 = np.asarray(ts._guess, np.float32)
+    runs = {}
+    for label, x0_np in (("cold", g0), ("warm", g0 + np.float32(1e-5))):
+        x0 = torch.tensor(x0_np, device=dev)
+        zero_launches(cr)
+        t0 = time.time()
+        r = ts.solver.solve(x0=x0)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cr.LAUNCHES)
+        runs[label] = r, launches
+        rs = r.state
+        print(
+            f"{tag} hopper gait {label} solve (float32, card): solved {bool(r.solved)}, iterations "
+            f"{int(r.iterations)} (the reference's, README.md:390, a TPU run: {JAX_HOPPER_ITERATIONS}), "
+            f"{wall:.3f} s (host clock); ladder {int(rs.num_ladder)}, refine {int(rs.num_refine)}, "
+            f"line-search chunks {int(rs.num_ls_chunks)}, host syncs {ts.solver._run.stats['host_syncs']}"
+        )
+        check_route(tag, "hopper gait", launches)
+        check(tuple(r.variables.shape) == (dims.variables,) and r.variables.dtype == torch.float32, "hopper gait solution")
+        check(bool(torch.isfinite(r.variables).all()), f"hopper gait {label}: non-finite solution")
+        check(bool(r.solved), f"the hopper gait's {label} solve did not solve on the card")
+    r = runs["cold"][0]
+    hopper_resolve(
+        tag, "hopper gait", hopper_solver(opts, "cpu"), r.variables[None], [bool(r.solved)], [int(r.iterations)],
+        refs.result(),
+    )
+    return runs["cold"][1]
+
+
+def hopper_batch_phase(tag, cr, Options, dev, phase, refs, join):
+    """Phase 11b: a B=1024 batch of the hopper gait in float32, each lane's
+    guess the bench guess plus 0.01 N(0, 1) (hopper_guesses): at least
+    MIN_SOLVED_HOPPER lanes solved, the first lanes against their CPU
+    float64 re-solves (the future `refs`), then, once `join()` has waited
+    for whatever else ran on the card beside the cold batch, a timed
+    warm batch with per-layer host timers and a profile of the first
+    lockstep iterations. Returns the cold batch's launches."""
+    import torch
+    from calipso_tpu_torch.solver import kkt
+
+    opts = hopper_tol_options(Options)
+    ts = hopper_solver(opts, "cuda")
+    g0 = np.asarray(ts._guess, np.float32)
+    guess = torch.tensor(hopper_guesses(g0), device=dev)
+    bts = ts.batched()
+    zero_launches(cr)
+    t0 = time.time()
+    res = bts.solve(guess=guess)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    launches = dict(cr.LAUNCHES)
+    st = res.state
+    print(
+        f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c and 11d ran on the card "
+        f"beside it, in a second process): {cold_s:.3f} s; host syncs "
+        f"{bts.stats['host_syncs']}; digest of its solution {x_digest(st)}"
+    )
+    check_route(tag, "hopper gait", launches)
+    x = st.p.x
+    check(tuple(x.shape) == (B_HOPPER, ts.dims.variables) and x.dtype == torch.float32, f"hopper batch {tuple(x.shape)}")
+    check(bool(torch.isfinite(x[st.solved]).all()), "non-finite solution in a solved hopper lane")
+    solved, iters = report_solve(f"{tag} hopper batch", B_HOPPER, st)
+    travel, friction = hopper_gait_checks(ts, x)
+    print(
+        f"{tag} hopper batch over solved lanes: least travel {float(travel[st.solved].min()):.6f} (asked 0.5), "
+        f"least friction margin {float(friction[st.solved].min()):.3e}; iterations beside the reference's single "
+        f"solve (README.md:390, a TPU run): lockstep {int(iters.max())}, median {int(np.median(iters))} vs "
+        f"{JAX_HOPPER_ITERATIONS}"
+    )
+    check(int(solved.sum()) >= MIN_SOLVED_HOPPER, f"only {int(solved.sum())} of {B_HOPPER} hopper lanes solved")
+    phase("11b: hopper batch against its CPU float64 re-solve")
+    hopper_resolve(tag, "hopper batch", hopper_solver(opts, "cpu"), x[:CPU_LANES_HOPPER], solved, iters, refs.result())
+    join()
+    phase("11b: hopper batch warm batch and profile (the card to itself)")
+    layers = [(bts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
+    with layer_timers(layers) as spent:
+        wall = warm_batches(tag, "hopper", B_HOPPER, bts, lambda: bts.solve(guess=guess), st, reps=1)
+    for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
+        print(
+            f"{tag}   hopper warm batch, host time in {attr}: {sec:.3f} s ({100.0 * sec / wall:.1f}% of the wall) "
+            f"over {calls} calls"
+        )
+    popts = hopper_tol_options(Options).replace(max_outer_iterations=1, max_residual_iterations=PROFILE_ITERS_HOPPER)
+    pbts = hopper_solver(popts, "cuda").batched()
+    pbts.solve(guess=guess)  # its one-time set-up
+    profile(
+        tag, f"hopper (first {PROFILE_ITERS_HOPPER} lockstep iterations of a batch)",
+        lambda: pbts.solve(guess=guess), host_ops=False,
+    )
+    return launches
+
+
+def hopper_golden_phase(tag, cr, rc, Options, dev):
+    """Phase 11c: the hopper gait in float64 with default Options on the
+    card against tests/golden/hopper_gait.npz, as
+    tests/test_golden.py:test_golden_hopper_gait holds it (states within
+    1e-2, iterations within +-15%); a solution on another local solution
+    passes the branch rule instead: solved, the contract in float64, and
+    tests/test_contact.py:test_hopper_gait's travel and friction. Returns
+    its launches."""
+    import torch
+
+    gold = np.load(GOLDEN_HOPPER)
+    gts = hopper_solver(Options(), "cuda")
+    multi = {"calls": 0}
+    solve_multi = rc.solve_multi
+
+    def counted_solve_multi(*a):
+        multi["calls"] += 1
+        return solve_multi(*a)
+
+    rc.solve_multi = counted_solve_multi
+    zero_launches(cr)
+    t0 = time.time()
+    try:
+        gres = gts.solve()
+        torch.cuda.synchronize()
+    finally:
+        rc.solve_multi = solve_multi
+    wall = time.time() - t0
+    launches = dict(cr.LAUNCHES)
+    check(gres.variables.dtype == torch.float64, f"hopper golden solved in {gres.variables.dtype}")
+    gz = gres.variables.cpu()
+    states = np.concatenate(gts._state_indices)
+    gap = float((gz[states] - torch.tensor(gold["variables"])[states]).abs().max())
+    iters, ref = int(gres.iterations), int(gold["iterations"])
+    lo, hi = (1 - GOLDEN_BAND) * ref, (1 + GOLDEN_BAND) * ref
+    cpu_ts = hopper_solver(Options(), "cpu")
+    (eq_viol,), (cone_margin,) = contract_in_float64(cpu_ts, gz[None], np.zeros((1, 0)))
+    travel, friction = (float(v[0]) for v in hopper_gait_checks(cpu_ts, gz[None]))
+    on_golden = gap <= 1e-2
+    print(
+        f"{tag} hopper gait (float64, card): solved {bool(gres.solved)}, iterations {iters} (golden {ref}, band "
+        f"{lo:.1f}-{hi:.1f}), max state gap to the golden {gap:.3e} (limit 1e-2), {wall:.2f} s; solve_multi calls "
+        f"{multi['calls']}; in float64: max |g| {eq_viol:.3e}, least cone margin {cone_margin:.3e}, travel "
+        f"{travel:.6f}, least friction margin {friction:.3e}"
+        + ("" if on_golden else "; another local solution than the golden's")
+    )
+    check_route(tag, "hopper gait", launches)
+    check(multi["calls"] > 0, "the hopper gait's border never ran through solve_multi")
+    check(contract_met(gres.state, Options()), "the hopper gait (float64) did not meet the contract on the card")
+    if on_golden:
+        check(lo <= iters <= hi, f"hopper golden iterations {iters} outside +-15% of {ref}")
+    else:
+        check(
+            eq_viol <= BRANCH_TOL and cone_margin >= -BRANCH_TOL and travel >= 0.5 - 1e-4 and friction >= -1e-6,
+            "the hopper gait's other local solution fails the contract or the reference test's travel and friction",
+        )
+    return launches
+
+
+def contact_models_phase(tag, cr, Options, dev):
+    """Phase 11d: ball-in-cup, the box move and the bunny hop in float64 on
+    the card, each with its reference test's options, guess and
+    assertions (tests/test_contact.py:28-41 and :109-122,
+    tests/test_bunnyhop.py:15-30), each on its own route. Returns
+    {model: launches}."""
+    import torch
+    from calipso_tpu_torch import Solver, TrajOptSolver
+    from calipso_tpu_torch.models import ball_in_cup, box, bunnyhop
+
+    skip = ("state_guess", "state_initial", "state_goal", "action_guess", "penalty_initial")
+
+    def trajopt(prob, actions):
+        ts = TrajOptSolver(options=Options(), device="cuda", **{k: v for k, v in prob.items() if k not in skip})
+        ts.initialize_states(prob["state_guess"])
+        ts.initialize_actions(actions)
+        return ts
+
+    def run(name, solve):
+        zero_launches(cr)
+        t0 = time.time()
+        r = solve()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = dict(cr.LAUNCHES)
+        print(
+            f"{tag} {name} (float64, card): solved {bool(r.solved)}, iterations {int(r.iterations)}, {wall:.2f} s; "
+            f"violations: residual {float(r.state.residual_violation):.2e}, equality "
+            f"{float(r.state.equality_violation):.2e}, complementarity {float(r.state.cone_product_violation):.2e}"
+        )
+        check_route(tag, name, launches)
+        check(r.variables.dtype == torch.float64 and bool(torch.isfinite(r.variables).all()), f"{name}: solution")
+        return r, launches
+
+    out = {}
+    # ball-in-cup: tests/test_contact.py:test_ball_in_cup
+    rng = np.random.default_rng(0)
+    actions = [np.concatenate([1e-3 * rng.normal(size=2), 1e-3 * np.ones(1)]) for _ in range(20)]
+    ts = trajopt(ball_in_cup.problem(), actions)
+    check(ts.solver.fns.stage_structure.dmax == 12, f"ball-in-cup d={ts.solver.fns.stage_structure.dmax}")
+    r, out["ball-in-cup"] = run("ball-in-cup", ts.solve)
+    check(contract_met(r.state, Options()), "ball-in-cup did not meet the contract on the card")
+    string = max(float((x[4:6] - x[6:8]) @ (x[4:6] - x[6:8])) for x in ts.get_trajectory(r)[0])
+    print(f"{tag} ball-in-cup: longest squared string {string:.6f} (limit {ball_in_cup.STRING_LENGTH**2 + 1e-3:g})")
+    check(string <= ball_in_cup.STRING_LENGTH**2 + 1e-3, "ball-in-cup: the string stretched")
+    # box move: tests/test_contact.py:test_box_move
+    prob = box.move_problem(horizon=11)
+    ts = trajopt(prob, prob["action_guess"])
+    check(ts.solver.fns.stage_structure.dmax == 33, f"box move d={ts.solver.fns.stage_structure.dmax}")
+    r, out["box move"] = run("box move", ts.solve)
+    check(contract_met(r.state, Options()), "the box move did not meet the contract on the card")
+    states = ts.get_trajectory(r)[0]
+    goal_gap = float(np.abs(states[-1][:6] - prob["state_goal"]).max())
+    depth = min(float(box.signed_distance(torch.tensor(x[3:6])).min()) for x in states[1:])
+    print(f"{tag} box move: final state {goal_gap:.3e} from the goal (limit 1e-3), lowest corner {depth:.3e} (limit -1e-4)")
+    check(goal_gap <= 1e-3 and depth > -1e-4, "box move: off the goal or through the ground")
+    # bunny hop: tests/test_bunnyhop.py:test_bunnyhop
+    opts = Options(penalty_initial=1e2)
+    s = Solver(bunnyhop.objective, bunnyhop.equality, bunnyhop.inequality, bunnyhop.NZ, options=opts, device="cuda")
+    check(s.options.linear_solver == "schur", f"bunny hop: {s.options.linear_solver}")
+    z0 = torch.tensor(bunnyhop.initial_guess(0), dtype=torch.float64, device=dev)
+    r, out["bunny hop"] = run("bunny hop", lambda: s.solve(z0))
+    check(contract_met(r.state, opts), "the bunny hop did not meet the contract on the card")
+    z = r.variables.cpu()
+    jump = float((z[bunnyhop.IDX_Q[4][[1, 3]]] - torch.tensor([1.1, 1.15], dtype=torch.float64)).abs().max())
+    gaps = float(bunnyhop.gaps(z[: 6 * bunnyhop.N].reshape(bunnyhop.N, 6)).min())
+    print(f"{tag} bunny hop: wheels {jump:.3e} from the obstacle heights (limit 1e-3), least contact gap {gaps:.3e} (limit -1e-4)")
+    check(jump <= 1e-3 and gaps > -1e-4, "bunny hop: a wheel missed its height or went through the ground")
+    return out
+
+
+def float64_phases(tag, t_start):
+    """The float64 single solves, run in a second process on the card
+    beside the hopper batch's cold batch (the card is idle most of a
+    host-bound batch): phase 7 (the quadruped gait golden), 11c (the
+    hopper golden) and 11d (ball-in-cup, box move, bunny hop), each with
+    its own launch counts. Returns {path: launches}."""
+    import torch
+
+    from calipso_tpu_torch import Options
+    from calipso_tpu_torch.ops import cuda_riccati as cr, riccati as rc
+
+    dev = torch.device("cuda")
+
+    def phase(name):
+        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name} (second process)", flush=True)
+
+    out = {"quadruped_gait": quadruped_gait_phase(tag, cr, rc, Options, dev, phase)}
+    phase("11c: hopper gait golden (float64)")
+    out["hopper_golden"] = hopper_golden_phase(tag, cr, rc, Options, dev)
+    phase("11d: ball-in-cup, box move and bunny hop (float64)")
+    for model, counts in contact_models_phase(tag, cr, Options, dev).items():
+        out[model.replace("-", "_").replace(" ", "_")] = counts
+    return out
+
+
+def contact_phases(tag, cr, Options, dev, phase, refs, t_start):
+    """Phase 11 (and phase 7, which runs beside it), each step with the
+    launch counts of its process set to 0 just before it and read just
+    after; `refs` are the CPU float64 re-solves' futures. Returns {path:
+    launches}."""
+    phase("11a: hopper gait (float32, the bench's single solve)")
+    out = {"hopper_gait": hopper_single_phase(tag, cr, Options, dev, refs["hopper single"])}
+    with spawn_pool() as second:
+        beside = second.submit(float64_phases, tag, t_start)
+        phase(f"11b: hopper gait batch (B={B_HOPPER}, float32), and phases 7, 11c and 11d in a second process")
+
+        def join():
+            phase("11b: waiting for the second process")
+            out.update(beside.result())
+
+        out["hopper_batch"] = hopper_batch_phase(tag, cr, Options, dev, phase, refs["hopper batch"], join)
+    return out
+
+
+def quadruped_phase(tag, cr, Options, dev, phase, qref):
+    """Phase 6: the bench's batched quadruped on the card (riccati backend,
+    stream route), the first lanes against their CPU float64 re-solve (the
+    future `qref`, quadruped_cpu_reference), a warm batch with per-layer
+    host timers and a profile. Returns the cold batch's launches."""
+    import torch
+
+    phase("6: quadruped")
+    qopts = tol_options(Options, max_iterative_refinement=2)
+    qts = quadruped_solver(qopts, "cuda", np.float32)
+    check(qts.solver.options.linear_solver == "riccati", f"auto resolved to {qts.solver.options.linear_solver}")
+    qdims = qts.dims
+    print(
+        f"{tag} quadruped: n={qdims.variables}, {qdims.equality} equality rows, {qdims.cone} cone rows, "
+        f"stage blocks d={qts.solver.fns.stage_structure.dmax}, linear_solver auto -> "
+        f"{qts.solver.options.linear_solver}"
+    )
+    x0q_np = quadruped_scenarios(B_QUAD).astype(np.float32)
+    x0q = torch.tensor(x0q_np, device=dev)
+    qbts = qts.batched()
+    zero_launches(cr)
+    t0 = time.time()
+    qres = qbts.solve(parameters=x0q)
+    torch.cuda.synchronize()
+    cold_s = time.time() - t0
+    qlaunches = dict(cr.LAUNCHES)
+    print(
+        f"{tag} quadruped cold batch (first solve, includes one-time set-up): {cold_s:.3f} s; "
+        f"digest of its solution {x_digest(qres.state)}"
+    )
+    print(f"{tag} kernel launches in the quadruped run: {qlaunches}; host syncs (loop tests): {qbts.stats['host_syncs']}")
+    check(all(qlaunches[k] > 0 for k in QUAD_STREAM_KERNELS), f"a stream kernel never launched: {qlaunches}")
+    check(
+        all(qlaunches[k] == 0 for k in ("factor_t1", "solve_t1", "factor_lanes", "solve_lanes")),
+        f"a lanes or T=1 kernel launched on the stream route: {qlaunches}",
+    )
+    qst = qres.state
+    qx = qst.p.x
+    check(tuple(qx.shape) == (B_QUAD, qdims.variables) and qx.dtype == torch.float32, f"quadruped solution {tuple(qx.shape)}")
+    check(bool(torch.isfinite(qx[qst.solved]).all()), "non-finite solution in a solved quadruped lane")
+    qsolved, qiters = report_solve(f"{tag} quadruped", B_QUAD, qst)
+    print(
+        f"{tag} quadruped iterations beside the JAX reference (BENCH_r05.json, a TPU run, counts only): "
+        f"lockstep {int(qiters.max())} vs {JAX_QUAD_ITERATIONS[0]}, total {int(qiters.sum())} vs {JAX_QUAD_ITERATIONS[1]}"
+    )
+    check(int(qsolved.sum()) >= MIN_SOLVED_QUAD, f"only {int(qsolved.sum())} of {B_QUAD} quadruped lanes solved")
+    depth = foot_depth(qts, qx)[qst.solved]
+    print(f"{tag} quadruped feet: lowest signed distance over solved lanes {float(depth.min()):.3e} (limit -{FOOT_DEPTH_LIMIT:g})")
+    check(float(depth.min()) >= -FOOT_DEPTH_LIMIT, f"a foot of a solved lane is {float(depth.min()):.3e} below the ground")
+    phase("6: quadruped against its CPU float64 re-solve")
+    ref_x, cpu_solved, ref_iters = qref.result()
+    check(
+        cpu_solved.tolist() == qsolved[:CPU_LANES_QUAD].tolist(),
+        f"quadruped: solved flags differ from the CPU float64 re-solve: {cpu_solved.tolist()} vs "
+        f"{qsolved[:CPU_LANES_QUAD].tolist()}",
+    )
+    states = np.concatenate(qts._state_indices)
+    xq = qx[:CPU_LANES_QUAD].double().cpu()
+    eq_viol, cone_margin = contract_in_float64(quadruped_solver(qopts, "cpu", np.float64), xq, x0q_np[:CPU_LANES_QUAD])
+    for lane in range(CPU_LANES_QUAD):
+        gap = float((xq[lane, states] - torch.from_numpy(ref_x[lane, states])).abs().max())
+        both = bool(cpu_solved[lane] and qsolved[lane])
+        branch = both and gap > CPU_ATOL_QUAD
+        print(
+            f"{tag} quadruped lane {lane}: CPU float64 re-solve solved {bool(cpu_solved[lane])}, "
+            f"iterations {int(ref_iters[lane])} (card {int(qiters[lane])}), max state gap {gap:.3e} "
+            + (f"(limit {CPU_ATOL_QUAD:g})" if both else "(not both solved)")
+            + (
+                f", another local solution: the card's, in float64, max |g| {eq_viol[lane]:.3e}, "
+                f"least cone margin {cone_margin[lane]:.3e} (limits {BRANCH_TOL:g})" if branch else ""
+            )
+        )
+        check(
+            not branch or (eq_viol[lane] <= BRANCH_TOL and cone_margin[lane] >= -BRANCH_TOL),
+            f"quadruped lane {lane}: {gap:.3e} from the CPU re-solve and off the contract in float64",
+        )
+    phase("6: quadruped warm batches")
+    from calipso_tpu_torch.solver import kkt
+
+    layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
+    with layer_timers(layers) as spent:
+        wall = warm_batches(
+            tag, "quadruped", B_QUAD, qbts, lambda: qbts.solve(parameters=x0q), qst, WARM_REPS_QUAD, same_bits=True
+        )
+    for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
+        print(
+            f"{tag}   quadruped warm batches, host time in {attr}: {sec:.3f} s "
+            f"({100.0 * sec / wall:.1f}% of the wall) over {calls} calls"
+        )
+    popts = tol_options(
+        Options, max_iterative_refinement=2, max_outer_iterations=1, max_residual_iterations=PROFILE_ITERS_QUAD
+    )
+    pbts = quadruped_solver(popts, "cuda", np.float32).batched()
+    pbts.solve(parameters=x0q)  # its one-time set-up
+    profile(
+        tag, f"quadruped (first {PROFILE_ITERS_QUAD} lockstep iterations of a batch)",
+        lambda: pbts.solve(parameters=x0q), host_ops=False,
+    )
+
+    return qlaunches
+
+
+def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
+    """Phase 7: the quadruped gait golden in float64 on the card (the
+    riccati border through solve_multi on the stream kernels). Returns
+    its launches."""
+    import torch
+
+    phase("7: quadruped gait")
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import quadruped
+
+    gold = np.load(GOLDEN_GAIT)
+    gprob = quadruped.gait_problem(horizon=11, travel=0.2)
+    gts = TrajOptSolver(
+        options=Options(), device="cuda",
+        **{k: v for k, v in gprob.items() if k not in ("state_guess", "state_initial", "action_guess")},
+    )
+    gts.initialize_states(gprob["state_guess"])
+    gts.initialize_actions(gprob["action_guess"])
+    gst = gts.solver.fns.stage_structure
+    check(
+        gts.solver.options.linear_solver == "riccati" and len(gst.general_stages) == 2,
+        f"gait: {gts.solver.options.linear_solver}, general stages {gst.general_stages}",
+    )
+    multi = {"calls": 0}
+    solve_multi = rc.solve_multi
+
+    def counted_solve_multi(*a):
+        multi["calls"] += 1
+        return solve_multi(*a)
+
+    rc.solve_multi = counted_solve_multi
+    zero_launches(cr)
+    t0 = time.time()
+    try:
+        gres = gts.solve()
+        torch.cuda.synchronize()
+    finally:
+        rc.solve_multi = solve_multi
+    gwall = time.time() - t0
+    glaunches = dict(cr.LAUNCHES)
+    gz = gres.variables.cpu().numpy()
+    gstates = lambda z: np.concatenate([z[idx] for idx in gts._state_indices])
+    ggap = float(np.abs(gstates(gz) - gstates(gold["variables"])).max())
+    giters, gref = int(gres.iterations), int(gold["iterations"])
+    print(
+        f"{tag} quadruped gait (float64, card): solved {bool(gres.solved)}, iterations {giters} "
+        f"(golden {gref}, band {0.85 * gref:.1f}-{1.15 * gref:.1f}), max state gap to the golden {ggap:.3e} "
+        f"(limit 1e-2), {gwall:.2f} s; solve_multi calls {multi['calls']}; launches {glaunches}"
+    )
+    check(bool(gres.solved), "the quadruped gait did not solve on the card")
+    check(ggap <= 1e-2, f"gait states differ from the golden by {ggap:.3e}")
+    check(0.85 * gref <= giters <= 1.15 * gref, f"gait iterations {giters} outside +-15% of {gref}")
+    check(
+        multi["calls"] > 0 and all(glaunches[k] > 0 for k in QUAD_STREAM_KERNELS),
+        f"the gait's border never ran on the stream kernels: {multi['calls']} solve_multi calls, {glaunches}",
+    )
+
+    return glaunches
+
+
 def build_kernels(tag):
     """Phase 1: build every kernel library with nvcc (one process a
     source, all started together) and load it; print ptxas's registers
@@ -1458,25 +2126,29 @@ def register_kernels_fit(tag, log, sources):
         )
 
 
-def t1_inputs(n):
-    """The flagship-shaped T=1 inputs: B_FLAG SPD (n, n) matrices, the
-    lanes NON_PD negated, and right-hand sides (B_FLAG, n)."""
-    rng = np.random.default_rng(0)
-    A = rng.normal(size=(B_FLAG, n, n))
+def non_pd_lanes(B):
+    """The 8 lanes made not positive definite in a T=1 check of B lanes."""
+    return NON_PD if B == B_FLAG else tuple(int(i) for i in np.linspace(0, B - 1, 8).astype(int))
+
+
+def t1_inputs(n, B=B_FLAG):
+    """T=1 inputs: B SPD (n, n) matrices, the lanes non_pd_lanes(B)
+    negated, and right-hand sides (B, n)."""
+    rng = np.random.default_rng(0 if (B, n) == (B_FLAG, 32) else B + n)
+    A = rng.normal(size=(B, n, n))
     S64 = A @ np.swapaxes(A, 1, 2) + n * np.eye(n)
-    S64[list(NON_PD)] *= -1.0
-    return S64, rng.normal(size=(B_FLAG, n))
+    S64[list(non_pd_lanes(B))] *= -1.0
+    return S64, rng.normal(size=(B, n))
 
 
-def check_t1(tag, cr, dev, errs, times, times64):
-    """factor_t1 and solve_t1 against their plain versions at the
-    flagship's shape (B=8192, n=32) in float32 and float64, with the lanes
-    NON_PD not positive definite (NaN on both paths); into `times` and
-    `times64` the kernel, plain, library and bound times."""
+def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
+    """factor_t1 and solve_t1 against their plain versions at (B, n), the
+    flagship's shape unless given, in float32 and float64, with the lanes
+    non_pd_lanes(B) not positive definite (NaN on both paths); into
+    `times` and `times64` the kernel, plain, library and bound times."""
     import torch
 
-    n = 32
-    S64, b64 = t1_inputs(n)
+    S64, b64 = t1_inputs(n, B)
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
         S = torch.tensor(S64, dtype=dtype, device=dev)
         b = torch.tensor(b64, dtype=dtype, device=dev)
@@ -1486,29 +2158,29 @@ def check_t1(tag, cr, dev, errs, times, times64):
         bad = torch.isnan(L).any(-1).any(-1)
         check(
             torch.equal(bad, torch.isnan(Lp).any(-1).any(-1))
-            and sorted(torch.nonzero(bad)[:, 0].tolist()) == list(NON_PD),
-            f"{name}: NaN lanes differ between kernel and plain",
+            and sorted(torch.nonzero(bad)[:, 0].tolist()) == list(non_pd_lanes(B)),
+            f"{name} B={B} n={n}: NaN lanes differ between kernel and plain",
         )
         lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
-        check(bool(torch.isnan(L[bad][:, lower]).all()), f"{name}: partial NaN factor")
+        check(bool(torch.isnan(L[bad][:, lower]).all()), f"{name} B={B} n={n}: partial NaN factor")
         ok = ~bad
         for kname, got, want in (("factor_t1", L, Lp), ("solve_t1", x, xp)):
             abs_err = float((got[ok].double() - want[ok].double()).abs().max())
             rel_err = abs_err / float(want[ok].double().abs().max())
-            errs[(kname, name)] = abs_err
-            print(f"{tag} {kname} {name} B={B_FLAG} n={n}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (limit {RTOL[name]:g})")
-            check(rel_err <= RTOL[name], f"{kname} {name}: relative error {rel_err:.3e}")
+            errs[(kname, name, B, n)] = abs_err
+            print(f"{tag} {kname} {name} B={B} n={n}: max_abs_err {abs_err:.3e} max_rel_err {rel_err:.3e} (limit {RTOL[name]:g})")
+            check(rel_err <= RTOL[name], f"{kname} {name} B={B} n={n}: relative error {rel_err:.3e}")
         into = times if name == "float32" else times64
         Sg, Lg, bg = S[ok].contiguous(), L[ok].contiguous(), b[ok].contiguous()
         into["factor_t1"] = (
             cuda_ms(lambda: cr.factor_t1(S), 50), cuda_ms(lambda: cr.factor_t1_plain(S), 50),
             cuda_ms(lambda: torch.linalg.cholesky_ex(Sg), 50),
-            bound((tri(n) + n * n) * WORD[name] * B_FLAG, n**3 / 3 * B_FLAG, name),
+            bound((tri(n) + n * n) * WORD[name] * B, n**3 / 3 * B, name),
         )
         into["solve_t1"] = (
             cuda_ms(lambda: cr.solve_t1(L, b), 50), cuda_ms(lambda: cr.solve_t1_plain(L, b), 50),
             cuda_ms(lambda: torch.cholesky_solve(bg[..., None], Lg), 50),
-            bound((tri(n) + 2 * n) * WORD[name] * B_FLAG, 2 * n * n * B_FLAG, name),
+            bound((tri(n) + 2 * n) * WORD[name] * B, 2 * n * n * B, name),
         )
         for kname in ("factor_t1", "solve_t1"):
             if hasattr(cr, f"{kname}_layout"):  # a checkout from before it reports nothing
@@ -1516,9 +2188,64 @@ def check_t1(tag, cr, dev, errs, times, times64):
                 print(f"{tag} {kname} {name} n={n}: {warps} warps a block, {blocks} resident blocks an SM")
 
 
+def contact_kernel_checks(tag, cr, dev, errs):
+    """Phase 2e: the kernels against their plain versions at the contact
+    paths' shapes (CONTACT_*_SHAPES), float32 and float64, 8 lanes not
+    positive definite. Returns {shape label: (float32 times, float64
+    times)} of kernel, plain and bound times, which phase 5 completes."""
+    out = {}
+    for B, T, d in CONTACT_LANES_SHAPES:
+        times, times64 = {}, {}
+        check_lanes(tag, cr, dev, B, T, d, errs, times, times64)
+        out[f"B={B} T={T} d={d}"] = times, times64
+    for B, T, d, K in CONTACT_STREAM_SHAPES:
+        times, times64 = {}, {}
+        check_stream(tag, cr, dev, B, T, d, K, errs, times, times64)
+        out[f"B={B} T={T} d={d} K={K}"] = times, times64
+    for B, n in CONTACT_T1_SHAPES:
+        times, times64 = {}, {}
+        check_t1(tag, cr, dev, errs, times, times64, B, n)
+        out[f"B={B} n={n}"] = times, times64
+    return out
+
+
+def contact_kernel_times(tag, cr, dev, ctimes):
+    """Phase 5 at the contact paths' shapes: each kernel host-launched
+    (phase 2e's times), replayed from a CUDA graph, its plain version,
+    its library call (float32: on the dense matrices for the
+    block-tridiagonal kernels, as LIBRARY_CALLS pairs them; cholesky_ex
+    and cholesky_solve for T=1) and its bound, float32 and float64.
+    Returns {(kernel, dtype name, shape): (ms, graph ms, plain ms,
+    library ms or None, (bound ms, bound by))}."""
+    cases = [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in CONTACT_LANES_SHAPES]
+    cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)) for B, T, d, K in CONTACT_STREAM_SHAPES]
+    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in CONTACT_T1_SHAPES]
+    graphs = graph_times(tag, cr, dev, cases=cases)
+    library = {f"B={B} T={T} d={d}": library_times(cr, dev, B, T, d) for B, T, d in CONTACT_LANES_SHAPES}
+    library.update(
+        {f"B={B} T={T} d={d} K={K}": library_times(cr, dev, B, T, d, K) for B, T, d, K in CONTACT_STREAM_SHAPES}
+    )
+    out = {}
+    for shape, pair in ctimes.items():
+        for name, into in zip(("float32", "float64"), pair):
+            for kname, (ms, plain_ms, lib_ms, (bms, by)) in into.items():
+                if kname in LIBRARY_CALLS:
+                    lib_ms = library[shape][LIBRARY_CALLS[kname][1]] if name == "float32" else None
+                gms = graphs[(kname, name, shape)][0]
+                out[(kname, name, shape)] = ms, gms, plain_ms, lib_ms, (bms, by)
+                print(
+                    f"{tag} {kname} {name} {shape} (contact path): kernel {ms:.4f} ms host-launched, "
+                    f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
+                    + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+                    + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
+                )
+    return out
+
+
 def kernel_phases(tag, cr, dev, phase):
     """Phases 2 and 5: every kernel against its plain version, then the
-    kernel times. Returns (errs, times), which the kernels line reads."""
+    kernel times. Returns (errs, times, contact times), which the kernels
+    line reads."""
     errs, times, times64 = {}, {}, {}
     # 2a. T=1 kernels against their plain versions at the flagship shape
     phase("2: kernels against their plain versions")
@@ -1540,6 +2267,9 @@ def kernel_phases(tag, cr, dev, phase):
         check_batched(tag, cr, dev, B, T, d, errs)
     for B, T, d in BATCHED_SHAPES:
         check_transpose(tag, cr, dev, B, T, d, errs)
+    # 2e. the kernels at the contact models' shapes (phase 11)
+    phase("2e: kernels at the contact models' shapes")
+    ctimes = contact_kernel_checks(tag, cr, dev, errs)
 
     # 5. kernel times at the main-path shapes, and the two block-tridiagonal
     # routes side by side at the quadruped's and the rocket's shapes and at
@@ -1566,7 +2296,8 @@ def kernel_phases(tag, cr, dev, phase):
             f"library {library}, bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / ms:.1f}% of the bound"
         )
     print_times(tag, times64, "float64")
-    return errs, times
+    contact = contact_kernel_times(tag, cr, dev, ctimes)
+    return errs, times, contact
 
 
 def flagship_phase(tag, cr, Options, dev):
@@ -1886,6 +2617,95 @@ def compare_ops(ref_path, path):
     }))
 
 
+def full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start):
+    """Every phase after the build, in order, then the kernels line and
+    the result; `refs` are the CPU float64 re-solves' futures
+    (cpu_references)."""
+    import torch
+
+    errs, times, contact_times = kernel_phases(tag, cr, dev, phase)
+
+    # 3. the flagship on the card (schur backend), counting kernel launches
+    phase("3: flagship")
+    launches = flagship_phase(tag, cr, Options, dev)
+
+    # 4. the batched rocket landing on the card (riccati backend)
+    phase("4: rocket")
+    rlaunches, captured = rocket_phase(tag, cr, rc, Options, dev)
+
+    # 8. the solve_batched entry point on the rocket batch's own blocks
+    phase(f"8: solve_batched (the blocks of riccati factorization {min(CAPTURE_CALL, captured['calls'])} of the rocket batch)")
+    blaunches = solve_batched_phase(tag, cr, rc, *captured["blocks"])
+    # 9. the cr backend
+    phase("9: cr backend (rocket101, its golden, the rocket batch)")
+    cr_phase(tag, cr, Options, dev)
+    # 10. the ldl and lu backends and the refinement fallback
+    phase("10: ldl, lu and refinement_fallback (pendulum B=1024, float64)")
+    dense_phase(tag, cr, Options, dev)
+    phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
+    fallback_fires_phase(tag, cr, Options, dev)
+
+    # 6. the batched quadruped on the card (riccati backend, stream route)
+    qlaunches = quadruped_phase(tag, cr, Options, dev, phase, refs["quadruped"])
+
+    # 11. the contact models on the card; 7. the quadruped gait golden,
+    # beside the hopper batch
+    path_launches = contact_phases(tag, cr, Options, dev, phase, refs, t_start)
+
+    sources = {
+        "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",
+        "lanes": "calipso_tpu_torch/csrc/riccati_lanes.cu",
+        "stream": "calipso_tpu_torch/csrc/riccati_stream.cu",
+        "fused": "calipso_tpu_torch/csrc/riccati_fused.cu",
+    }
+    rocket = (B_ROCKET, HORIZON_ROCKET, 9)  # the lanes and fused kernels' main-path shape
+    meta = {
+        "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32", B_FLAG, 32)),
+        "solve_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:661", launches, ("solve_t1", "float32", B_FLAG, 32)),
+        "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", *rocket)),
+        "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", *rocket)),
+        "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", HORIZON_QUAD, 1)),
+        "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", HORIZON_QUAD, 1)),
+        "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
+        "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", *rocket)),
+        "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", *rocket)),
+        # the layout moves the reference leaves to XLA around _riccati_lanes_kernel
+        "transpose": ("fused", "calipso_tpu/ops/pallas_riccati.py:295", blaunches, ("transpose", "float32", *rocket)),
+    }
+    errs[("factor_lanes", "float32", *rocket)] = max(
+        errs[("factor_lanes", "float32", *rocket)], errs[("factor_lanes M", "float32", *rocket)]
+    )
+    errs[("factor_stream", "float32", HORIZON_QUAD, 1)] = max(
+        errs[("factor_stream", "float32", HORIZON_QUAD, 1)], errs[("factor_stream M", "float32", HORIZON_QUAD, 1)]
+    )
+    kernels = []
+    for k, (src, replaces, counts, err_key) in meta.items():
+        ms, plain_ms, lib_ms, (bms, by) = times[k]
+        kernels.append({
+            "name": k, "route": "cuda", "source": sources[src], "replaces": replaces,
+            "launches": counts[k], "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by, "library_ms": lib_ms,
+            "launches_by_path": {path: on_path[k] for path, on_path in path_launches.items()},
+            "at_contact_shapes": [
+                {"shape": shape, "dtype": name, "ms": ms_c, "graph_ms": gms, "plain_ms": pms, "library_ms": lms,
+                 "bound_ms": bnd[0], "bound_by": bnd[1]}
+                for (kn, name, shape), (ms_c, gms, pms, lms, bnd) in contact_times.items() if kn == k
+            ],
+        })
+    phase("done")
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
 def main():
     import argparse
 
@@ -1902,6 +2722,11 @@ def main():
         "--batched-times", action="store_true",
         help="only build, then time the two fused solves (and the lanes wrapper's layout copies) at the rocket's "
         "and the quadruped's shapes, float32 and float64, and replayed from a CUDA graph at the rocket's",
+    )
+    ap.add_argument(
+        "--contact", action="store_true",
+        help="only build, then check and time the kernels at the contact models' shapes and run phase 11 (the "
+        "hopper gait single, batched and golden, ball-in-cup, box move, bunny hop; phase 7 beside it)",
     )
     ap.add_argument(
         "--sass", action="store_true",
@@ -1964,224 +2789,14 @@ def main():
     if args.history is not None:
         history_probe(tag, cr, rc, Options, dev, groups, phase, args.ops_out, args.linalg)
         return 0
-
-    errs, times = kernel_phases(tag, cr, dev, phase)
-
-    # 3. the flagship on the card (schur backend), counting kernel launches
-    phase("3: flagship")
-    launches = flagship_phase(tag, cr, Options, dev)
-
-    # 4. the batched rocket landing on the card (riccati backend)
-    phase("4: rocket")
-    rlaunches, captured = rocket_phase(tag, cr, rc, Options, dev)
-
-    # 8. the solve_batched entry point on the rocket batch's own blocks
-    phase(f"8: solve_batched (the blocks of riccati factorization {min(CAPTURE_CALL, captured['calls'])} of the rocket batch)")
-    blaunches = solve_batched_phase(tag, cr, rc, *captured["blocks"])
-    # 9. the cr backend
-    phase("9: cr backend (rocket101, its golden, the rocket batch)")
-    cr_phase(tag, cr, Options, dev)
-    # 10. the ldl and lu backends and the refinement fallback
-    phase("10: ldl, lu and refinement_fallback (pendulum B=1024, float64)")
-    dense_phase(tag, cr, Options, dev)
-    phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
-    fallback_fires_phase(tag, cr, Options, dev)
-
-    # 6. the batched quadruped on the card (riccati backend, stream route)
-    phase("6: quadruped")
-    qopts = tol_options(Options, max_iterative_refinement=2)
-    qts = quadruped_solver(qopts, "cuda", np.float32)
-    check(qts.solver.options.linear_solver == "riccati", f"auto resolved to {qts.solver.options.linear_solver}")
-    qdims = qts.dims
-    print(
-        f"{tag} quadruped: n={qdims.variables}, {qdims.equality} equality rows, {qdims.cone} cone rows, "
-        f"stage blocks d={qts.solver.fns.stage_structure.dmax}, linear_solver auto -> "
-        f"{qts.solver.options.linear_solver}"
-    )
-    x0q_np = quadruped_scenarios(B_QUAD).astype(np.float32)
-    x0q = torch.tensor(x0q_np, device=dev)
-    qbts = qts.batched()
-    zero_launches(cr)
-    t0 = time.time()
-    qres = qbts.solve(parameters=x0q)
-    torch.cuda.synchronize()
-    cold_s = time.time() - t0
-    qlaunches = dict(cr.LAUNCHES)
-    print(
-        f"{tag} quadruped cold batch (first solve, includes one-time set-up): {cold_s:.3f} s; "
-        f"digest of its solution {x_digest(qres.state)}"
-    )
-    print(f"{tag} kernel launches in the quadruped run: {qlaunches}; host syncs (loop tests): {qbts.stats['host_syncs']}")
-    stream_kernels = ("factor_stream", "solve_fwd_stream", "solve_bwd_stream")
-    check(all(qlaunches[k] > 0 for k in stream_kernels), f"a stream kernel never launched: {qlaunches}")
-    check(
-        all(qlaunches[k] == 0 for k in ("factor_t1", "solve_t1", "factor_lanes", "solve_lanes")),
-        f"a lanes or T=1 kernel launched on the stream route: {qlaunches}",
-    )
-    qst = qres.state
-    qx = qst.p.x
-    check(tuple(qx.shape) == (B_QUAD, qdims.variables) and qx.dtype == torch.float32, f"quadruped solution {tuple(qx.shape)}")
-    check(bool(torch.isfinite(qx[qst.solved]).all()), "non-finite solution in a solved quadruped lane")
-    qsolved, qiters = report_solve(f"{tag} quadruped", B_QUAD, qst)
-    print(
-        f"{tag} quadruped iterations beside the JAX reference (BENCH_r05.json, a TPU run, counts only): "
-        f"lockstep {int(qiters.max())} vs {JAX_QUAD_ITERATIONS[0]}, total {int(qiters.sum())} vs {JAX_QUAD_ITERATIONS[1]}"
-    )
-    check(int(qsolved.sum()) >= MIN_SOLVED_QUAD, f"only {int(qsolved.sum())} of {B_QUAD} quadruped lanes solved")
-    depth = foot_depth(qts, qx)[qst.solved]
-    print(f"{tag} quadruped feet: lowest signed distance over solved lanes {float(depth.min()):.3e} (limit -{FOOT_DEPTH_LIMIT:g})")
-    check(float(depth.min()) >= -FOOT_DEPTH_LIMIT, f"a foot of a solved lane is {float(depth.min()):.3e} below the ground")
-    phase("6: quadruped CPU float64 re-solve")
-    qref = quadruped_solver(qopts, "cpu", np.float64).batched().solve(
-        parameters=torch.tensor(x0q_np[:CPU_LANES_QUAD], dtype=torch.float64)
-    )
-    cpu_solved = qref.state.solved.numpy()
-    check(
-        cpu_solved.tolist() == qsolved[:CPU_LANES_QUAD].tolist(),
-        f"quadruped: solved flags differ from the CPU float64 re-solve: {cpu_solved.tolist()} vs "
-        f"{qsolved[:CPU_LANES_QUAD].tolist()}",
-    )
-    states = np.concatenate(qts._state_indices)
-    xq = qx[:CPU_LANES_QUAD].double().cpu()
-    eq_viol, cone_margin = contract_in_float64(quadruped_solver(qopts, "cpu", np.float64), xq, x0q_np[:CPU_LANES_QUAD])
-    for lane in range(CPU_LANES_QUAD):
-        gap = float((xq[lane, states] - qref.state.p.x[lane, states]).abs().max())
-        both = bool(cpu_solved[lane] and qsolved[lane])
-        branch = both and gap > CPU_ATOL_QUAD
-        print(
-            f"{tag} quadruped lane {lane}: CPU float64 re-solve solved {bool(cpu_solved[lane])}, "
-            f"iterations {int(qref.state.total_i[lane])} (card {int(qiters[lane])}), max state gap {gap:.3e} "
-            + (f"(limit {CPU_ATOL_QUAD:g})" if both else "(not both solved)")
-            + (
-                f", another local solution: the card's, in float64, max |g| {eq_viol[lane]:.3e}, "
-                f"least cone margin {cone_margin[lane]:.3e} (limits {BRANCH_TOL:g})" if branch else ""
-            )
-        )
-        check(
-            not branch or (eq_viol[lane] <= BRANCH_TOL and cone_margin[lane] >= -BRANCH_TOL),
-            f"quadruped lane {lane}: {gap:.3e} from the CPU re-solve and off the contract in float64",
-        )
-    phase("6: quadruped warm batches")
-    from calipso_tpu_torch.solver import kkt
-
-    layers = [(qbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
-    with layer_timers(layers) as spent:
-        wall = warm_batches(
-            tag, "quadruped", B_QUAD, qbts, lambda: qbts.solve(parameters=x0q), qst, WARM_REPS_QUAD, same_bits=True
-        )
-    for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
-        print(
-            f"{tag}   quadruped warm batches, host time in {attr}: {sec:.3f} s "
-            f"({100.0 * sec / wall:.1f}% of the wall) over {calls} calls"
-        )
-    popts = tol_options(
-        Options, max_iterative_refinement=2, max_outer_iterations=1, max_residual_iterations=PROFILE_ITERS_QUAD
-    )
-    pbts = quadruped_solver(popts, "cuda", np.float32).batched()
-    pbts.solve(parameters=x0q)  # its one-time set-up
-    profile(
-        tag, f"quadruped (first {PROFILE_ITERS_QUAD} lockstep iterations of a batch)",
-        lambda: pbts.solve(parameters=x0q), host_ops=False,
-    )
-
-    # 7. the quadruped gait golden on the card (float64, the riccati border)
-    phase("7: quadruped gait")
-    from calipso_tpu_torch import TrajOptSolver
-    from calipso_tpu_torch.models import quadruped
-
-    gold = np.load(GOLDEN_GAIT)
-    gprob = quadruped.gait_problem(horizon=11, travel=0.2)
-    gts = TrajOptSolver(
-        options=Options(), device="cuda",
-        **{k: v for k, v in gprob.items() if k not in ("state_guess", "state_initial", "action_guess")},
-    )
-    gts.initialize_states(gprob["state_guess"])
-    gts.initialize_actions(gprob["action_guess"])
-    gst = gts.solver.fns.stage_structure
-    check(
-        gts.solver.options.linear_solver == "riccati" and len(gst.general_stages) == 2,
-        f"gait: {gts.solver.options.linear_solver}, general stages {gst.general_stages}",
-    )
-    multi = {"calls": 0}
-    solve_multi = rc.solve_multi
-
-    def counted_solve_multi(*a):
-        multi["calls"] += 1
-        return solve_multi(*a)
-
-    rc.solve_multi = counted_solve_multi
-    zero_launches(cr)
-    t0 = time.time()
-    try:
-        gres = gts.solve()
-        torch.cuda.synchronize()
-    finally:
-        rc.solve_multi = solve_multi
-    gwall = time.time() - t0
-    glaunches = dict(cr.LAUNCHES)
-    gz = gres.variables.cpu().numpy()
-    gstates = lambda z: np.concatenate([z[idx] for idx in gts._state_indices])
-    ggap = float(np.abs(gstates(gz) - gstates(gold["variables"])).max())
-    giters, gref = int(gres.iterations), int(gold["iterations"])
-    print(
-        f"{tag} quadruped gait (float64, card): solved {bool(gres.solved)}, iterations {giters} "
-        f"(golden {gref}, band {0.85 * gref:.1f}-{1.15 * gref:.1f}), max state gap to the golden {ggap:.3e} "
-        f"(limit 1e-2), {gwall:.2f} s; solve_multi calls {multi['calls']}; launches {glaunches}"
-    )
-    check(bool(gres.solved), "the quadruped gait did not solve on the card")
-    check(ggap <= 1e-2, f"gait states differ from the golden by {ggap:.3e}")
-    check(0.85 * gref <= giters <= 1.15 * gref, f"gait iterations {giters} outside +-15% of {gref}")
-    check(
-        multi["calls"] > 0 and all(glaunches[k] > 0 for k in stream_kernels),
-        f"the gait's border never ran on the stream kernels: {multi['calls']} solve_multi calls, {glaunches}",
-    )
-
-    sources = {
-        "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",
-        "lanes": "calipso_tpu_torch/csrc/riccati_lanes.cu",
-        "stream": "calipso_tpu_torch/csrc/riccati_stream.cu",
-        "fused": "calipso_tpu_torch/csrc/riccati_fused.cu",
-    }
-    rocket = (B_ROCKET, HORIZON_ROCKET, 9)  # the lanes and fused kernels' main-path shape
-    meta = {
-        "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32")),
-        "solve_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:661", launches, ("solve_t1", "float32")),
-        "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", *rocket)),
-        "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", *rocket)),
-        "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", *rocket)),
-        "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", *rocket)),
-        # the layout moves the reference leaves to XLA around _riccati_lanes_kernel
-        "transpose": ("fused", "calipso_tpu/ops/pallas_riccati.py:295", blaunches, ("transpose", "float32", *rocket)),
-    }
-    errs[("factor_lanes", "float32", *rocket)] = max(
-        errs[("factor_lanes", "float32", *rocket)], errs[("factor_lanes M", "float32", *rocket)]
-    )
-    errs[("factor_stream", "float32", HORIZON_QUAD, 1)] = max(
-        errs[("factor_stream", "float32", HORIZON_QUAD, 1)], errs[("factor_stream M", "float32", HORIZON_QUAD, 1)]
-    )
-    kernels = []
-    for k, (src, replaces, counts, err_key) in meta.items():
-        ms, plain_ms, lib_ms, (bms, by) = times[k]
-        kernels.append({
-            "name": k, "route": "cuda", "source": sources[src], "replaces": replaces,
-            "launches": counts[k], "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by, "library_ms": lib_ms,
-        })
-    phase("done")
-    print(json.dumps({"kernels": kernels}))
-    print(card)
-    print(json.dumps({
-        "ok": True,
-        "device": {
-            "platform": "gpu",
-            "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count(),
-        },
-    }))
-    return 0
+    with spawn_pool() as cpu:
+        refs = cpu_references(cpu, quadruped=not args.contact)
+        if args.contact:
+            phase("2e: kernels at the contact models' shapes")
+            contact_kernel_times(tag, cr, dev, contact_kernel_checks(tag, cr, dev, {}))
+            contact_phases(tag, cr, Options, dev, phase, refs, t_start)
+            return 0
+        return full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start)
 
 
 if __name__ == "__main__":

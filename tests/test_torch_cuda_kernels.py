@@ -47,11 +47,12 @@ def _rel_err(got, want, ok):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 5, 32, 33, 64, 128])
+@pytest.mark.parametrize("n", [1, 5, 32, 33, 64, 110, 128])
 def test_kernels_match_plain(cuda, n, dtype):
     """B=37 is not a multiple of any warps-per-block count (ragged batch
-    edge); n=33 and above give lanes several rows; n=128 f64 needs the
-    raised shared-memory limit. Lanes 3 and 20 are not positive definite."""
+    edge); n=33 and above give lanes several rows; n=110 is the bunny
+    hop's; n=128 f64 needs the raised shared-memory limit. Lanes 3 and 20
+    are not positive definite."""
     rng = np.random.default_rng(n)
     B = 37
     S = torch.tensor(spd_batch(rng, B, n, non_pd=(3, 20)), dtype=dtype, device=cuda)
@@ -88,11 +89,12 @@ def tridiag_batch(rng, B, T, d, non_pd=()):
 @pytest.mark.parametrize(
     "B,T,d",
     [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33),
-     (1, 101, 9), (1030, 31, 9), (2, 500, 64)],
+     (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12)],
 )
 def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     """The batched rocket's and the contact class's stage blocks (31 x 9,
-    8 x 54), rocket101's (one lane, 101 x 9), a ragged edge past the
+    8 x 54), the hopper batch's (21 x 26, in the register factor's width-32
+    bucket) and ball-in-cup's (21 x 12), rocket101's (one lane, 101 x 9), a ragged edge past the
     rocket's B (1030), and the edges of what the kernels take (T=1, d=1,
     d=64, whose float64 working set needs the raised shared-memory limit,
     d=33 with two rows per thread, and a horizon whose u does not fit in
@@ -137,14 +139,16 @@ def _check_lanes_kernels(cuda, B, T, d, bad_stage, dtype, rng):
 @pytest.mark.parametrize(
     "B,T,d,bad_stage",
     [(37, 5, 16, 2), (37, 5, 17, 2), (19, 4, 31, 1), (19, 4, 32, 1), (19, 4, 33, 1),
-     (128, 31, 9, 15), (37, 31, 9, 0), (37, 31, 9, 30), (9, 3, 17, 0), (9, 3, 32, 2)],
+     (128, 31, 9, 15), (37, 31, 9, 0), (37, 31, 9, 30), (9, 3, 17, 0), (9, 3, 32, 2),
+     (37, 21, 26, 0), (37, 21, 26, 20)],
 )
 def test_factor_lanes_register_path_edges(cuda, B, T, d, bad_stage, dtype):
     """factor_lanes' register kernel at the edges of its widths (16 and 17
     on either side of its two buckets, 31 and 32 where it ends, 33 on the
     shared-memory kernel past it), the bench's rocket batch (B=128, one
     warp a block), and lanes not positive definite from the first stage
-    or only at the last one."""
+    or only at the last one (also at the hopper's 21 x 26, rows 26..31 of
+    its bucket identity)."""
     _check_lanes_kernels(cuda, B, T, d, bad_stage, dtype, np.random.default_rng(B + T * 100 + d + bad_stage))
 
 
@@ -232,11 +236,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     "B,T,d,K",
     [(128, 8, 54, 1), (128, 8, 54, 22), (13, 8, 54, 1), (9, 1, 5, 3), (5, 3, 64, 40),
      (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33),
-     (17, 2, 8, 1), (17, 3, 9, 1), (9, 4, 16, 5), (11, 3, 55, 1), (11, 3, 56, 33), (5, 5, 64, 2)],
+     (17, 2, 8, 1), (17, 3, 9, 1), (9, 4, 16, 5), (11, 3, 55, 1), (11, 3, 56, 33), (5, 5, 64, 2),
+     (1024, 21, 26, 4), (1024, 11, 33, 1)],
 )
 def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     """The batched quadruped's stage blocks (8 x 54) with one and with 22
-    right-hand sides (the gait border's 2 x 11 columns), and the edges:
+    right-hand sides (the gait border's 2 x 11 columns), the hopper's
+    (21 x 26) with its border's 4 columns, the box move's (11 x 33, the
+    first width on the stream route: a 1-wide last factor panel), and the edges:
     T=1, d=1, d=64 (float64 needs the raised shared-memory limit), K over
     one 32-column chunk. The factor's 8-wide panels at their edges: one
     panel (d=8), a 1-wide last panel (d=9), a 7-wide one over ragged 4 x 4
