@@ -87,8 +87,9 @@ Phases (each fails loudly; none catches its own failure):
      have launched and the lanes and T=1 kernels not, at least 120 lanes
      solved and no foot of a solved lane below -1e-3; print the iteration
      counts beside the JAX reference's; re-solve the first 4 lanes on the
-     CPU in float64; time a cold and a warm batch and profile the first
-     5 lockstep iterations of a warm one;
+     CPU in float64 (checked in phase 11b, beside whose cold batch it
+     runs); time a cold and a warm batch and profile the first 5 lockstep
+     iterations of a warm one;
   7. solve the quadruped gait (horizon 11, travel 0.2) in float64 with
      default Options on the card -- its equality_general rows ride the
      riccati border, through solve_multi on the stream solve kernels --
@@ -114,15 +115,17 @@ Phases (each fails loudly; none catches its own failure):
      solved, a CPU float64 re-solve of 4 lanes under the branch rule, a
      timed warm batch with per-layer host timers and a profile of its
      first 5 lockstep iterations. Phases 2 and 5 hold and time the lanes
-     kernels at (1024, 21, 26), the stream kernels at (1024, 21, 26) with
-     K=4 and at (1024, 11, 33) with K=1, and the T=1 kernels at (1024, 110).
+     kernels at (T, d) = (21, 26) and (21, 12), the stream kernels at (21,
+     26) with K=4 and at (11, 33) with K=1, and the T=1 kernels at n=110,
+     each at B=1024 and at the single solves' B=1.
 
 The solves are bound by the host's dispatch and leave the card idle most
-of the time, so two things run beside the card's main thread: the CPU
-float64 re-solves of the quadruped (phase 6) and the hopper (11a, 11b) in
-a background process from the start, and phases 7, 11c and 11d (float64
-single solves) in a second process on the card beside the hopper batch's
-cold batch; the warm batches and profiles have the card to themselves.
+of the time, so beside the hopper batch's cold batch (11b), and beside no
+other timed window, run phases 7, 11c and 11d (float64 single solves) in
+a second process on the card and the CPU float64 re-solves of the
+quadruped (phase 6) and the hopper (11a, 11b) in three more; the warm
+batches, profiles and single solves' walls have the card and the host to
+themselves.
 
 Prints each number with the card's name and power limit, then a JSON line
 of the kernels, the `nvidia-smi` name/power line, and last
@@ -143,9 +146,6 @@ Partial runs print no such result:
         # (1024, 31, 9) and (128, 8, 54), float32 and float64, and at the
         # first replayed from a CUDA graph: the parent/change A/B of the
         # fused solves, copied into a `git archive` of the parent
-    python3 chip_smoke.py --contact              # phase 1, the kernels
-        # checked and timed at the contact models' shapes, then phase 11
-        # (and phase 7, which runs beside the hopper batch)
     python3 chip_smoke.py --sass                 # no card needed: compile
         # csrc/riccati_fused.cu to a cubin for sm_90a, disassemble it, and
         # print each solve_batched_reg_kernel instantiation's static
@@ -281,9 +281,11 @@ BROKEN_EVERY, BROKEN_SCALE = 4, 1.0e4
 # route) and the bunny hop (a flat NLP, n=110, on the T=1 kernels) in
 # float64 as their reference tests run them
 HORIZON_HOPPER = 21
-# torch threads of the background process that runs the CPU float64
-# re-solves: it leaves the other cores to the host threads driving the card
-CPU_REF_THREADS = 3
+# the CPU float64 re-solves of phases 6, 11a and 11b run in three
+# background processes of CPU_REF_THREADS torch threads each, beside the
+# hopper batch's cold batch and not beside any timed window; they leave
+# two cores to the two processes driving the card
+CPU_REF_THREADS = 2
 B_HOPPER = 1024
 MIN_SOLVED_HOPPER = B_HOPPER - 32
 CPU_LANES_HOPPER = 4
@@ -299,13 +301,16 @@ CONTACT_KERNELS = {
     "box move": ("factor_stream", "solve_fwd_stream", "solve_bwd_stream"),
     "bunny hop": ("factor_t1", "solve_t1"),
 }
-# the kernels at the contact paths' shapes (phases 2 and 5): the lanes
-# pair at the hopper's (B, T, d), the stream sweeps at its border's K=4
-# and the stream kernels at the box's, the T=1 pair at the bunny hop's n
+# the kernels at the contact paths' shapes (phases 2 and 5), each at the
+# hopper batch's B and at B=1, the single solves' (11a, 11c, 11d): the
+# lanes pair at the hopper's (T, d) and ball-in-cup's, the stream sweeps
+# at the hopper border's K=4 and the stream kernels at the box's, the T=1
+# pair at the bunny hop's n. B=1 leaves no room for a lane that is not
+# positive definite beside one that is: those checks take none
 B_CONTACT = 1024
-CONTACT_LANES_SHAPES = ((B_CONTACT, HORIZON_HOPPER, 26),)
-CONTACT_STREAM_SHAPES = ((B_CONTACT, HORIZON_HOPPER, 26, 4), (B_CONTACT, 11, 33, 1))
-CONTACT_T1_SHAPES = ((B_CONTACT, 110),)
+CONTACT_LANES_SHAPES = tuple((B, HORIZON_HOPPER, d) for d in (26, 12) for B in (B_CONTACT, 1))
+CONTACT_STREAM_SHAPES = tuple((B, T, d, K) for T, d, K in ((HORIZON_HOPPER, 26, 4), (11, 33, 1)) for B in (B_CONTACT, 1))
+CONTACT_T1_SHAPES = ((B_CONTACT, 110), (1, 110))
 
 
 def check(cond, msg):
@@ -663,13 +668,14 @@ def check_lanes(tag, cr, dev, B, T, d, errs, times=None, times64=None):
 
 def tridiag_inputs(B, T, d, K):
     """Random SPD block-tridiagonal (D, O), right-hand sides b (B, T, d, K),
-    and 8 lanes whose middle (or 15th) stage is negated."""
+    and 8 lanes whose middle (or 15th) stage is negated (none below 8
+    lanes)."""
     rng = np.random.default_rng(T * 100 + d + 1000 * (K - 1))
     A = rng.normal(size=(B, T, d, d))
     D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
     O64 = 0.3 * rng.normal(size=(B, T - 1, d, d))
     bad_stage = 15 if T > 15 else min(4, T - 1)
-    bad_lanes = np.linspace(0, B - 1, 8).astype(int)
+    bad_lanes = np.linspace(0, B - 1, 8).astype(int) if B >= 8 else np.zeros(0, int)
     D64[bad_lanes, bad_stage] *= -1.0
     return D64, O64, rng.normal(size=(B, T, d, K)), bad_stage, bad_lanes
 
@@ -722,7 +728,7 @@ def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None):
             ("factor_stream", L, Lp, stage_ok), ("factor_stream M", M, Mp, stage_ok[:, :-1]),
             ("solve_fwd_stream", u, up, lanes_ok), ("solve_bwd_stream", x, xp, lanes_ok),
         ):
-            rel_check(tag, kname, name, shape, got, ref, ok, errs, (kname, name, T, K))
+            rel_check(tag, kname, name, shape, got, ref, ok, errs, (kname, name, B, T, d, K))
         print(f"{tag} stream kernels {name} {shape}: NaN lanes {bad_lanes.tolist()} from stage {bad_stage} on, on both paths")
         into = times if name == "float32" else times64
         if into is not None:
@@ -1486,7 +1492,7 @@ def hopper_guesses(g0):
 
 
 def hopper_cpu_reference(which):
-    """A CPU float64 re-solve of phase 11, run in the background process
+    """A CPU float64 re-solve of phase 11, run in a background process
     (cpu_references): the bench's single solve from its guess ("single",
     11a) or the batch's first CPU_LANES_HOPPER lanes ("batch", 11b), as
     (x, solved, iterations) numpy arrays."""
@@ -1504,7 +1510,7 @@ def hopper_cpu_reference(which):
 
 def quadruped_cpu_reference():
     """Phase 6's CPU float64 re-solve of the quadruped batch's first
-    CPU_LANES_QUAD lanes, run in the background process, as (x, solved,
+    CPU_LANES_QUAD lanes, run in a background process, as (x, solved,
     iterations) numpy arrays."""
     import torch
 
@@ -1517,22 +1523,22 @@ def quadruped_cpu_reference():
     return st.p.x.numpy(), st.solved.numpy(), st.total_i.numpy()
 
 
-def cpu_references(pool, quadruped=True):
-    """Start the CPU float64 re-solves in `pool` (one process beside the
-    card's work, so that the card never waits on the CPU); returns their
-    futures by name."""
-    refs = {"quadruped": pool.submit(quadruped_cpu_reference)} if quadruped else {}
-    refs["hopper single"] = pool.submit(hopper_cpu_reference, "single")
-    refs["hopper batch"] = pool.submit(hopper_cpu_reference, "batch")
-    return refs
+def cpu_references(pool):
+    """Start the CPU float64 re-solves of phases 6, 11a and 11b in `pool`
+    (spawn_pool(3): one process each); returns their futures by name."""
+    return {
+        "hopper batch": pool.submit(hopper_cpu_reference, "batch"),
+        "quadruped": pool.submit(quadruped_cpu_reference),
+        "hopper single": pool.submit(hopper_cpu_reference, "single"),
+    }
 
 
-def spawn_pool():
-    """A pool of one spawned process (the parent holds a CUDA context)."""
+def spawn_pool(workers=1):
+    """A pool of spawned processes (the parent holds a CUDA context)."""
     import concurrent.futures
     import multiprocessing
 
-    return concurrent.futures.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    return concurrent.futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"))
 
 
 def hopper_tol_options(Options):
@@ -1541,12 +1547,12 @@ def hopper_tol_options(Options):
     return tol_options(Options, central_path_initial=0.1, max_iterative_refinement=2)
 
 
-def hopper_single_phase(tag, cr, Options, dev, refs):
+def hopper_single_phase(tag, cr, Options, dev):
     """Phase 11a: the bench's hopper gait, a cold and a warm float32 solve
-    on the card (the warm one from the guess plus 1e-5, as the bench
-    runs it), and the cold one against its CPU float64 re-solve (the
-    future `refs`, hopper_cpu_reference("single")). Returns the cold
-    solve's launches."""
+    on the card (the warm one from the guess plus 1e-5, as the bench runs
+    it). Returns the cold solve's launches and a function that holds the
+    cold solve against its CPU float64 re-solve
+    (hopper_cpu_reference("single")'s result)."""
     import torch
 
     opts = hopper_tol_options(Options)
@@ -1583,22 +1589,22 @@ def hopper_single_phase(tag, cr, Options, dev, refs):
         check(tuple(r.variables.shape) == (dims.variables,) and r.variables.dtype == torch.float32, "hopper gait solution")
         check(bool(torch.isfinite(r.variables).all()), f"hopper gait {label}: non-finite solution")
         check(bool(r.solved), f"the hopper gait's {label} solve did not solve on the card")
-    r = runs["cold"][0]
-    hopper_resolve(
-        tag, "hopper gait", hopper_solver(opts, "cpu"), r.variables[None], [bool(r.solved)], [int(r.iterations)],
-        refs.result(),
+    r, launches = runs["cold"]
+    x = r.variables[None].cpu()
+    return launches, lambda ref: hopper_resolve(
+        tag, "hopper gait", hopper_solver(opts, "cpu"), x, [bool(r.solved)], [int(r.iterations)], ref
     )
-    return runs["cold"][1]
 
 
-def hopper_batch_phase(tag, cr, Options, dev, phase, refs, join):
+def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     """Phase 11b: a B=1024 batch of the hopper gait in float32, each lane's
     guess the bench guess plus 0.01 N(0, 1) (hopper_guesses): at least
-    MIN_SOLVED_HOPPER lanes solved, the first lanes against their CPU
-    float64 re-solves (the future `refs`), then, once `join()` has waited
-    for whatever else ran on the card beside the cold batch, a timed
-    warm batch with per-layer host timers and a profile of the first
-    lockstep iterations. Returns the cold batch's launches."""
+    MIN_SOLVED_HOPPER lanes solved. Then `settle` is given a function that
+    holds the first lanes against their CPU float64 re-solves
+    (hopper_cpu_reference("batch")'s result), and waits for whatever ran
+    beside the cold batch; then a timed warm batch with per-layer host
+    timers and a profile of the first lockstep iterations. Returns the
+    cold batch's launches."""
     import torch
     from calipso_tpu_torch.solver import kkt
 
@@ -1616,7 +1622,7 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, refs, join):
     st = res.state
     print(
         f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c and 11d ran on the card "
-        f"beside it, in a second process): {cold_s:.3f} s; host syncs "
+        f"beside it, in a second process, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
         f"{bts.stats['host_syncs']}; digest of its solution {x_digest(st)}"
     )
     check_route(tag, "hopper gait", launches)
@@ -1632,10 +1638,9 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, refs, join):
         f"{JAX_HOPPER_ITERATIONS}"
     )
     check(int(solved.sum()) >= MIN_SOLVED_HOPPER, f"only {int(solved.sum())} of {B_HOPPER} hopper lanes solved")
-    phase("11b: hopper batch against its CPU float64 re-solve")
-    hopper_resolve(tag, "hopper batch", hopper_solver(opts, "cpu"), x[:CPU_LANES_HOPPER], solved, iters, refs.result())
-    join()
-    phase("11b: hopper batch warm batch and profile (the card to itself)")
+    xc = x[:CPU_LANES_HOPPER].cpu()
+    settle(lambda ref: hopper_resolve(tag, "hopper batch", hopper_solver(opts, "cpu"), xc, solved, iters, ref))
+    phase("11b: hopper batch warm batch and profile (the card and the host to itself)")
     layers = [(bts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
     with layer_timers(layers) as spent:
         wall = warm_batches(tag, "hopper", B_HOPPER, bts, lambda: bts.solve(guess=guess), st, reps=1)
@@ -1654,6 +1659,28 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, refs, join):
     return launches
 
 
+def solve_counting_multi(rc, solve):
+    """Run solve() to the card's end with ops/riccati.solve_multi (the
+    border's solves) counted; returns (its result, the calls)."""
+    import torch
+
+    calls = 0
+    inner = rc.solve_multi
+
+    def counted(*a):
+        nonlocal calls
+        calls += 1
+        return inner(*a)
+
+    rc.solve_multi = counted
+    try:
+        out = solve()
+        torch.cuda.synchronize()
+    finally:
+        rc.solve_multi = inner
+    return out, calls
+
+
 def hopper_golden_phase(tag, cr, rc, Options, dev):
     """Phase 11c: the hopper gait in float64 with default Options on the
     card against tests/golden/hopper_gait.npz, as
@@ -1666,21 +1693,9 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
 
     gold = np.load(GOLDEN_HOPPER)
     gts = hopper_solver(Options(), "cuda")
-    multi = {"calls": 0}
-    solve_multi = rc.solve_multi
-
-    def counted_solve_multi(*a):
-        multi["calls"] += 1
-        return solve_multi(*a)
-
-    rc.solve_multi = counted_solve_multi
     zero_launches(cr)
     t0 = time.time()
-    try:
-        gres = gts.solve()
-        torch.cuda.synchronize()
-    finally:
-        rc.solve_multi = solve_multi
+    gres, multi = solve_counting_multi(rc, gts.solve)
     wall = time.time() - t0
     launches = dict(cr.LAUNCHES)
     check(gres.variables.dtype == torch.float64, f"hopper golden solved in {gres.variables.dtype}")
@@ -1696,12 +1711,12 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
     print(
         f"{tag} hopper gait (float64, card): solved {bool(gres.solved)}, iterations {iters} (golden {ref}, band "
         f"{lo:.1f}-{hi:.1f}), max state gap to the golden {gap:.3e} (limit 1e-2), {wall:.2f} s; solve_multi calls "
-        f"{multi['calls']}; in float64: max |g| {eq_viol:.3e}, least cone margin {cone_margin:.3e}, travel "
+        f"{multi}; in float64: max |g| {eq_viol:.3e}, least cone margin {cone_margin:.3e}, travel "
         f"{travel:.6f}, least friction margin {friction:.3e}"
         + ("" if on_golden else "; another local solution than the golden's")
     )
     check_route(tag, "hopper gait", launches)
-    check(multi["calls"] > 0, "the hopper gait's border never ran through solve_multi")
+    check(multi > 0, "the hopper gait's border never ran through solve_multi")
     check(contract_met(gres.state, Options()), "the hopper gait (float64) did not meet the contract on the card")
     if on_golden:
         check(lo <= iters <= hi, f"hopper golden iterations {iters} outside +-15% of {ref}")
@@ -1809,30 +1824,45 @@ def float64_phases(tag, t_start):
     return out
 
 
-def contact_phases(tag, cr, Options, dev, phase, refs, t_start):
+def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start):
     """Phase 11 (and phase 7, which runs beside it), each step with the
     launch counts of its process set to 0 just before it and read just
-    after; `refs` are the CPU float64 re-solves' futures. Returns {path:
-    launches}."""
+    after. Only the hopper batch's cold batch shares the card and the
+    host: phases 7, 11c and 11d run beside it in a second process, and the
+    CPU float64 re-solves of phases 6, 11a and 11b in three more, whose
+    results phase 6's `quadruped_against_cpu` and 11a's and 11b's checks
+    then read. Returns {path: launches}."""
     phase("11a: hopper gait (float32, the bench's single solve)")
-    out = {"hopper_gait": hopper_single_phase(tag, cr, Options, dev, refs["hopper single"])}
-    with spawn_pool() as second:
+    launches, single_against_cpu = hopper_single_phase(tag, cr, Options, dev)
+    out = {"hopper_gait": launches}
+    with spawn_pool(3) as cpu, spawn_pool() as second:
+        refs = cpu_references(cpu)
         beside = second.submit(float64_phases, tag, t_start)
-        phase(f"11b: hopper gait batch (B={B_HOPPER}, float32), and phases 7, 11c and 11d in a second process")
+        phase(
+            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c and 11d in a second "
+            "process and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
+        )
 
-        def join():
+        def settle(batch_against_cpu):
+            phase("6: quadruped against its CPU float64 re-solve")
+            quadruped_against_cpu(refs["quadruped"].result())
+            phase("11a: hopper gait against its CPU float64 re-solve")
+            single_against_cpu(refs["hopper single"].result())
+            phase("11b: hopper batch against its CPU float64 re-solve")
+            batch_against_cpu(refs["hopper batch"].result())
             phase("11b: waiting for the second process")
             out.update(beside.result())
 
-        out["hopper_batch"] = hopper_batch_phase(tag, cr, Options, dev, phase, refs["hopper batch"], join)
+        out["hopper_batch"] = hopper_batch_phase(tag, cr, Options, dev, phase, settle)
     return out
 
 
-def quadruped_phase(tag, cr, Options, dev, phase, qref):
+def quadruped_phase(tag, cr, Options, dev, phase):
     """Phase 6: the bench's batched quadruped on the card (riccati backend,
-    stream route), the first lanes against their CPU float64 re-solve (the
-    future `qref`, quadruped_cpu_reference), a warm batch with per-layer
-    host timers and a profile. Returns the cold batch's launches."""
+    stream route), a warm batch with per-layer host timers and a profile.
+    Returns the cold batch's launches and a function that holds its first
+    lanes against their CPU float64 re-solve (quadruped_cpu_reference's
+    result), which contact_phases calls once the re-solve is done."""
     import torch
 
     phase("6: quadruped")
@@ -1877,33 +1907,37 @@ def quadruped_phase(tag, cr, Options, dev, phase, qref):
     depth = foot_depth(qts, qx)[qst.solved]
     print(f"{tag} quadruped feet: lowest signed distance over solved lanes {float(depth.min()):.3e} (limit -{FOOT_DEPTH_LIMIT:g})")
     check(float(depth.min()) >= -FOOT_DEPTH_LIMIT, f"a foot of a solved lane is {float(depth.min()):.3e} below the ground")
-    phase("6: quadruped against its CPU float64 re-solve")
-    ref_x, cpu_solved, ref_iters = qref.result()
-    check(
-        cpu_solved.tolist() == qsolved[:CPU_LANES_QUAD].tolist(),
-        f"quadruped: solved flags differ from the CPU float64 re-solve: {cpu_solved.tolist()} vs "
-        f"{qsolved[:CPU_LANES_QUAD].tolist()}",
-    )
-    states = np.concatenate(qts._state_indices)
     xq = qx[:CPU_LANES_QUAD].double().cpu()
-    eq_viol, cone_margin = contract_in_float64(quadruped_solver(qopts, "cpu", np.float64), xq, x0q_np[:CPU_LANES_QUAD])
-    for lane in range(CPU_LANES_QUAD):
-        gap = float((xq[lane, states] - torch.from_numpy(ref_x[lane, states])).abs().max())
-        both = bool(cpu_solved[lane] and qsolved[lane])
-        branch = both and gap > CPU_ATOL_QUAD
-        print(
-            f"{tag} quadruped lane {lane}: CPU float64 re-solve solved {bool(cpu_solved[lane])}, "
-            f"iterations {int(ref_iters[lane])} (card {int(qiters[lane])}), max state gap {gap:.3e} "
-            + (f"(limit {CPU_ATOL_QUAD:g})" if both else "(not both solved)")
-            + (
-                f", another local solution: the card's, in float64, max |g| {eq_viol[lane]:.3e}, "
-                f"least cone margin {cone_margin[lane]:.3e} (limits {BRANCH_TOL:g})" if branch else ""
-            )
-        )
+
+    def against_cpu(ref):
+        ref_x, cpu_solved, ref_iters = ref
         check(
-            not branch or (eq_viol[lane] <= BRANCH_TOL and cone_margin[lane] >= -BRANCH_TOL),
-            f"quadruped lane {lane}: {gap:.3e} from the CPU re-solve and off the contract in float64",
+            cpu_solved.tolist() == qsolved[:CPU_LANES_QUAD].tolist(),
+            f"quadruped: solved flags differ from the CPU float64 re-solve: {cpu_solved.tolist()} vs "
+            f"{qsolved[:CPU_LANES_QUAD].tolist()}",
         )
+        states = np.concatenate(qts._state_indices)
+        eq_viol, cone_margin = contract_in_float64(
+            quadruped_solver(qopts, "cpu", np.float64), xq, x0q_np[:CPU_LANES_QUAD]
+        )
+        for lane in range(CPU_LANES_QUAD):
+            gap = float((xq[lane, states] - torch.from_numpy(ref_x[lane, states])).abs().max())
+            both = bool(cpu_solved[lane] and qsolved[lane])
+            branch = both and gap > CPU_ATOL_QUAD
+            print(
+                f"{tag} quadruped lane {lane}: CPU float64 re-solve solved {bool(cpu_solved[lane])}, "
+                f"iterations {int(ref_iters[lane])} (card {int(qiters[lane])}), max state gap {gap:.3e} "
+                + (f"(limit {CPU_ATOL_QUAD:g})" if both else "(not both solved)")
+                + (
+                    f", another local solution: the card's, in float64, max |g| {eq_viol[lane]:.3e}, "
+                    f"least cone margin {cone_margin[lane]:.3e} (limits {BRANCH_TOL:g})" if branch else ""
+                )
+            )
+            check(
+                not branch or (eq_viol[lane] <= BRANCH_TOL and cone_margin[lane] >= -BRANCH_TOL),
+                f"quadruped lane {lane}: {gap:.3e} from the CPU re-solve and off the contract in float64",
+            )
+
     phase("6: quadruped warm batches")
     from calipso_tpu_torch.solver import kkt
 
@@ -1926,16 +1960,13 @@ def quadruped_phase(tag, cr, Options, dev, phase, qref):
         tag, f"quadruped (first {PROFILE_ITERS_QUAD} lockstep iterations of a batch)",
         lambda: pbts.solve(parameters=x0q), host_ops=False,
     )
-
-    return qlaunches
+    return qlaunches, against_cpu
 
 
 def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
     """Phase 7: the quadruped gait golden in float64 on the card (the
     riccati border through solve_multi on the stream kernels). Returns
     its launches."""
-    import torch
-
     phase("7: quadruped gait")
     from calipso_tpu_torch import TrajOptSolver
     from calipso_tpu_torch.models import quadruped
@@ -1953,21 +1984,9 @@ def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
         gts.solver.options.linear_solver == "riccati" and len(gst.general_stages) == 2,
         f"gait: {gts.solver.options.linear_solver}, general stages {gst.general_stages}",
     )
-    multi = {"calls": 0}
-    solve_multi = rc.solve_multi
-
-    def counted_solve_multi(*a):
-        multi["calls"] += 1
-        return solve_multi(*a)
-
-    rc.solve_multi = counted_solve_multi
     zero_launches(cr)
     t0 = time.time()
-    try:
-        gres = gts.solve()
-        torch.cuda.synchronize()
-    finally:
-        rc.solve_multi = solve_multi
+    gres, multi = solve_counting_multi(rc, gts.solve)
     gwall = time.time() - t0
     glaunches = dict(cr.LAUNCHES)
     gz = gres.variables.cpu().numpy()
@@ -1977,14 +1996,14 @@ def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
     print(
         f"{tag} quadruped gait (float64, card): solved {bool(gres.solved)}, iterations {giters} "
         f"(golden {gref}, band {0.85 * gref:.1f}-{1.15 * gref:.1f}), max state gap to the golden {ggap:.3e} "
-        f"(limit 1e-2), {gwall:.2f} s; solve_multi calls {multi['calls']}; launches {glaunches}"
+        f"(limit 1e-2), {gwall:.2f} s; solve_multi calls {multi}; launches {glaunches}"
     )
     check(bool(gres.solved), "the quadruped gait did not solve on the card")
     check(ggap <= 1e-2, f"gait states differ from the golden by {ggap:.3e}")
     check(0.85 * gref <= giters <= 1.15 * gref, f"gait iterations {giters} outside +-15% of {gref}")
     check(
-        multi["calls"] > 0 and all(glaunches[k] > 0 for k in QUAD_STREAM_KERNELS),
-        f"the gait's border never ran on the stream kernels: {multi['calls']} solve_multi calls, {glaunches}",
+        multi > 0 and all(glaunches[k] > 0 for k in QUAD_STREAM_KERNELS),
+        f"the gait's border never ran on the stream kernels: {multi} solve_multi calls, {glaunches}",
     )
 
     return glaunches
@@ -2127,7 +2146,10 @@ def register_kernels_fit(tag, log, sources):
 
 
 def non_pd_lanes(B):
-    """The 8 lanes made not positive definite in a T=1 check of B lanes."""
+    """The 8 lanes made not positive definite in a T=1 check of B lanes
+    (none below 8 lanes)."""
+    if B < 8:
+        return ()
     return NON_PD if B == B_FLAG else tuple(int(i) for i in np.linspace(0, B - 1, 8).astype(int))
 
 
@@ -2191,7 +2213,7 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
 def contact_kernel_checks(tag, cr, dev, errs):
     """Phase 2e: the kernels against their plain versions at the contact
     paths' shapes (CONTACT_*_SHAPES), float32 and float64, 8 lanes not
-    positive definite. Returns {shape label: (float32 times, float64
+    positive definite where B >= 8. Returns {shape label: (float32 times, float64
     times)} of kernel, plain and bound times, which phase 5 completes."""
     out = {}
     for B, T, d in CONTACT_LANES_SHAPES:
@@ -2617,10 +2639,9 @@ def compare_ops(ref_path, path):
     }))
 
 
-def full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start):
+def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     """Every phase after the build, in order, then the kernels line and
-    the result; `refs` are the CPU float64 re-solves' futures
-    (cpu_references)."""
+    the result."""
     import torch
 
     errs, times, contact_times = kernel_phases(tag, cr, dev, phase)
@@ -2646,11 +2667,11 @@ def full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start):
     fallback_fires_phase(tag, cr, Options, dev)
 
     # 6. the batched quadruped on the card (riccati backend, stream route)
-    qlaunches = quadruped_phase(tag, cr, Options, dev, phase, refs["quadruped"])
+    qlaunches, quadruped_against_cpu = quadruped_phase(tag, cr, Options, dev, phase)
 
-    # 11. the contact models on the card; 7. the quadruped gait golden,
-    # beside the hopper batch
-    path_launches = contact_phases(tag, cr, Options, dev, phase, refs, t_start)
+    # 11. the contact models on the card; 7. the quadruped gait golden and
+    # the CPU float64 re-solves, beside the hopper batch's cold batch
+    path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
 
     sources = {
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",
@@ -2659,14 +2680,15 @@ def full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start):
         "fused": "calipso_tpu_torch/csrc/riccati_fused.cu",
     }
     rocket = (B_ROCKET, HORIZON_ROCKET, 9)  # the lanes and fused kernels' main-path shape
+    quad = STREAM_SHAPES[0]  # the stream kernels'
     meta = {
         "factor_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:633", launches, ("factor_t1", "float32", B_FLAG, 32)),
         "solve_t1": ("t1", "calipso_tpu/ops/pallas_riccati.py:661", launches, ("solve_t1", "float32", B_FLAG, 32)),
         "factor_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:489", rlaunches, ("factor_lanes", "float32", *rocket)),
         "solve_lanes": ("lanes", "calipso_tpu/ops/pallas_riccati.py:583", rlaunches, ("solve_lanes", "float32", *rocket)),
-        "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", HORIZON_QUAD, 1)),
-        "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", HORIZON_QUAD, 1)),
+        "factor_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:813", qlaunches, ("factor_stream", "float32", *quad)),
+        "solve_fwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1081", qlaunches, ("solve_fwd_stream", "float32", *quad)),
+        "solve_bwd_stream": ("stream", "calipso_tpu/ops/pallas_riccati.py:1169", qlaunches, ("solve_bwd_stream", "float32", *quad)),
         "solve_batched_fused": ("fused", "calipso_tpu/ops/pallas_riccati.py:117", blaunches, ("solve_batched_fused", "float32", *rocket)),
         "solve_batched_lanes": ("fused", "calipso_tpu/ops/pallas_riccati.py:245", blaunches, ("solve_batched_lanes", "float32", *rocket)),
         # the layout moves the reference leaves to XLA around _riccati_lanes_kernel
@@ -2675,8 +2697,8 @@ def full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start):
     errs[("factor_lanes", "float32", *rocket)] = max(
         errs[("factor_lanes", "float32", *rocket)], errs[("factor_lanes M", "float32", *rocket)]
     )
-    errs[("factor_stream", "float32", HORIZON_QUAD, 1)] = max(
-        errs[("factor_stream", "float32", HORIZON_QUAD, 1)], errs[("factor_stream M", "float32", HORIZON_QUAD, 1)]
+    errs[("factor_stream", "float32", *quad)] = max(
+        errs[("factor_stream", "float32", *quad)], errs[("factor_stream M", "float32", *quad)]
     )
     kernels = []
     for k, (src, replaces, counts, err_key) in meta.items():
@@ -2722,11 +2744,6 @@ def main():
         "--batched-times", action="store_true",
         help="only build, then time the two fused solves (and the lanes wrapper's layout copies) at the rocket's "
         "and the quadruped's shapes, float32 and float64, and replayed from a CUDA graph at the rocket's",
-    )
-    ap.add_argument(
-        "--contact", action="store_true",
-        help="only build, then check and time the kernels at the contact models' shapes and run phase 11 (the "
-        "hopper gait single, batched and golden, ball-in-cup, box move, bunny hop; phase 7 beside it)",
     )
     ap.add_argument(
         "--sass", action="store_true",
@@ -2789,14 +2806,7 @@ def main():
     if args.history is not None:
         history_probe(tag, cr, rc, Options, dev, groups, phase, args.ops_out, args.linalg)
         return 0
-    with spawn_pool() as cpu:
-        refs = cpu_references(cpu, quadruped=not args.contact)
-        if args.contact:
-            phase("2e: kernels at the contact models' shapes")
-            contact_kernel_times(tag, cr, dev, contact_kernel_checks(tag, cr, dev, {}))
-            contact_phases(tag, cr, Options, dev, phase, refs, t_start)
-            return 0
-        return full_run(tag, card, cr, rc, Options, dev, phase, refs, t_start)
+    return full_run(tag, card, cr, rc, Options, dev, phase, t_start)
 
 
 if __name__ == "__main__":

@@ -73,6 +73,29 @@ def test_kernels_match_plain(cuda, n, dtype):
     assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [32, 110])
+def test_kernels_match_plain_single_system(cuda, n, dtype):
+    """One system, as an unbatched solve gives the T=1 kernels (the bunny
+    hop's n=110 on the wide kernels, n=32 on the register ones): a
+    positive definite one matches the plain version, a negated one is NaN
+    on both paths."""
+    rng = np.random.default_rng(n + 1)
+    for non_pd in ((), (0,)):
+        S = torch.tensor(spd_batch(rng, 1, n, non_pd=non_pd), dtype=dtype, device=cuda)
+        b = torch.tensor(rng.normal(size=(1, n)), dtype=dtype, device=cuda)
+        L, Lp = cuda_riccati.factor_t1(S), cuda_riccati.factor_t1_plain(S)
+        x, xp = cuda_riccati.solve_t1(L, b), cuda_riccati.solve_t1_plain(Lp, b)
+        torch.cuda.synchronize()
+        if non_pd:
+            assert bool(torch.isnan(L).any()) and bool(torch.isnan(Lp).any())
+            assert bool(torch.isnan(x).all())
+        else:
+            ok = torch.ones(1, dtype=torch.bool, device=cuda)
+            assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+            assert _rel_err(x, xp, ok) <= RTOL[dtype]
+
+
 def tridiag_batch(rng, B, T, d, non_pd=()):
     """Block-tridiagonal SPD batches: D (B, T, d, d) blocks A A' + d I,
     O (B, T-1, d, d) couplings 0.3 N(0, 1); for each (lane, stage) in
@@ -89,12 +112,13 @@ def tridiag_batch(rng, B, T, d, non_pd=()):
 @pytest.mark.parametrize(
     "B,T,d",
     [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33),
-     (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12)],
+     (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12), (1, 21, 26), (1, 21, 12)],
 )
 def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     """The batched rocket's and the contact class's stage blocks (31 x 9,
     8 x 54), the hopper batch's (21 x 26, in the register factor's width-32
-    bucket) and ball-in-cup's (21 x 12), rocket101's (one lane, 101 x 9), a ragged edge past the
+    bucket) and ball-in-cup's (21 x 12), each also as the single solves
+    give them (one lane), rocket101's (one lane, 101 x 9), a ragged edge past the
     rocket's B (1030), and the edges of what the kernels take (T=1, d=1,
     d=64, whose float64 working set needs the raised shared-memory limit,
     d=33 with two rows per thread, and a horizon whose u does not fit in
@@ -237,7 +261,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     [(128, 8, 54, 1), (128, 8, 54, 22), (13, 8, 54, 1), (9, 1, 5, 3), (5, 3, 64, 40),
      (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33),
      (17, 2, 8, 1), (17, 3, 9, 1), (9, 4, 16, 5), (11, 3, 55, 1), (11, 3, 56, 33), (5, 5, 64, 2),
-     (1024, 21, 26, 4), (1024, 11, 33, 1)],
+     (1024, 21, 26, 4), (1024, 11, 33, 1), (1, 21, 26, 4), (1, 11, 33, 1)],
 )
 def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     """The batched quadruped's stage blocks (8 x 54) with one and with 22
@@ -248,12 +272,15 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     one 32-column chunk. The factor's 8-wide panels at their edges: one
     panel (d=8), a 1-wide last panel (d=9), a 7-wide one over ragged 4 x 4
     tiles (d=55), whole panels (16, 56, 64); the backward sweep's second
-    row a thread (d > 32) and a one-column second chunk (K=33). Lanes 2 and B-1
-    are not positive definite from the middle stage on: NaN from that
-    stage on, on both paths."""
+    row a thread (d > 32) and a one-column second chunk (K=33); the hopper's
+    and the box's also as their single solves give them (one lane). Lanes 2
+    and B-1 (those of them that exist, with B > 1) are not positive
+    definite from the middle stage on: NaN from that stage on, on both
+    paths."""
     rng = np.random.default_rng(T * 100 + d + K)
     bad_stage = T // 2
-    D, O, _ = tridiag_batch(rng, B, T, d, non_pd=((2, bad_stage), (B - 1, bad_stage)))
+    bad = sorted({lane for lane in (2, B - 1) if lane < B}) if B > 1 else []
+    D, O, _ = tridiag_batch(rng, B, T, d, non_pd=[(lane, bad_stage) for lane in bad])
     b = rng.normal(size=(B, T, d, K))
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
     before = dict(cuda_riccati.LAUNCHES)
@@ -269,7 +296,7 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     stage_nan = lambda A: torch.isnan(A).flatten(2).any(-1).cpu().numpy()
     assert (stage_nan(L) == stage_nan(Lp)).all() and (stage_nan(M) == stage_nan(Mp)).all()
     want = np.zeros((B, T), bool)
-    want[[2, B - 1], bad_stage:] = True
+    want[bad, bad_stage:] = True
     assert (stage_nan(L) == want).all()
     assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
     ok = torch.tensor(~want, device=cuda)
