@@ -1,12 +1,15 @@
-// Batched dense Cholesky factor and L L^T substitution for small n:
-// the T=1 case of the block-tridiagonal Riccati factorization, which is
-// the whole linear algebra of the schur KKT backend.
+// Batched dense Cholesky factor and L L^T substitution for n <= 128: the
+// T=1 case of the block-tridiagonal Riccati factorization, which is the
+// whole linear algebra of the schur KKT backend.
 //
 // Replaces the TPU kernels calipso_tpu/ops/pallas_riccati.py
-// _factor_lanes_t1_kernel and _solve_lanes_t1_kernel. The TPU versions put
-// the batch on the 128-lane vector axis and emitted a transposed factor;
-// here one warp owns one matrix and reads and writes the public row-major
-// (B, n, n) layout directly.
+// _factor_lanes_t1_kernel (:633; its pallas_call at :704) and
+// _solve_lanes_t1_kernel (:661; :764). The TPU versions put the batch on
+// the 128-lane vector axis and emitted a transposed factor; here a warp
+// (n <= 32) or a thread block (n in 33..128) owns one matrix and reads and
+// writes the public row-major (B, n, n) layout directly. Wider systems
+// take the library route one layer up (ops/riccati.t1_route), as the
+// reference takes XLA's Cholesky where no Pallas tile fits.
 //
 // Bound: the factor reads S's lower triangle and writes L whole (its
 // upper zeros too, which the contract writes), 22.2 MB at the flagship's
@@ -14,8 +17,8 @@
 // matrix (89 MFLOP); the solve reads L's lower triangle and b and writes
 // x, 19.4 MB (5.8 us) against 4.2 MFLOP. Both are bound by memory traffic
 // in principle and by the chain of n dependent pivot steps in practice,
-// which the designs below keep free of barriers, divisions and
-// shared-memory round trips.
+// which the designs below keep free of divisions and shared-memory round
+// trips, and, within a 32-wide panel, of barriers.
 //
 // Both kernels for n <= 32 (the flagship's n = 32) are a warp a system,
 // thread i owning row i in registers (riccati_reg.cuh), on a grid of as
@@ -54,14 +57,57 @@
 // row into them in 16-byte pieces, and each pivot is one multiply, one
 // __shfl_sync of u_j and one FMA (a select keeps the rows it does not
 // touch). The backward sweep runs the same way on column i of L, L[j][i]
-// for j > i (consecutive words of row j across the warp), read into the
-// same registers before its first step. b is read into a register and x
+// for j > i (consecutive words across the warp), read into the same
+// registers before its first step. b is read into a register and x
 // written from one.
 //
-// n in 33..128 keeps the first kernels (factor_t1_wide_kernel,
-// solve_t1_wide_kernel): the system in padded shared memory, staged whole,
-// a division and two __syncwarp a pivot, one warp a system on a grid of
-// ceil(B / warps) blocks.
+// n in 33..128 (the bunny hop's n = 110): a thread block of 4 warps a
+// system, one block a system (grid = B), so that one system is no longer
+// one warp's serial chain and a batch fills the card with as many blocks
+// as fit an SM (shared memory sets it: below). The system is cut into P =
+// ceil(n / 32) panels of 32 columns and held in shared memory as its
+// lower 32 x 32 blocks only (P(P+1)/2 of them, 10 at n = 128: 45 KB in
+// float32, 85 KB in float64), each at a row stride of 32 words plus 16
+// bytes, so that a quarter warp's 16-byte accesses to 8 consecutive rows
+// hit distinct banks. Rows past n are rows of the identity (the factor) or
+// zero (the solve), so every panel is 32 wide and every loop runs to 32
+// with no branch. The lower triangle comes in by cp.async, in 16-byte
+// pieces where n sizeof(T) and the address allow, else 8-byte, else
+// element by element (copy_panels), panel 0's columns as one batch and
+// the rest as a second, so that panel 0's chain starts while the rest is
+// in flight.
+//
+// factor_t1 (factor_t1_panel_kernel), right-looking: at panel p every
+// warp w that has a strip below the diagonal block (the 32 rows of block
+// row p + 1 + w; at most 3 at n <= 128), and warp 0, read the diagonal
+// block as rows s and their strip as rows o into registers and run
+// panel_pivots: the diagonal pivots by shuffles, repeated in each warp
+// (the same arithmetic, no barrier), the strip ending as L21 = A21
+// L11^-T, no division (reciprocal pivots). The last panel has no strip;
+// warp 0 runs all 32 of its pivots (a second, strip-less pivot loop that
+// stopped at the real rows doubled the unrolled code and made the float64
+// factor at B=1024 up to 1.9x slower on an H100). Then one barrier,
+// __syncthreads_and of the warps' failure flags, so a bad pivot in any
+// panel stops the block and the matrix comes out NaN over its lower
+// triangle; warp 0 writes L11 only after it, once every warp has read the
+// diagonal block. Then the trailing update A22 -= L21 L21' over the lower
+// blocks, in half blocks of 32 x 16 shared by the warps, each thread a 4 x
+// 4 register tile (rows ty + 8 ii, columns tx + 4 jj, so that a quarter
+// warp's 16-byte reads of L21 touch consecutive rows: no bank conflict)
+// reading L21 in 16-byte pieces; then a second barrier. Two barriers a
+// panel (8 at n = 128) where the first design took two __syncwarp and a
+// division a pivot. Full float32 on the FMA pipes, no TF32. L goes out a
+// row a warp, in 16-byte pieces where n sizeof(T) and L's address allow.
+//
+// solve_t1 (solve_t1_panel_kernel), blocked substitution: the forward
+// sweep solves panel p's diagonal block by warp 0 from registers, as the
+// register kernel's sweep does (1 / L_ii, one shuffle and one FMA a step),
+// then all threads take the rows below, b_r -= L[r][panel] u_panel, a
+// thread a row (16-byte reads of the row, 16-byte broadcasts of u); the
+// backward sweep solves the diagonal block's transpose the same way from
+// the bottom, then all threads take the columns left of it, u_t -=
+// sum_j L[j][t] x_j, a thread a column. Two barriers a panel a sweep where
+// the first design took two __syncwarp and a division a step.
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -70,71 +116,8 @@
 
 namespace {
 
-constexpr int kT1Warps = 4;  // warps a block of the register kernels
+constexpr int kT1Warps = 4;  // warps a block, of every T=1 kernel
 constexpr int kMaxN = 128;   // the widest system the T=1 kernels take
-
-// First row >= start that `lane` owns (a lane owns the rows i with
-// i % 32 == lane).
-__device__ __forceinline__ int first_row(int lane, int start) {
-  return start + ((lane - start) % kWarp + kWarp) % kWarp;
-}
-
-// factor_t1 for n in 33..128 (the first design): one warp per matrix. For
-// each pivot k the owner lane takes sqrt(S_kk) and a shuffle broadcasts
-// it; each lane scales its rows of column k and applies the rank-1 update
-// to its rows of the lower trailing block. A pivot that is <= 0 or not
-// finite marks the matrix as not positive definite: its whole lower
-// triangle is written as NaN (the inertia signal the solver reads). The
-// strict upper triangle is always 0.
-template <typename T>
-__global__ void factor_t1_wide_kernel(const T* __restrict__ S, T* __restrict__ L,
-                                      int B, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int ld = n + 1;  // padded rows: a column walk hits distinct banks
-  T* A = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * n * ld;
-  const long long b = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (b >= B) return;  // ragged batch edge; the kernel has no block barrier
-  const long long nn = static_cast<long long>(n) * n;
-  const T* src = S + b * nn;
-  for (int e = lane; e < n * n; e += kWarp) A[(e / n) * ld + e % n] = src[e];
-  __syncwarp();
-
-  bool bad = false;
-  for (int k = 0; k < n; ++k) {
-    const int owner = k % kWarp;
-    T piv = T(0);
-    int ok = 0;
-    if (lane == owner) {
-      const T d = A[k * ld + k];
-      ok = (d > T(0)) && (d - d == T(0));  // positive and finite
-      piv = ok ? sqrt(d) : T(0);
-    }
-    ok = __shfl_sync(0xffffffffu, ok, owner);
-    piv = __shfl_sync(0xffffffffu, piv, owner);
-    if (!ok) {
-      bad = true;
-      break;
-    }
-    if (lane == owner) A[k * ld + k] = piv;
-    for (int i = first_row(lane, k + 1); i < n; i += kWarp) A[i * ld + k] /= piv;
-    __syncwarp();
-    for (int i = first_row(lane, k + 1); i < n; i += kWarp) {
-      const T lik = A[i * ld + k];
-      for (int j = k + 1; j <= i; ++j) A[i * ld + j] -= lik * A[j * ld + k];
-    }
-    __syncwarp();
-  }
-
-  T* dst = L + b * nn;
-  const T nan = quiet_nan<T>();
-  for (int e = lane; e < n * n; e += kWarp) {
-    const int i = e / n, j = e % n;
-    dst[e] = j > i ? T(0) : (bad ? nan : A[i * ld + j]);
-  }
-}
 
 // 16 bytes of shared memory at p into r[j..] where `in`, else zeros
 template <int N>
@@ -317,50 +300,308 @@ __global__ void __launch_bounds__(kT1Warps * kWarp)
   __pipeline_wait_prior(0);
 }
 
-// solve_t1 for n in 33..128 (the first design): one warp per system L L^T x
-// = b, forward substitution L u = b by columns, then backward substitution
-// L^T x = u, with L and x in shared memory and the same row ownership as
-// factor_t1_wide_kernel.
-template <typename T>
-__global__ void solve_t1_wide_kernel(const T* __restrict__ Lg, const T* __restrict__ bg,
-                                T* __restrict__ xg, int B, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warps = blockDim.x / kWarp;
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int ld = n + 1;
-  T* A = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(warp) * (n * ld + n);
-  T* x = A + n * ld;
-  const long long b = static_cast<long long>(blockIdx.x) * warps + warp;
-  if (b >= B) return;
-  const long long nn = static_cast<long long>(n) * n;
-  const T* src = Lg + b * nn;
-  for (int e = lane; e < n * n; e += kWarp) A[(e / n) * ld + e % n] = src[e];
-  for (int i = lane; i < n; i += kWarp) x[i] = bg[b * n + i];
-  __syncwarp();
+// ---- n in 33..128: a thread block a system, 32-wide panels ------------
 
-  for (int j = 0; j < n; ++j) {
-    const T xj = x[j] / A[j * ld + j];
-    __syncwarp();  // every lane has read x[j] before its owner rewrites it
-    if (lane == j % kWarp) x[j] = xj;
-    for (int i = first_row(lane, j + 1); i < n; i += kWarp) x[i] -= A[i * ld + j] * xj;
-    __syncwarp();
+__host__ __device__ constexpr int panels(int n) { return (n + kWarp - 1) / kWarp; }
+
+// Row stride of a 32 x 32 block: 32 words plus 16 bytes
+template <typename T>
+__host__ __device__ constexpr int panel_ld() {
+  return kWarp + 16 / static_cast<int>(sizeof(T));
+}
+
+// Words of the lower blocks of an n x n system
+template <typename T>
+__host__ __device__ constexpr int panel_words(int n) {
+  return panels(n) * (panels(n) + 1) / 2 * kWarp * panel_ld<T>();
+}
+
+// Block (bi, bj), bi >= bj, of the lower blocks at A (stored by block rows)
+template <typename T>
+__device__ __forceinline__ T* blk(T* A, int bi, int bj) {
+  return A + (bi * (bi + 1) / 2 + bj) * (kWarp * panel_ld<T>());
+}
+
+// Entry (r, c), c>>5 <= r>>5, of the lower blocks at A
+template <typename T>
+__device__ __forceinline__ T at(T* A, int r, int c) {
+  return blk(A, r >> 5, c >> 5)[(r & 31) * panel_ld<T>() + (c & 31)];
+}
+
+// The pieces of the lower triangle of the n x n row-major src in column
+// panels [p_lo, p_hi) into the lower blocks at A, G bytes a piece, by the
+// block's warps (rows from the panel's first column on); the caller
+// commits the batch
+template <int G, typename T>
+__device__ __forceinline__ void copy_panels(T* A, const T* src, int n, int p_lo, int p_hi, int warp, int lane) {
+  constexpr int per = G / sizeof(T);    // words a piece
+  constexpr int pieces = kWarp / per;   // pieces of a panel's row
+  constexpr int rows = kWarp / pieces;  // rows a warp copies at once
+  const int pc = (lane & (pieces - 1)) * per;
+  for (int bj = p_lo; bj < p_hi; ++bj) {
+    const int c = bj * kWarp + pc;
+    for (int r = bj * kWarp + warp * rows + lane / pieces; r < n; r += kT1Warps * rows)
+      if (c <= r)
+        __pipeline_memcpy_async(blk(A, r >> 5, bj) + (r & 31) * panel_ld<T>() + pc,
+                                src + static_cast<long long>(r) * n + c, G);
   }
-  for (int j = n - 1; j >= 0; --j) {
-    const T xj = x[j] / A[j * ld + j];
-    __syncwarp();
-    if (lane == j % kWarp) x[j] = xj;
-    for (int i = lane; i < j; i += kWarp) x[i] -= A[j * ld + i] * xj;
-    __syncwarp();
+}
+
+// copy_panels in pieces of `bytes` (16, 8, or sizeof(T): what n sizeof(T)
+// and src's address allow)
+template <typename T>
+__device__ __forceinline__ void copy_panels_of(int bytes, T* A, const T* src, int n, int p_lo, int p_hi, int warp,
+                                               int lane) {
+  if (bytes == 16)
+    copy_panels<16>(A, src, n, p_lo, p_hi, warp, lane);
+  else if (bytes == 8)
+    copy_panels<8>(A, src, n, p_lo, p_hi, warp, lane);
+  else
+    copy_panels<sizeof(T)>(A, src, n, p_lo, p_hi, warp, lane);
+}
+
+// The rows past n (all in the last block row) of every lower block: the
+// identity's where `unit`, else zeros
+template <typename T>
+__device__ __forceinline__ void pad_rows(T* A, int n, bool unit, int warp, int lane) {
+  const int P = panels(n);
+  for (int r = n + warp; r < P * kWarp; r += kT1Warps)
+    for (int bj = 0; bj < P; ++bj)
+      blk(A, P - 1, bj)[(r & 31) * panel_ld<T>() + lane] = unit && bj == P - 1 && (r & 31) == lane ? T(1) : T(0);
+}
+
+// sum_k a[k] v[k] over k < 32, both in shared memory (16-byte aligned),
+// in four partial sums added pairwise
+template <typename T>
+__device__ __forceinline__ T dot32(const T* a, const T* v) {
+  T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+#pragma unroll
+  for (int k = 0; k < kWarp; k += 4) {
+    T a0, a1, a2, a3, g0, g1, g2, g3;
+    load4(a + k, a0, a1, a2, a3);
+    load4(v + k, g0, g1, g2, g3);
+    p0 += a0 * g0;
+    p1 += a1 * g1;
+    p2 += a2 * g2;
+    p3 += a3 * g3;
   }
-  for (int i = lane; i < n; i += kWarp) xg[b * n + i] = x[i];
+  return (p0 + p1) + (p2 + p3);
+}
+
+// factor_t1 for n in 33..128 (see the file comment). Shared memory:
+// panel_words(n) words. copy_bytes: the piece of the copy in (16, 8 or
+// sizeof(T)); vec_out: L's rows go out in 16-byte pieces.
+template <typename T>
+__global__ void __launch_bounds__(kT1Warps * kWarp, 1)
+    factor_t1_panel_kernel(const T* __restrict__ Sg, T* __restrict__ Lg, int n, int copy_bytes, int vec_out) {
+  constexpr int per = 16 / sizeof(T);
+  constexpr int ld = panel_ld<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const A = reinterpret_cast<T*>(smem_raw);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = panels(n);
+  const long long nn = static_cast<long long>(n) * n;
+  const T* const S = Sg + blockIdx.x * nn;
+  T* const L = Lg + blockIdx.x * nn;
+  copy_panels_of(copy_bytes, A, S, n, 0, 1, warp, lane);
+  __pipeline_commit();
+  copy_panels_of(copy_bytes, A, S, n, 1, P, warp, lane);
+  __pipeline_commit();
+  pad_rows(A, n, true, warp, lane);
+  __pipeline_wait_prior(1);
+  __syncthreads();  // panel 0's columns have landed
+
+  bool all_ok = true;
+  const int ty = lane >> 2, tx = lane & 3;
+  for (int p = 0; p < P; ++p) {
+    const int strips = P - 1 - p;  // block rows below the diagonal block
+    T* const drow = blk(A, p, p) + lane * ld;
+    T s[kWarp];
+    bool ok = true;
+    if (warp < max(strips, 1)) {
+      // the diagonal block's row `lane` (its copied pieces: the entries
+      // above the diagonal never reach one below it) and this warp's
+      // strip's; rows past n are the identity's
+      T* const orow = blk(A, p + 1 + warp, p) + lane * ld;
+      T o[kWarp];
+#pragma unroll
+      for (int j = 0; j < kWarp; j += per) load16(drow + j, s, j, j <= lane);
+#pragma unroll
+      for (int j = 0; j < kWarp; j += per) load16(orow + j, o, j, warp < strips);
+      T inv = T(0);  // not read
+      panel_pivots<true>(s, o, kWarp, lane, ok, inv);
+      if (warp < strips) {
+#pragma unroll
+        for (int j = 0; j < kWarp; j += per) store16(orow + j, o, j);
+      }
+    }
+    if (p == 0) __pipeline_wait_prior(0);  // every column, before the first update
+    all_ok = __syncthreads_and(ok);         // L21 is in place; every warp has read the diagonal block
+    if (!all_ok) break;
+    if (warp == 0) {  // L11 over the diagonal block, which the update does not read
+#pragma unroll
+      for (int j = 0; j < kWarp; j += per) store16(drow + j, s, j);
+    }
+    if (strips == 0) break;
+
+    // A22 -= L21 L21' over the lower blocks (bi, bj) right of the panel,
+    // in half blocks (32 rows, columns h*16 ..): unit u is half u & 1 of
+    // lower block u >> 1, counted by block rows
+    const int units = strips * (strips + 1);
+    for (int u = warp; u < units; u += kT1Warps) {
+      int k = u >> 1, row = 0;
+      while (k > row) k -= ++row;
+      const int bi = p + 1 + row, bj = p + 1 + k, c0 = (u & 1) * 16 + tx;
+      T* const C = blk(A, bi, bj);
+      const T* const Li = blk(A, bi, p);
+      const T* const Lj = blk(A, bj, p);
+      T acc[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = C[(ty + 8 * ii) * ld + c0 + 4 * jj];
+#pragma unroll
+      for (int k4 = 0; k4 < kWarp; k4 += 4) {
+        T a[4][4], b[4][4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) load4(Li + (ty + 8 * ii) * ld + k4, a[ii][0], a[ii][1], a[ii][2], a[ii][3]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) load4(Lj + (c0 + 4 * jj) * ld + k4, b[jj][0], b[jj][1], b[jj][2], b[jj][3]);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[ii][jj] -= a[ii][q] * b[jj][q];
+      }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) C[(ty + 8 * ii) * ld + c0 + 4 * jj] = acc[ii][jj];
+    }
+    __syncthreads();  // the trailing blocks are updated
+  }
+
+  __syncthreads();  // the last L11 is in place
+
+  // L a row a warp: zeros above the diagonal, NaN below it where S is not
+  // positive definite
+  const T nan = quiet_nan<T>();
+  for (int r = warp; r < n; r += kT1Warps) {
+    T* const dst = L + static_cast<long long>(r) * n;
+    if (vec_out) {
+      for (int c = lane * per; c < n; c += kWarp * per) {
+        T v[per];
+#pragma unroll
+        for (int e = 0; e < per; ++e) v[e] = c + e > r ? T(0) : (all_ok ? at(A, r, c + e) : nan);
+        store16(dst + c, v, 0);
+      }
+    } else {
+      for (int c = lane; c < n; c += kWarp) dst[c] = c > r ? T(0) : (all_ok ? at(A, r, c) : nan);
+    }
+  }
+}
+
+// solve_t1 for n in 33..128 (see the file comment). Shared memory:
+// panel_words(n) words of L, then u (32 P words).
+template <typename T>
+__global__ void __launch_bounds__(kT1Warps * kWarp, 1)
+    solve_t1_panel_kernel(const T* __restrict__ Lg, const T* __restrict__ bg, T* __restrict__ xg, int n,
+                          int copy_bytes) {
+  constexpr int per = 16 / sizeof(T);
+  constexpr int ld = panel_ld<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const A = reinterpret_cast<T*>(smem_raw);
+  T* const u = A + panel_words<T>(n);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P = panels(n), N = P * kWarp;
+  const long long nn = static_cast<long long>(n) * n;
+  copy_panels_of(copy_bytes, A, Lg + blockIdx.x * nn, n, 0, 1, warp, lane);
+  __pipeline_commit();
+  copy_panels_of(copy_bytes, A, Lg + blockIdx.x * nn, n, 1, P, warp, lane);
+  __pipeline_commit();
+  pad_rows(A, n, false, warp, lane);
+  const T* const b = bg + static_cast<long long>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < N; i += kT1Warps * kWarp) u[i] = i < n ? b[i] : T(0);
+  __pipeline_wait_prior(1);
+  __syncthreads();  // panel 0's columns and b have landed
+
+  // L u = b: panel p's diagonal block by warp 0 from the top (row c0 +
+  // lane in registers; rows past n those of the identity, b = 0, so that
+  // every step runs with no branch: what they add is an exact zero), then
+  // the rows below the panel
+  for (int p = 0; p < P; ++p) {
+    const int c0 = p * kWarp;
+    if (warp == 0) {
+      const bool own = c0 + lane < n;
+      const T* const row = blk(A, p, p) + lane * ld;
+      const T inv = own ? recip(row[lane]) : T(1);
+      T l[kWarp];
+#pragma unroll
+      for (int j = 0; j < kWarp; j += per) load16(row + j, l, j, own);
+      T r = u[c0 + lane];
+#pragma unroll
+      for (int j = 0; j < kWarp; ++j) {
+        if (!own) l[j] = j == lane ? T(1) : T(0);
+        const T uj = __shfl_sync(kFull, r * inv, j);
+        r = lane == j ? uj : (lane > j ? r - l[j] * uj : r);
+      }
+      u[c0 + lane] = r;
+    }
+    if (p == 0) __pipeline_wait_prior(0);
+    __syncthreads();  // u of the panel (and, from panel 0 on, every column of L)
+    for (int t = threadIdx.x; c0 + kWarp + t < N; t += kT1Warps * kWarp) {
+      const int r = c0 + kWarp + t;
+      u[r] -= dot32(blk(A, r >> 5, p) + (r & 31) * ld, u + c0);
+    }
+    __syncthreads();  // the rows below are updated
+  }
+
+  // L' x = u: panel p's diagonal block by warp 0 from the bottom (column
+  // c0 + lane of the block in registers), then the columns left of it
+  for (int p = P - 1; p >= 0; --p) {
+    const int c0 = p * kWarp;
+    if (warp == 0) {
+      const bool own = c0 + lane < n;
+      const T* const d = blk(A, p, p);
+      const T inv = own ? recip(d[lane * ld + lane]) : T(1);
+      T l[kWarp];
+#pragma unroll
+      for (int j = 0; j < kWarp; ++j) l[j] = d[j * ld + lane];
+      T r = u[c0 + lane];
+#pragma unroll
+      for (int j = kWarp - 1; j >= 0; --j) {
+        const T xj = __shfl_sync(kFull, r * inv, j);
+        r = lane == j ? xj : (lane < j ? r - l[j] * xj : r);
+      }
+      u[c0 + lane] = r;
+    }
+    __syncthreads();  // x of the panel
+    for (int t = threadIdx.x; t < c0; t += kT1Warps * kWarp) {
+      const T* const col = blk(A, p, t >> 5) + (t & 31);
+      T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
+#pragma unroll
+      for (int j = 0; j < kWarp; j += 4) {
+        T x0, x1, x2, x3;
+        load4(u + c0 + j, x0, x1, x2, x3);
+        p0 += col[j * ld] * x0;
+        p1 += col[(j + 1) * ld] * x1;
+        p2 += col[(j + 2) * ld] * x2;
+        p3 += col[(j + 3) * ld] * x3;
+      }
+      u[t] -= (p0 + p1) + (p2 + p3);
+    }
+    __syncthreads();  // the columns left of the panel are updated
+  }
+  T* const x = xg + static_cast<long long>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += kT1Warps * kWarp) x[i] = u[i];
 }
 
 // How a T=1 kernel launches at n: its warps a block, shared memory a
 // block, its resident blocks an SM, and the device's SMs.
 struct T1Plan {
-  bool reg;  // the register kernel (n <= 32), else the wide kernel
-  int warps, slot_words, blocks_per_sm, sms;
+  bool reg;  // the register kernel (n <= 32), else the panel kernel
+  int slot_words, blocks_per_sm, sms;
   size_t smem;
 };
 
@@ -375,15 +616,23 @@ constexpr size_t reg_smem(int n) {
   return sizeof(T) * 2 * static_cast<size_t>(reg_slot_words<T>(n)) * kT1Warps;
 }
 
-// The residency of a register kernel at n on the current device, asked
-// once a device, kernel and n: the launch reads it every call. The
-// kernel's shared-memory limit is raised on the way to what n = 32 takes,
-// where that is more than 48 KB, so that no later n lowers it below what
-// an earlier one was launched with.
-template <typename T, typename K>
-cudaError_t reg_residency(K kernel, int n, size_t smem, int* blocks_per_sm, int* sms) {
+// Shared memory a block of a panel kernel takes at n: the lower blocks,
+// and for the solve (`vec`) the right-hand side of 32 P words
+template <typename T>
+constexpr size_t panel_smem(int n, bool vec) {
+  return sizeof(T) * (static_cast<size_t>(panel_words<T>(n)) + (vec ? panels(n) * kWarp : 0));
+}
+
+// The residency of `kernel` at n and its shared memory `smem` on the
+// current device, asked once a device and n (a cache per kernel, kTag):
+// the launch reads it every call. The kernel's shared-memory limit is
+// raised on the way to `max_smem`, what its widest n takes, where that is
+// more than 48 KB, so that no later n lowers it below what an earlier one
+// was launched with.
+template <int kTag, typename K>
+cudaError_t residency(K kernel, int n, size_t smem, size_t max_smem, int* blocks_per_sm, int* sms) {
   constexpr int kMaxDevices = 64;
-  static std::atomic<int> cached[kMaxDevices][kWarp + 1][2];  // blocks an SM, SMs; 0: not asked
+  static std::atomic<int> cached[kMaxDevices][kMaxN + 1][2];  // blocks an SM, SMs; 0: not asked
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -392,9 +641,8 @@ cudaError_t reg_residency(K kernel, int n, size_t smem, int* blocks_per_sm, int*
     *sms = cached[dev][n][1].load(std::memory_order_relaxed);
     return cudaSuccess;
   }
-  if (reg_smem<T>(kWarp) > kDefaultSmem) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(reg_smem<T>(kWarp)));
+  if (max_smem > kDefaultSmem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(max_smem));
     if (err != cudaSuccess) return err;
   }
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kT1Warps * kWarp, smem);
@@ -408,54 +656,51 @@ cudaError_t reg_residency(K kernel, int n, size_t smem, int* blocks_per_sm, int*
   return cudaSuccess;
 }
 
-// The plan of the register kernel `reg` up to n = 32, else of the wide
-// kernel `wide`, whose warps take wide_per_warp bytes of shared memory
-template <typename T, typename K, typename W>
-cudaError_t plan_t1(K reg, W wide, size_t wide_per_warp, int n, T1Plan* p) {
+// The plan of the register kernel `reg` up to n = 32, else of the panel
+// kernel `panel` (the solve's with its right-hand side: `vec`)
+template <int kTag, typename T, typename K, typename W>
+cudaError_t plan_t1(K reg, W panel, bool vec, int n, T1Plan* p) {
   p->reg = n <= kWarp;
   if (p->reg) {
     p->slot_words = reg_slot_words<T>(n);
-    p->warps = kT1Warps;
     p->smem = reg_smem<T>(n);
-    return reg_residency<T>(reg, n, p->smem, &p->blocks_per_sm, &p->sms);
+    return residency<kTag>(reg, n, p->smem, reg_smem<T>(kWarp), &p->blocks_per_sm, &p->sms);
   }
-  p->slot_words = p->blocks_per_sm = p->sms = 0;  // the launch does not read them
-  return configure(wide, wide_per_warp, &p->warps, &p->smem);
+  p->slot_words = 0;
+  p->smem = panel_smem<T>(n, vec);
+  return residency<kTag + 1>(panel, n, p->smem, panel_smem<T>(kMaxN, vec), &p->blocks_per_sm, &p->sms);
 }
 
 // Blocks of a launch by plan p: every warp resident at once, each walking
-// its systems, for the register kernels; a warp a system for the wide ones
+// its systems, for the register kernels; a block a system for the panel
+// kernels (a block that ends frees its SM's share for the next)
 int t1_grid(const T1Plan& p, int B) {
-  const long long blocks = (B + p.warps - 1) / p.warps;
+  if (!p.reg) return B;
+  const long long blocks = (B + kT1Warps - 1) / kT1Warps;
   const long long resident = static_cast<long long>(p.blocks_per_sm) * p.sms;
-  return static_cast<int>(p.reg && resident < blocks ? resident : blocks);
-}
-
-// (warps a block, resident blocks an SM) of plan p
-template <typename W>
-int t1_layout(cudaError_t err, const T1Plan& p, W wide, int* warps, int* blocks_per_sm) {
-  int blocks = p.blocks_per_sm;
-  if (err == cudaSuccess && !p.reg)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, wide, p.warps * kWarp, p.smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *warps = p.warps;
-  *blocks_per_sm = blocks;
-  return static_cast<int>(cudaSuccess);
+  return static_cast<int>(resident < blocks ? resident : blocks);
 }
 
 template <typename T>
 cudaError_t plan_factor_t1(int n, T1Plan* p) {
-  return plan_t1<T>(factor_t1_reg_kernel<T, kWarp>, factor_t1_wide_kernel<T>,
-                    sizeof(T) * static_cast<size_t>(n) * (n + 1), n, p);
+  return plan_t1<0, T>(factor_t1_reg_kernel<T, kWarp>, factor_t1_panel_kernel<T>, false, n, p);
 }
 
 template <typename T>
 cudaError_t plan_solve_t1(int n, T1Plan* p) {
-  return plan_t1<T>(solve_t1_reg_kernel<T, kWarp>, solve_t1_wide_kernel<T>,
-                    sizeof(T) * (static_cast<size_t>(n) * (n + 1) + n), n, p);
+  return plan_t1<2, T>(solve_t1_reg_kernel<T, kWarp>, solve_t1_panel_kernel<T>, true, n, p);
 }
 
 bool aligned_rows(size_t word, int n, const void* p) { return (word * n) % 16 == 0 && aligned16(p); }
+
+// The piece a panel kernel copies its input in: 16 bytes where n sizeof(T)
+// and p allow it, else 8, else a word
+template <typename T>
+int copy_bytes(int n, const void* p) {
+  if (aligned_rows(sizeof(T), n, p)) return 16;
+  const bool even = (sizeof(T) * n) % 8 == 0 && reinterpret_cast<size_t>(p) % 8 == 0;
+  return even ? 8 : static_cast<int>(sizeof(T));
+}
 
 template <typename T>
 int factor_t1(const void* S, void* L, int B, int n, void* stream) {
@@ -469,9 +714,10 @@ int factor_t1(const void* S, void* L, int B, int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.reg) {
     const int vec = aligned_rows(sizeof(T), n, S) && aligned16(L);
-    factor_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), p.warps * kWarp, p.smem, st>>>(Sp, Lp, B, n, p.slot_words, vec);
+    factor_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Sp, Lp, B, n, p.slot_words, vec);
   } else {
-    factor_t1_wide_kernel<T><<<t1_grid(p, B), p.warps * kWarp, p.smem, st>>>(Sp, Lp, B, n);
+    const int vec = aligned_rows(sizeof(T), n, L);
+    factor_t1_panel_kernel<T><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Sp, Lp, n, copy_bytes<T>(n, S), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -489,27 +735,33 @@ int solve_t1(const void* L, const void* b, void* x, int B, int n, void* stream) 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p.reg) {
     const int vec = aligned_rows(sizeof(T), n, L);
-    solve_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), p.warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n, p.slot_words, vec);
+    solve_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n, p.slot_words, vec);
   } else {
-    solve_t1_wide_kernel<T><<<t1_grid(p, B), p.warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n);
+    solve_t1_panel_kernel<T><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Lp, bp, xp, n, copy_bytes<T>(n, L));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// (warps a block, resident blocks an SM) of a plan
+int t1_layout(cudaError_t err, const T1Plan& p, int* warps, int* blocks_per_sm) {
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *warps = kT1Warps;
+  *blocks_per_sm = p.blocks_per_sm;
+  return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
 int factor_t1_layout(int n, int* warps, int* blocks_per_sm) {
   if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   T1Plan p;
-  const cudaError_t err = plan_factor_t1<T>(n, &p);
-  return t1_layout(err, p, factor_t1_wide_kernel<T>, warps, blocks_per_sm);
+  return t1_layout(plan_factor_t1<T>(n, &p), p, warps, blocks_per_sm);
 }
 
 template <typename T>
 int solve_t1_layout(int n, int* warps, int* blocks_per_sm) {
   if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   T1Plan p;
-  const cudaError_t err = plan_solve_t1<T>(n, &p);
-  return t1_layout(err, p, solve_t1_wide_kernel<T>, warps, blocks_per_sm);
+  return t1_layout(plan_solve_t1<T>(n, &p), p, warps, blocks_per_sm);
 }
 
 }  // namespace

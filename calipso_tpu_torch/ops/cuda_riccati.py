@@ -4,41 +4,49 @@
 `solve_batched`.
 
 `factor_t1` replaces the TPU kernel
-`calipso_tpu/ops/pallas_riccati.py:_factor_lanes_t1_kernel`, `solve_t1`
-replaces `_solve_lanes_t1_kernel`, `factor_lanes` replaces
-`_factor_lanes_kernel` and `solve_lanes` replaces `_solve_lanes_kernel`
-(`csrc/riccati_t1.cu` and `csrc/riccati_lanes.cu`: one warp per lane;
-up to n = 32 and d = 32 thread i holds row i in registers -- `factor_t1`
-and `solve_t1` run on a grid of resident warps that walk the batch with
-the next system's lower triangle copied ahead, the factor by a shuffle a
-pivot and a shuffle an l_jk, the solve's two sweeps by shuffles;
-`factor_lanes` factors the stacked panel [S_t ; O_t] into L_t and M_t'
-at once -- past that the stage is staged in shared memory; the lanes
-kernels copy their stage blocks a few stages ahead, and the solve keeps u
-on chip between its two sweeps). `factor_stream`
-replaces `_factor_stream_kernel` and `solve_stream` replaces
-`_solve_fwd_stream_kernel` and `_solve_bwd_stream_kernel`
+`calipso_tpu/ops/pallas_riccati.py:_factor_lanes_t1_kernel` (`:633`; its
+`pallas_call` at `:704`), `solve_t1` replaces `_solve_lanes_t1_kernel`
+(`:661`; `:764`) (`csrc/riccati_t1.cu`: up to n = 32 a warp a system,
+thread i holding row i in registers, on a grid of resident warps that
+walk the batch with the next system's lower triangle copied ahead, the
+factor by a shuffle a pivot and a shuffle an l_jk, the solve's two sweeps
+by shuffles; for n in 33..128 a thread block a system, the lower 32 x 32
+blocks in shared memory, the factor right-looking in 32-wide panels --
+each warp factors the diagonal block and its own strip below it by
+shuffles, then the block's threads share the trailing update in 4 x 4
+register tiles, two barriers a panel -- and the solve a blocked
+substitution, each diagonal block solved by one warp by shuffles and the
+rest of the right-hand side updated by all threads). `factor_lanes`
+replaces `_factor_lanes_kernel` and `solve_lanes` replaces
+`_solve_lanes_kernel` (`csrc/riccati_lanes.cu`: one warp per lane; up to
+d = 32 thread i holds row i in registers and `factor_lanes` factors the
+stacked panel [S_t ; O_t] into L_t and M_t' at once, past that the stage
+is staged in shared memory; the lanes kernels copy their stage blocks a
+few stages ahead, and the solve keeps u on chip between its two sweeps).
+`factor_stream` replaces `_factor_stream_kernel` and `solve_stream`
+replaces `_solve_fwd_stream_kernel` and `_solve_bwd_stream_kernel`
 (`csrc/riccati_stream.cu`: the factor a blocked factor of the stacked
 panel [S_t ; O_t] by one thread block per lane, each sweep one warp per
 right-hand-side column; the next stage's blocks copied into shared
-memory while the current one computes). `solve_batched_fused`
-replaces `_riccati_kernel` and `solve_batched_lanes` replaces
-`_riccati_lanes_kernel`
-(`csrc/riccati_fused.cu`: factor and both sweeps in one kernel template
-that takes the batch-first (B, T, d, d) arrays of the first or the
-batch-last (T, d, d, B) copies the second makes -- up to d = 32 a warp a
-lane, `factor_lanes`' register stage with the forward sweep folded in
-and L_t, M_t and u_t kept for the backward sweep, past that a thread
-block a lane; the horizon's factor stays in shared memory where it
-fits; the batch-last copies and x's way back are `batch_last` and
-`batch_first`, one launch each of a tiled transpose kernel, the layout
-moves the reference leaves to XLA); `solve_batched`, the public entry
-point, takes the first on CUDA tensors, as the reference does off the
-CPU, and no solver path calls it.
+memory while the current one computes). `solve_batched_fused` replaces
+`_riccati_kernel` and `solve_batched_lanes` replaces
+`_riccati_lanes_kernel` (`csrc/riccati_fused.cu`: factor and both sweeps
+in one kernel template that takes the batch-first (B, T, d, d) arrays of
+the first or the batch-last (T, d, d, B) copies the second makes -- up to
+d = 32 a warp a lane, `factor_lanes`' register stage with the forward
+sweep folded in and L_t, M_t and u_t kept for the backward sweep, past
+that a thread block a lane; the horizon's factor stays in shared memory
+where it fits; the batch-last copies and x's way back are `batch_last`
+and `batch_first`, one launch each of a tiled transpose kernel, the
+layout moves the reference leaves to XLA); `solve_batched`, the public
+entry point, takes the first on CUDA tensors, as the reference does off
+the CPU, and no solver path calls it.
 All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
 register kernels share their device code (`csrc/riccati_reg.cuh`). The
 stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
-and their solve takes K right-hand sides per lane.
+and their solve takes K right-hand sides per lane. The kernels take n <=
+`MAX_N` and d <= `MAX_D`; wider systems take the library and scan routes
+of `ops/riccati`, chosen there from the shape.
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -51,7 +59,9 @@ device memory is touched once on the way in and once on the way out.
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (or raises
 on a dtype, shape or layout the kernel does not take). `LAUNCHES` counts
-kernel launches, one per wrapper call that launched.
+kernel launches, one per wrapper call that launched, and, under the
+`*_library` and `*_scan` keys, the calls of `ops/riccati`'s routes past
+the kernels' widths on CUDA tensors.
 
 A matrix that is not positive definite comes out with NaN over its whole
 lower triangle on both paths: that is the inertia signal the solver's
@@ -70,6 +80,8 @@ LAUNCHES = {
     "factor_t1": 0, "solve_t1": 0, "factor_lanes": 0, "solve_lanes": 0,
     "factor_stream": 0, "solve_fwd_stream": 0, "solve_bwd_stream": 0,
     "solve_batched_fused": 0, "solve_batched_lanes": 0, "transpose": 0,
+    # the library and scan routes of ops/riccati, past MAX_N and MAX_D
+    "factor_t1_library": 0, "solve_t1_library": 0, "factor_scan": 0, "solve_scan": 0,
 }
 MAX_N = 128  # T=1 kernels
 MAX_D = 64  # block-tridiagonal kernels (lanes and stream)

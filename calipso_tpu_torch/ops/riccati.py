@@ -11,21 +11,44 @@ the counterpart of `calipso_tpu/ops/riccati.py`.
   `solve_multi` b (B, T, d, K). Ragged stage widths are padded to d with
   identity diagonal blocks, which decouple exactly.
 
-`route(d)` picks the block-tridiagonal kernels by the stage width alone:
-"lanes" (one warp per lane, `factor_lanes`/`solve_lanes`) up to 32, and
-"stream" (one thread block per lane, `factor_stream`/`solve_stream`) from
-33 on, the contact class's d=54. On an H100 the lanes route's factor keeps
-a stage in registers up to d=32, and there the lanes route is the faster
-at both batches measured (B=128, T=8 and B=1024, T=31, d=9 to 32); past
-32 its factor stages in shared memory and the stream route wins (d=33 at
-B=128). The reference splits the same two regimes (resident d=9, streamed
-d=54) by TPU VMEM. `solve_multi` always takes the stream solve, the one
-that serves K columns from one factor; both routes write the same (L, M).
+The route is chosen from the shape alone, before anything launches:
 
-A CUDA tensor goes to the hand-written kernel, a CPU tensor to its plain
-PyTorch version (`ops/cuda_riccati.py`); nothing else decides. A lane
-that is not positive definite comes out with NaN over the lower triangle
-of its factor (the inertia signal), never an exception.
+- `t1_route(n)`: "kernel" (`factor_t1`/`solve_t1`) up to
+  `cuda_riccati.MAX_N` = 128, "library" past it: `chol_library` and
+  `chol_solve_library`, the port of the reference's XLA branch
+  (`jnp.linalg.cholesky` and two triangular solves, which it takes
+  wherever `_use_pallas` gives no resident tile).
+- `route(d)`: "lanes" (one warp per lane, `factor_lanes`/`solve_lanes`)
+  up to 32, "stream" (one thread block per lane,
+  `factor_stream`/`solve_stream`) from 33 to `cuda_riccati.MAX_D` = 64,
+  and "scan" past it: `factor_scan`/`solve_scan`, the port of the
+  reference's scan, a loop over the T stages of batched library calls.
+  On an H100 the lanes route's factor keeps a stage in registers up to
+  d=32, and there the lanes route is the faster at both batches measured
+  (B=128, T=8 and B=1024, T=31, d=9 to 32); past 32 its factor stages in
+  shared memory and the stream route wins (d=33 at B=128). The reference
+  splits the same two regimes (resident d=9, streamed d=54) by TPU VMEM.
+  `solve_multi` takes the stream solve, the one that serves K columns
+  from one factor, up to d=64; both kernel routes write the same (L, M).
+
+The library and scan routes are the reference's own route at those
+widths only where its `_use_pallas` gives none: in float64, for batches
+under 32 lanes, or past its VMEM fit. For float32 batches of 32 lanes or
+more it still has Pallas kernels at some widths past the port's: the
+T=1 resident kernel for n up to ~221 (B=32; n=129 for B up to ~94, B
+under 128), the stream kernels for d up to ~82 (B a multiple of 128) or
+~165 (B=32). There the port runs library calls where the reference runs
+a hand-written kernel; no solver path of the port's checks reaches them.
+
+On the kernel routes a CUDA tensor goes to the hand-written kernel and a
+CPU tensor to its plain PyTorch version (`ops/cuda_riccati.py`); the
+library and scan routes run the same calls on either device, and count
+each call on a CUDA tensor in `cuda_riccati.LAUNCHES` (keys
+`factor_t1_library`, `solve_t1_library`, `factor_scan`, `solve_scan`).
+A lane that is not positive definite comes out with NaN over the lower
+triangle of its factor (the inertia signal), never an exception; in the
+block-tridiagonal factor, from the first stage that is not positive
+definite on (see `ops/cuda_riccati.py`).
 """
 
 from calipso_tpu_torch.ops import cuda_riccati
@@ -33,25 +56,91 @@ from calipso_tpu_torch.ops import cuda_riccati
 STREAM_MIN_D = 33
 
 
+def t1_route(n):
+    """"kernel" or "library": the T=1 route for width n (the library
+    route past MAX_N, whatever the batch and dtype: see module doc)."""
+    return "kernel" if n <= cuda_riccati.MAX_N else "library"
+
+
 def route(d):
-    """"lanes" or "stream": the block-tridiagonal kernels for stage width d."""
+    """"lanes", "stream" or "scan": the block-tridiagonal route for stage
+    width d (the scan past MAX_D, whatever the batch and dtype: see
+    module doc)."""
+    if d > cuda_riccati.MAX_D:
+        return "scan"
     return "stream" if d >= STREAM_MIN_D else "lanes"
+
+
+def _count(name, t):
+    if t.device.type == "cuda":
+        cuda_riccati.LAUNCHES[name] += 1
+
+
+def chol_library(S):
+    """Lower Cholesky factors of S (B, n, n) by `torch.linalg.cholesky_ex`,
+    NaN over the lower triangle of each lane that is not positive
+    definite: the `else` branch of the reference's `_chol_vmap`
+    (`calipso_tpu/ops/riccati.py:227-228`). The same calls as the T=1
+    kernel's plain version."""
+    _count("factor_t1_library", S)
+    return cuda_riccati.factor_t1_plain(S)
+
+
+def chol_solve_library(L, b):
+    """x with L L^T x = b for L (B, n, n) lower and b (B, n), by two
+    triangular solves: the `else` branch of the reference's
+    `_chol_solve_vmap` (`calipso_tpu/ops/riccati.py:257-263`). The same
+    calls as the T=1 kernel's plain version."""
+    _count("solve_t1_library", L)
+    return cuda_riccati.solve_t1_plain(L, b)
+
+
+def factor_scan(D, O):
+    """(L, M) of D (B, T, d, d) and O (B, T-1, d, d) by a loop over the
+    stages (S_t = D_t - M_{t-1}^T M_{t-1}, L_t = chol(S_t), M_t = L_t^{-1}
+    O_t^T): the reference's `factor` scan (`calipso_tpu/ops/riccati.py:28-
+    47`) under vmap, the route `_factor_vmap` takes where `_use_pallas`
+    gives none. NaN from the first stage that is not positive definite
+    on, as the kernels give it (the reference by propagation). The same
+    loop as the kernels' plain version."""
+    _count("factor_scan", D)
+    return cuda_riccati.factor_lanes_plain(D, O)
+
+
+def solve_scan(L, M, b):
+    """x with S x = b for the factor (L, M) of `factor_scan`: b (B, T, d),
+    or (B, T, d, K) for K right-hand sides per lane. The reference's
+    `solve` scans (`calipso_tpu/ops/riccati.py:50-78`; `solve_multi`,
+    `:81-83`, maps them over the columns): u_t = L_t^{-1}(b_t - M_{t-1}^T
+    u_{t-1}) forward, x_t = L_t^{-T}(u_t - M_t x_{t+1}) backward, the
+    stream kernels' plain sweeps."""
+    _count("solve_scan", L)
+    if b.dim() == 3:
+        return cuda_riccati.solve_lanes_plain(L, M, b)
+    return cuda_riccati.solve_bwd_stream_plain(L, M, cuda_riccati.solve_fwd_stream_plain(L, M, b))
 
 
 def chol(S):
     """Batched lower Cholesky factor of S (B, n, n)."""
+    if t1_route(S.shape[-1]) == "library":
+        return chol_library(S)
     return cuda_riccati.factor_t1(S)
 
 
 def chol_solve(L, b):
     """Solve L L^T x = b for each lane: L (B, n, n), b (B, n) -> (B, n)."""
+    if t1_route(L.shape[-1]) == "library":
+        return chol_solve_library(L, b)
     return cuda_riccati.solve_t1(L, b)
 
 
 def factor(D, O):
     """Batched block-tridiagonal Cholesky: (D, O) -> (L, M)."""
     D, O = D.contiguous(), O.contiguous()
-    if route(D.shape[-1]) == "stream":
+    r = route(D.shape[-1])
+    if r == "scan":
+        return factor_scan(D, O)
+    if r == "stream":
         return cuda_riccati.factor_stream(D, O)
     return cuda_riccati.factor_lanes(D, O)
 
@@ -59,11 +148,17 @@ def factor(D, O):
 def solve(L, M, b):
     """Solve S x = b for each lane with the factor (L, M) of `factor`."""
     L, M, b = L.contiguous(), M.contiguous(), b.contiguous()
-    if route(L.shape[-1]) == "stream":
+    r = route(L.shape[-1])
+    if r == "scan":
+        return solve_scan(L, M, b)
+    if r == "stream":
         return cuda_riccati.solve_stream(L, M, b)
     return cuda_riccati.solve_lanes(L, M, b)
 
 
 def solve_multi(L, M, B):
     """Solve S X = B for K right-hand sides per lane, B (B, T, d, K)."""
-    return cuda_riccati.solve_stream(L.contiguous(), M.contiguous(), B.contiguous())
+    L, M, B = L.contiguous(), M.contiguous(), B.contiguous()
+    if route(L.shape[-1]) == "scan":
+        return solve_scan(L, M, B)
+    return cuda_riccati.solve_stream(L, M, B)

@@ -7,7 +7,7 @@ Phases (each fails loudly; none catches its own failure):
   1. build the CUDA kernels from calipso_tpu_torch/csrc with nvcc (sm_90a),
      one nvcc per source, all started together; require ptxas to give the
      kernels that keep their rows in registers (factor_lanes and the fused
-     solve up to d=32, factor_t1 and solve_t1 up to n=32) no stack frame
+     solve up to d=32, factor_t1 and solve_t1 at every n) no stack frame
      and no spill;
   2. hold the T=1 kernels (factor_t1, solve_t1) against their plain PyTorch
      versions on the card at the flagship shape B=8192, n=32, the
@@ -116,8 +116,17 @@ Phases (each fails loudly; none catches its own failure):
      timed warm batch with per-layer host timers and a profile of its
      first 5 lockstep iterations. Phases 2 and 5 hold and time the lanes
      kernels at (T, d) = (21, 26) and (21, 12), the stream kernels at (21,
-     26) with K=4 and at (11, 33) with K=1, and the T=1 kernels at n=110,
-     each at B=1024 and at the single solves' B=1.
+     26) with K=4 and at (11, 33) with K=1, and the T=1 kernels' panel
+     path at n = 33, 64, 65, 96, 110 (the bunny hop's) and 128, each at
+     B=1024 and at the single solves' B=1, with a lane (at B=1 a system
+     alone) whose only bad pivot is its last one, in the last panel;
+  12. past the kernels' widths, float64 on the card (run after phase 10):
+     the pendulum swing-up at horizon 44 (n = 131) on schur with the
+     serial line search, through ops/riccati's T=1 library route and no
+     T=1 kernel, held to the same solve on the CPU (solved, iterations
+     within +-15%, states within 1e-3); and ops/riccati.factor, solve and
+     solve_multi at (B, T, d) = (4, 5, 65) on the scan route, one lane
+     not positive definite, held to the same calls on the CPU.
 
 The solves are bound by the host's dispatch and leave the card idle most
 of the time, so beside the hopper batch's cold batch (11b), and beside no
@@ -141,6 +150,12 @@ Partial runs print no such result:
         # float64, the T=1, lanes, stream and fused kernels also replayed
         # from a CUDA graph, and the two stream sweeps across d = 50..58
         # (copied into another checkout, times that one's kernels)
+    python3 chip_smoke.py --t1-times             # phase 1, then the
+        # T=1 kernels checked and timed at n = 33, 64, 65, 96, 110, 128 and
+        # B = 1024, 1, float32 and float64, host-launched and replayed,
+        # beside plain, cholesky_ex / cholesky_solve and the bound, with
+        # their layout (copied into a `git archive` of another commit, times
+        # that one's kernels: run parent, change, change, parent)
     python3 chip_smoke.py --batched-times        # phase 1, then the two
         # fused solves (and the lanes wrapper's kernel and layout moves) at
         # (1024, 31, 9) and (128, 8, 54), float32 and float64, and at the
@@ -304,13 +319,21 @@ CONTACT_KERNELS = {
 # the kernels at the contact paths' shapes (phases 2 and 5), each at the
 # hopper batch's B and at B=1, the single solves' (11a, 11c, 11d): the
 # lanes pair at the hopper's (T, d) and ball-in-cup's, the stream sweeps
-# at the hopper border's K=4 and the stream kernels at the box's, the T=1
-# pair at the bunny hop's n. B=1 leaves no room for a lane that is not
-# positive definite beside one that is: those checks take none
+# at the hopper border's K=4 and the stream kernels at the box's. B=1
+# leaves no room for a lane that is not positive definite beside one that
+# is: those checks take none (the T=1 pair checks a failing system alone)
 B_CONTACT = 1024
 CONTACT_LANES_SHAPES = tuple((B, HORIZON_HOPPER, d) for d in (26, 12) for B in (B_CONTACT, 1))
 CONTACT_STREAM_SHAPES = tuple((B, T, d, K) for T, d, K in ((HORIZON_HOPPER, 26, 4), (11, 33, 1)) for B in (B_CONTACT, 1))
-CONTACT_T1_SHAPES = ((B_CONTACT, 110), (1, 110))
+# the T=1 pair's panel kernels (n in 33..128) at the panels' edges and the
+# bunny hop's n=110, each at B=1024 and B=1
+WIDE_T1_SHAPES = tuple((B, n) for n in (33, 64, 65, 96, 110, 128) for B in (B_CONTACT, 1))
+# past the kernels' widths (ops/riccati.t1_route, route): the pendulum
+# swing-up at horizon 44 (n = 131) on schur, and the block-tridiagonal
+# functions at d = 65, both in float64 on the card (phase 12)
+HORIZON_WIDE = 44
+SCAN_SHAPE = (4, 5, 65)
+WIDE_ROUTE_KERNELS = {"pendulum n=131": ("factor_t1_library", "solve_t1_library")}
 
 
 def check(cond, msg):
@@ -1419,9 +1442,9 @@ def hopper_solver(options, device):
 
 
 def check_route(tag, name, launches):
-    """The kernels CONTACT_KERNELS names for the path `name` launched, and
-    no other kernel did."""
-    want = CONTACT_KERNELS[name]
+    """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS) names for the
+    path `name` launched, and no other kernel did."""
+    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS}[name]
     print(f"{tag} kernel launches in the {name} run: {launches}")
     check(all(launches[k] > 0 for k in want), f"{name}: a kernel of its route never launched: {launches}")
     off = {k: v for k, v in launches.items() if k not in want and v}
@@ -2097,12 +2120,13 @@ def sass_loops(tag, stem="riccati_fused", kernel="solve_batched_reg_kernel"):
 
 # kernels whose rows live in registers, indexed at compile time, and
 # their instantiations: ptxas must give each no stack frame and no spill
-# (factor_lanes at widths 12, 16 and 32; solve_t1 and factor_t1 at 32;
-# the fused solve at 12, 16 and 32 with its factor on chip and in the
-# workspace, batch-first and batch-last; each in float32 and float64)
+# (factor_lanes at widths 12, 16 and 32; solve_t1 and factor_t1 at 32, and
+# their panel kernels for n in 33..128; the fused solve at 12, 16 and 32
+# with its factor on chip and in the workspace, batch-first and
+# batch-last; each in float32 and float64)
 REGISTER_KERNELS = {
     "factor_lanes_reg_kernel": 6, "solve_t1_reg_kernel": 2, "factor_t1_reg_kernel": 2,
-    "solve_batched_reg_kernel": 24,
+    "solve_batched_reg_kernel": 24, "factor_t1_panel_kernel": 2, "solve_t1_panel_kernel": 2,
 }
 # an older checkout's register kernel without a later template parameter,
 # and its instantiations there (the batch-first fused solve alone)
@@ -2155,11 +2179,16 @@ def non_pd_lanes(B):
 
 def t1_inputs(n, B=B_FLAG):
     """T=1 inputs: B SPD (n, n) matrices, the lanes non_pd_lanes(B)
-    negated, and right-hand sides (B, n)."""
+    negated (past n=32 the first of them only at its last pivot, in the
+    panel kernels' last panel), and right-hand sides (B, n)."""
     rng = np.random.default_rng(0 if (B, n) == (B_FLAG, 32) else B + n)
     A = rng.normal(size=(B, n, n))
     S64 = A @ np.swapaxes(A, 1, 2) + n * np.eye(n)
-    S64[list(non_pd_lanes(B))] *= -1.0
+    bad = list(non_pd_lanes(B))
+    S64[bad] *= -1.0
+    if bad and n > 32:
+        S64[bad[0]] *= -1.0
+        S64[bad[0], n - 1, n - 1] = -5.0
     return S64, rng.normal(size=(B, n))
 
 
@@ -2208,13 +2237,26 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
             if hasattr(cr, f"{kname}_layout"):  # a checkout from before it reports nothing
                 warps, blocks = getattr(cr, f"{kname}_layout")(dtype, n)
                 print(f"{tag} {kname} {name} n={n}: {warps} warps a block, {blocks} resident blocks an SM")
+        if B == 1 and n > 32:  # a system failing only at its last pivot, alone
+            S1 = S.clone()
+            S1[0, n - 1, n - 1] = -5.0
+            L1, L1p = cr.factor_t1(S1), cr.factor_t1_plain(S1)
+            x1 = cr.solve_t1(L1, b)
+            torch.cuda.synchronize()
+            lower = torch.ones(n, n, dtype=torch.bool, device=dev).tril()
+            check(
+                bool(torch.isnan(L1[0][lower]).all()) and bool(torch.isnan(L1p[0][lower]).all())
+                and not bool(L1[0][~lower].any()) and bool(torch.isnan(x1).all()),
+                f"{name} B=1 n={n}: a system failing at its last pivot is not NaN over its lower triangle and x",
+            )
 
 
 def contact_kernel_checks(tag, cr, dev, errs):
     """Phase 2e: the kernels against their plain versions at the contact
-    paths' shapes (CONTACT_*_SHAPES), float32 and float64, 8 lanes not
-    positive definite where B >= 8. Returns {shape label: (float32 times, float64
-    times)} of kernel, plain and bound times, which phase 5 completes."""
+    paths' shapes (CONTACT_*_SHAPES) and the T=1 pair at WIDE_T1_SHAPES,
+    float32 and float64, 8 lanes not positive definite where B >= 8.
+    Returns {shape label: (float32 times, float64 times)} of kernel, plain
+    and bound times, which phase 5 completes."""
     out = {}
     for B, T, d in CONTACT_LANES_SHAPES:
         times, times64 = {}, {}
@@ -2224,24 +2266,33 @@ def contact_kernel_checks(tag, cr, dev, errs):
         times, times64 = {}, {}
         check_stream(tag, cr, dev, B, T, d, K, errs, times, times64)
         out[f"B={B} T={T} d={d} K={K}"] = times, times64
-    for B, n in CONTACT_T1_SHAPES:
+    for B, n in WIDE_T1_SHAPES:
         times, times64 = {}, {}
         check_t1(tag, cr, dev, errs, times, times64, B, n)
         out[f"B={B} n={n}"] = times, times64
     return out
 
 
+def print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by):
+    print(
+        f"{tag} {kname} {name} {shape} (contact path or wide T=1): kernel {ms:.4f} ms host-launched, "
+        f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
+        + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+        + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
+    )
+
+
 def contact_kernel_times(tag, cr, dev, ctimes):
-    """Phase 5 at the contact paths' shapes: each kernel host-launched
-    (phase 2e's times), replayed from a CUDA graph, its plain version,
-    its library call (float32: on the dense matrices for the
-    block-tridiagonal kernels, as LIBRARY_CALLS pairs them; cholesky_ex
-    and cholesky_solve for T=1) and its bound, float32 and float64.
-    Returns {(kernel, dtype name, shape): (ms, graph ms, plain ms,
-    library ms or None, (bound ms, bound by))}."""
+    """Phase 5 at the contact paths' shapes and the wide T=1 shapes: each
+    kernel host-launched (phase 2e's times), replayed from a CUDA graph,
+    its plain version, its library call (float32: on the dense matrices
+    for the block-tridiagonal kernels, as LIBRARY_CALLS pairs them;
+    cholesky_ex and cholesky_solve for T=1) and its bound, float32 and
+    float64. Returns {(kernel, dtype name, shape): (ms, graph ms, plain
+    ms, library ms or None, (bound ms, bound by))}."""
     cases = [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in CONTACT_LANES_SHAPES]
     cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)) for B, T, d, K in CONTACT_STREAM_SHAPES]
-    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in CONTACT_T1_SHAPES]
+    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in WIDE_T1_SHAPES]
     graphs = graph_times(tag, cr, dev, cases=cases)
     library = {f"B={B} T={T} d={d}": library_times(cr, dev, B, T, d) for B, T, d in CONTACT_LANES_SHAPES}
     library.update(
@@ -2255,13 +2306,97 @@ def contact_kernel_times(tag, cr, dev, ctimes):
                     lib_ms = library[shape][LIBRARY_CALLS[kname][1]] if name == "float32" else None
                 gms = graphs[(kname, name, shape)][0]
                 out[(kname, name, shape)] = ms, gms, plain_ms, lib_ms, (bms, by)
-                print(
-                    f"{tag} {kname} {name} {shape} (contact path): kernel {ms:.4f} ms host-launched, "
-                    f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
-                    + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
-                    + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
-                )
+                print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by)
     return out
+
+
+def t1_times(tag, cr, dev):
+    """--t1-times: the T=1 pair against its plain version and timed at
+    WIDE_T1_SHAPES (phase 2e's and phase 5's T=1 part alone)."""
+    graphs = graph_times(tag, cr, dev, cases=[("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in WIDE_T1_SHAPES])
+    for B, n in WIDE_T1_SHAPES:
+        times, times64 = {}, {}
+        check_t1(tag, cr, dev, {}, times, times64, B, n)
+        for name, into in (("float32", times), ("float64", times64)):
+            for kname, (ms, plain_ms, lib_ms, (bms, by)) in into.items():
+                gms = graphs[(kname, name, f"B={B} n={n}")][0]
+                print_shape_times(tag, kname, name, f"B={B} n={n}", ms, gms, plain_ms, lib_ms, bms, by)
+
+
+def wide_routes_phase(tag, cr, rc, Options, dev):
+    """Phase 12: past the kernels' widths, float64 on the card. The
+    pendulum swing-up at horizon 44 (n = 131 > cuda_riccati.MAX_N) on
+    schur, the serial line search, from its state guess: ops/riccati's T=1
+    library route and no T=1 kernel, held to the same solve on the CPU
+    (the same solved flag, iterations within GOLDEN_BAND, states within
+    1e-3). Then ops/riccati.factor, solve and solve_multi (K=2) at
+    SCAN_SHAPE (d = 65 > MAX_D) on the scan route, lane 1 not positive
+    definite from stage 2 on, held to the same calls on the CPU. Returns
+    the pendulum's launches."""
+    import torch
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import pendulum
+
+    def solve(device):
+        prob = pendulum.swingup_problem(HORIZON_WIDE)
+        ts = TrajOptSolver(
+            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
+            equality=prob["equality"], options=Options(linear_solver="schur", line_search_mode="serial"), device=device,
+        )
+        ts.initialize_states(prob["state_guess"])
+        check(rc.t1_route(ts.num_variables) == "library", f"n={ts.num_variables} takes the T=1 kernels")
+        t0 = time.time()
+        r = ts.solve()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return ts, r, time.time() - t0
+
+    ts_cpu, r_cpu, wall_cpu = solve("cpu")
+    zero_launches(cr)
+    ts, r, wall = solve("cuda")
+    launches = dict(cr.LAUNCHES)
+    n = ts.num_variables
+    print(
+        f"{tag} pendulum n={n} (schur, float64): card solved {bool(r.solved)} in {int(r.iterations)} iterations, "
+        f"{wall:.2f} s; CPU solved {bool(r_cpu.solved)} in {int(r_cpu.iterations)}, {wall_cpu:.2f} s"
+    )
+    check_route(tag, "pendulum n=131", launches)
+    check(r.variables.dtype == torch.float64 and bool(r.solved) == bool(r_cpu.solved) is True, "pendulum n=131: not solved")
+    band = GOLDEN_BAND * int(r_cpu.iterations)
+    check(abs(int(r.iterations) - int(r_cpu.iterations)) <= band, "pendulum n=131: iterations out of the band")
+    x, x_cpu = r.variables.cpu(), r_cpu.variables
+    gap = max(float((x[idx] - x_cpu[idx]).abs().max()) for idx in ts._state_indices)
+    print(f"{tag} pendulum n={n}: states {gap:.3e} from the CPU solve's (limit 1e-3)")
+    check(gap <= 1e-3, "pendulum n=131: states off the CPU solve's")
+
+    B, T, d = SCAN_SHAPE
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(B, T, d, d))
+    D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
+    D64[1, 2] *= -1.0
+    O64, b64, bk64 = 0.3 * rng.normal(size=(B, T - 1, d, d)), rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 2))
+    check(rc.route(d) == "scan", f"d={d} takes the {rc.route(d)} route")
+    out, scan = {}, None
+    for where in ("cuda", "cpu"):
+        D, O, b, bk = (torch.tensor(a, dtype=torch.float64, device=where) for a in (D64, O64, b64, bk64))
+        zero_launches(cr)
+        L, M = rc.factor(D, O)
+        out[where] = (L, M, rc.solve(L, M, b), rc.solve_multi(L, M, bk))
+        if where == "cuda":
+            torch.cuda.synchronize()
+            scan = {k: v for k, v in cr.LAUNCHES.items() if v}
+    print(f"{tag} scan route B={B} T={T} d={d} (float64): launches {scan}")
+    check(scan == {"factor_scan": 1, "solve_scan": 2}, f"scan route: launches {scan}")
+    for label, got, want in zip(("L", "M", "x", "X"), out["cuda"], out["cpu"]):
+        got = got.cpu()
+        check(torch.equal(torch.isnan(got), torch.isnan(want)), f"scan route {label}: NaN entries differ from the CPU's")
+        ok = ~torch.isnan(want)
+        rel = float((got[ok] - want[ok]).abs().max() / want[ok].abs().max())
+        print(f"{tag} scan route {label}: max_rel_err {rel:.3e} against the CPU (limit {RTOL['float64']:g})")
+        check(rel <= RTOL["float64"], f"scan route {label}: relative error {rel:.3e}")
+    check(bool(torch.isnan(out["cuda"][2][1]).all()) and bool(torch.isfinite(out["cuda"][2][[0, 2, 3]]).all()),
+          "scan route: lane 1's x is not NaN, or another lane's is")
+    return launches
 
 
 def kernel_phases(tag, cr, dev, phase):
@@ -2665,6 +2800,9 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     dense_phase(tag, cr, Options, dev)
     phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
     fallback_fires_phase(tag, cr, Options, dev)
+    # 12. the routes past the kernels' widths
+    phase("12: schur past n=128 (pendulum, horizon 44) and the scan past d=64, float64")
+    path_launches_wide = wide_routes_phase(tag, cr, rc, Options, dev)
 
     # 6. the batched quadruped on the card (riccati backend, stream route)
     qlaunches, quadruped_against_cpu = quadruped_phase(tag, cr, Options, dev, phase)
@@ -2672,6 +2810,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     # 11. the contact models on the card; 7. the quadruped gait golden and
     # the CPU float64 re-solves, beside the hopper batch's cold batch
     path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
+    path_launches["pendulum_n131"] = path_launches_wide
 
     sources = {
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",
@@ -2708,7 +2847,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
             "launches": counts[k], "max_abs_err": errs[err_key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_us": bms * 1e3, "bound_by": by, "library_ms": lib_ms,
             "launches_by_path": {path: on_path[k] for path, on_path in path_launches.items()},
-            "at_contact_shapes": [
+            "at_other_shapes": [
                 {"shape": shape, "dtype": name, "ms": ms_c, "graph_ms": gms, "plain_ms": pms, "library_ms": lms,
                  "bound_ms": bnd[0], "bound_by": bnd[1]}
                 for (kn, name, shape), (ms_c, gms, pms, lms, bnd) in contact_times.items() if kn == k
@@ -2739,6 +2878,12 @@ def main():
         help="only build, then check and time the T=1 kernels at the flagship's shape, the stream kernels at "
         "the quadruped's, the lanes kernels at the rocket's (B=1024 and 128) and the fused solves at both, "
         "float32 and float64",
+    )
+    ap.add_argument(
+        "--t1-times", action="store_true",
+        help="only build, then check and time the T=1 kernels at n = 33, 64, 65, 96, 110 and 128, B = 1024 and 1, "
+        "float32 and float64, host-launched and replayed from a CUDA graph, beside their plain versions and "
+        "cholesky_ex / cholesky_solve",
     )
     ap.add_argument(
         "--batched-times", action="store_true",
@@ -2796,6 +2941,9 @@ def main():
     build_kernels(tag)
     if args.stream_times:
         stream_times(tag, cr, dev)
+        return 0
+    if args.t1_times:
+        t1_times(tag, cr, dev)
         return 0
     if args.batched_times:
         for B, T, d in BATCHED_SHAPES:

@@ -1,9 +1,11 @@
-"""The port's CUDA kernels (the T=1 Cholesky factor and solve, the
+"""The port's CUDA kernels (the T=1 Cholesky factor and solve, a warp a
+system up to n = 32 and a block a system in 32-wide panels past it, the
 block-tridiagonal factor and solve over T stages, one warp per lane,
 their stream versions, one block per lane with K right-hand sides per
 lane, the two fused block-tridiagonal solves and the transpose of the
-second's layout moves) against their plain
-PyTorch versions on the card. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
+second's layout moves) against their plain PyTorch versions on the card,
+and ops/riccati's library and scan routes past the kernels' widths
+against the same calls on the CPU. A CUDA kernel has no CPU mode, so these tests need an NVIDIA GPU and
 skip without one. The card's machine has no JAX, so run them there
 without the suite's conftest (which configures JAX):
 `python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q`.
@@ -47,12 +49,13 @@ def _rel_err(got, want, ok):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 5, 32, 33, 64, 110, 128])
+@pytest.mark.parametrize("n", [1, 5, 32, 33, 63, 64, 65, 96, 97, 110, 127, 128])
 def test_kernels_match_plain(cuda, n, dtype):
     """B=37 is not a multiple of any warps-per-block count (ragged batch
-    edge); n=33 and above give lanes several rows; n=110 is the bunny
-    hop's; n=128 f64 needs the raised shared-memory limit. Lanes 3 and 20
-    are not positive definite."""
+    edge); n=33 and above take the panel kernels, at the panels' edges
+    (63, 64, 65, 96, 97, 127, 128: a ragged or a full last panel); n=110
+    is the bunny hop's; n=128 f64 needs the raised shared-memory limit.
+    Lanes 3 and 20 are not positive definite."""
     rng = np.random.default_rng(n)
     B = 37
     S = torch.tensor(spd_batch(rng, B, n, non_pd=(3, 20)), dtype=dtype, device=cuda)
@@ -94,6 +97,34 @@ def test_kernels_match_plain_single_system(cuda, n, dtype):
             ok = torch.ones(1, dtype=torch.bool, device=cuda)
             assert _rel_err(L, Lp, ok) <= RTOL[dtype]
             assert _rel_err(x, xp, ok) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [33, 65, 110, 128])
+@pytest.mark.parametrize("B", [1, 37])
+def test_panel_factor_fails_in_the_last_panel(cuda, B, n, dtype):
+    """The last system's only bad pivot is its last one (S_nn made
+    negative), in the last panel: NaN over its whole lower triangle on
+    both paths, zeros above, and NaN over all of its x; the other systems
+    match the plain version."""
+    rng = np.random.default_rng(B * 1000 + n)
+    S64 = spd_batch(rng, B, n)
+    S64[B - 1, n - 1, n - 1] = -5.0
+    S = torch.tensor(S64, dtype=dtype, device=cuda)
+    b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=cuda)
+    L = cuda_riccati.factor_t1(S)
+    x = cuda_riccati.solve_t1(L, b)
+    Lp = cuda_riccati.factor_t1_plain(S)
+    torch.cuda.synchronize()
+    bad = [i == B - 1 for i in range(B)]
+    assert nan_lanes(L.cpu().numpy()).tolist() == nan_lanes(Lp.cpu().numpy()).tolist() == bad
+    lower = torch.ones(n, n, dtype=torch.bool, device=cuda).tril()
+    assert bool(torch.isnan(L[-1][lower]).all()) and torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert bool(torch.isnan(x[-1]).all())
+    if B > 1:
+        ok = torch.tensor([not f for f in bad], device=cuda)
+        assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+        assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
 
 
 def tridiag_batch(rng, B, T, d, non_pd=()):
@@ -177,13 +208,19 @@ def test_factor_lanes_register_path_edges(cuda, B, T, d, bad_stage, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n,shift", [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 0)])
+@pytest.mark.parametrize(
+    "B,n,shift",
+    [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 0), (37, 110, 1), (37, 65, 1),
+     (1024, 128, 0)],
+)
 def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
     """solve_t1's register kernel below and at the warp's width and the
-    shared-memory kernel past it (n=33); past the flagship's batch (8193:
-    each warp walks several systems, the last one ragged); L starting one
-    element past a 16-byte boundary (shift=1: copied element by element).
-    Lanes 3 and B-2 are not positive definite: NaN on both paths."""
+    panel kernel past it (n=33); past the flagship's batch (8193: each
+    warp walks several systems, the last one ragged); L starting one
+    element past a 16-byte boundary (shift=1: copied element by element,
+    or in 8-byte pieces at the panel kernel's even n in float32); the
+    panel kernel's largest shared memory at B=1024 (n=128). Lanes 3 and
+    B-2 are not positive definite: NaN on both paths."""
     rng = np.random.default_rng(B + n + shift)
     S = torch.tensor(spd_batch(rng, B, n, non_pd=(3, B - 2)), dtype=dtype, device=cuda)
     b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=cuda)
@@ -204,14 +241,21 @@ def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,n,shift", [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 1)])
+@pytest.mark.parametrize(
+    "B,n,shift",
+    [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 1), (37, 110, 1), (37, 65, 1),
+     (1024, 128, 0)],
+)
 def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
     """factor_t1's register kernel below and at the warp's width and the
-    shared-memory kernel past it (n=33); past the flagship's batch (8193:
-    each warp walks several systems, the last one ragged); S starting one
+    panel kernel past it (n=33); past the flagship's batch (8193: each
+    warp walks several systems, the last one ragged); S starting one
     element past a 16-byte boundary (shift=1: copied and stored element by
-    element). Lanes 3 and B-2 are not positive definite: NaN over their
-    lower triangles on both paths, zeros above every diagonal."""
+    element, or copied in 8-byte pieces at the panel kernel's even n in
+    float32); the panel kernel's largest shared memory at B=1024 (n=128,
+    float64: 85 KB a block). Lanes 3 and B-2 are not positive definite:
+    NaN over their lower triangles on both paths, zeros above every
+    diagonal."""
     rng = np.random.default_rng(B + n + shift + 1)
     S0 = torch.tensor(spd_batch(rng, B, n, non_pd=(3, B - 2)), dtype=dtype, device=cuda)
     buf = torch.empty(B * n * n + shift, dtype=dtype, device=cuda)
@@ -230,6 +274,38 @@ def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
     assert _rel_err(L, Lp, torch.tensor(~bad, device=cuda)) <= RTOL[dtype]
     warps, blocks = cuda_riccati.factor_t1_layout(dtype, n)
     assert warps >= 1 and blocks >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_routes_past_the_kernels_widths_solve_on_the_card(cuda, dtype):
+    """ops/riccati past the kernels' widths: chol and chol_solve at n=129
+    take the library route, factor, solve and solve_multi at d=65 the
+    scan, on the card, counted under their own keys with no kernel
+    launched, and match the same calls on the CPU; a lane not positive
+    definite is NaN on both."""
+    from calipso_tpu_torch.ops import riccati
+
+    rng = np.random.default_rng(129)
+    S = spd_batch(rng, 3, 129, non_pd=(1,))
+    b = rng.normal(size=(3, 129))
+    D, O, bt = tridiag_batch(rng, 3, 4, 65, non_pd=((2, 2),))
+    bk = rng.normal(size=(3, 4, 65, 2))
+    before = dict(cuda_riccati.LAUNCHES)
+    out = {}
+    for where in ("cuda", "cpu"):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=where)
+        L = riccati.chol(t(S))
+        Lb, M = riccati.factor(t(D), t(O))
+        out[where] = (L, riccati.chol_solve(L, t(b)), Lb, M, riccati.solve(Lb, M, t(bt)), riccati.solve_multi(Lb, M, t(bk)))
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]}
+    assert moved == {"factor_t1_library": 1, "solve_t1_library": 1, "factor_scan": 1, "solve_scan": 2}
+    for got, want in zip(out["cuda"], out["cpu"]):
+        got = got.cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        ok = ~torch.isnan(want)
+        assert float((got[ok] - want[ok]).abs().max() / want[ok].abs().max()) <= RTOL[dtype]
+    assert bool(torch.isnan(out["cuda"][0][1]).any()) and bool(torch.isnan(out["cuda"][4][2]).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -3,7 +3,8 @@ a warp's rows in registers -- `factor_lanes` for d <= 32 (the stacked
 panel [S_t ; O_t] with shuffled l_jk and a Gram coupling), `solve_t1` and
 `factor_t1` for n <= 32 (reciprocal pivots; the solve's forward sweep
 down the columns of L and backward sweep down its rows; the factor's
-shuffled l_jk) and the fused `solve_batched_fused` for d <= 32 (the
+shuffled l_jk) and their panel kernels for n in 33..128 (32-wide panels,
+the trailing update, the blocked substitution) and the fused `solve_batched_fused` for d <= 32 (the
 panel factor with the forward sweep folded in, then the backward sweep),
 also on `solve_batched_lanes`' batch-last copies through a model of the
 kernel's stage gather, and the tiled transpose that makes those copies --
@@ -165,6 +166,69 @@ def _factor_t1_model(S):
     return L
 
 
+def _factor_t1_panel_model(S):
+    """factor_t1's arithmetic for n in 33..128 (factor_t1_panel_kernel),
+    system by system: the matrix padded with rows of the identity to 32 P;
+    at panel p the diagonal block's rows s and the strip below it through
+    _panel_pivots (each warp repeats the diagonal pivots on its own strip:
+    the same arithmetic, so one call on the stacked strips), then each
+    lower trailing block less L21 L21' one k at a time. A bad pivot in any
+    panel: NaN over the whole lower triangle, zeros above it."""
+    B, n = S.shape[0], S.shape[-1]
+    N = 32 * -(-n // 32)
+    lower = np.tril(np.ones((n, n), bool))
+    L = np.zeros_like(S)
+    for b in range(B):
+        A = np.eye(N)
+        A[:n, :n] = S[b]
+        ok = True
+        for c0 in range(0, N, 32):
+            s, o = A[c0:c0 + 32, c0:c0 + 32].copy(), A[c0 + 32:, c0:c0 + 32].copy()
+            if _panel_pivots(s, o) is None:
+                ok = False
+                break
+            A[c0:c0 + 32, c0:c0 + 32], A[c0 + 32:, c0:c0 + 32] = s, o
+            for k in range(32):
+                A[c0 + 32:, c0 + 32:] -= np.outer(o[:, k], o[:, k])
+        L[b] = np.where(lower, A[:n, :n] if ok else np.nan, 0.0)
+    return L
+
+
+def _solve_t1_panel_model(L, b):
+    """solve_t1's arithmetic for n in 33..128 (solve_t1_panel_kernel),
+    system by system, with L padded by zero rows and b by zeros to 32 P:
+    from the top each diagonal block solved as the register kernel does
+    (reciprocal pivots), then the rows below less their row of the panel
+    dotted with u (_dot4); from the bottom each diagonal block's transpose,
+    then the columns left of it less sum_j L[j][t] x_j (_dot4 over j)."""
+    B, n = b.shape
+    N = 32 * -(-n // 32)
+    x = np.zeros_like(b)
+    for s in range(B):
+        A = np.zeros((N, N))
+        A[:n, :n] = L[s]
+        inv = np.ones(N)
+        inv[:n] = 1.0 / np.diag(L[s])
+        r = np.zeros(N)
+        r[:n] = b[s]
+        for c0 in range(0, N, 32):
+            for j in range(c0, c0 + 32):
+                uj = r[j] * inv[j]
+                r[j + 1:c0 + 32] -= A[j + 1:c0 + 32, j] * uj
+                r[j] = uj
+            if c0 + 32 < N:
+                r[c0 + 32:] -= _dot4(A[c0 + 32:, c0:c0 + 32], r[c0:c0 + 32])
+        for c0 in reversed(range(0, N, 32)):
+            for j in reversed(range(c0, c0 + 32)):
+                xj = r[j] * inv[j]
+                r[c0:j] -= A[j, c0:j] * xj
+                r[j] = xj
+            if c0:
+                r[:c0] -= _dot4(A[c0:c0 + 32, :c0].T, r[c0:c0 + 32])
+        x[s] = r[:n]
+    return x
+
+
 def _gather_stage_batch_last(Dl, OTl, bl, n, b):
     """Stage n's slot of lane b as the fused register kernel fills it from
     the batch-last arrays (csrc/riccati_fused.cu, copy_fused_stage): slot
@@ -252,6 +316,30 @@ def test_factor_t1_model_matches_plain(n):
     keep = [0, 2, 3]
     assert np.isfinite(Lm[keep]).all()
     np.testing.assert_allclose(Lm[keep], Lp[keep], atol=FACTOR_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("n", [33, 64, 65, 110, 128])
+def test_t1_panel_models_match_plain(n):
+    """The panel kernels' order of operations at a ragged and a full last
+    panel, the bunny hop's n=110 and the widest n: system 1 of three fails
+    only at its last pivot (in the last panel): NaN over its whole lower
+    triangle on both, zeros above every diagonal; the others' factor and
+    solve match the plain versions."""
+    rng = np.random.default_rng(200 + n)
+    A = rng.normal(size=(3, n, n))
+    S = A @ np.swapaxes(A, 1, 2) + n * np.eye(n)
+    S[1, n - 1, n - 1] = -5.0
+    b = rng.normal(size=(3, n))
+    Lp = cuda_riccati.factor_t1_plain(torch.tensor(S)).numpy()
+    Lm = _factor_t1_panel_model(S)
+    lower = np.tril(np.ones((n, n), bool))
+    assert np.isnan(Lm[1][lower]).all() and np.isnan(Lp[1][lower]).all()
+    assert (Lm[:, ~lower] == 0).all()
+    keep = [0, 2]
+    np.testing.assert_allclose(Lm[keep], Lp[keep], atol=FACTOR_ATOL, rtol=0)
+    xm = _solve_t1_panel_model(Lm[keep], b[keep])
+    xp = cuda_riccati.solve_t1_plain(torch.tensor(Lp[keep]), torch.tensor(b[keep])).numpy()
+    np.testing.assert_allclose(xm, xp, atol=SOLVE_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("where", [0, 1, 2], ids=["first", "middle", "last"])

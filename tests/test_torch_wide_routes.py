@@ -1,0 +1,163 @@
+"""The port's routes past the kernels' widths against the JAX package on
+the CPU in float64: the T=1 library route past n = 128 (`chol_library`,
+`chol_solve_library`) against `jnp.linalg.cholesky` and the reference's
+`chol_solve_cv`, the block-tridiagonal scan past d = 64 (`factor_scan`,
+`solve_scan`) against the reference's `factor`, `solve` and
+`solve_multi`, the functions that name the routes at their limits, and a
+schur solve past 128 variables (the pendulum swing-up at horizon 44, n =
+131) in both packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import calipso_tpu
+from calipso_tpu.ops import riccati as jrc
+from calipso_tpu_torch.ops import cuda_riccati, riccati
+from calipso_tpu_torch.utils.convert import options_from_jax
+from tests.torch_parity import nan_lanes, spd_batch
+
+RTOL = 1e-12  # relative to the largest entry: the same float64 LAPACK calls, summed in another order
+SOL_ATOL = 1e-6  # tests/test_torch_slice.py: solutions of one solve in both packages
+
+
+def _rel_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.abs(got - want).max() <= RTOL * np.abs(want).max()
+
+
+@pytest.mark.parametrize(
+    "n,want", [(1, "kernel"), (32, "kernel"), (128, "kernel"), (129, "library"), (286, "library")]
+)
+def test_t1_route_at_its_limit(n, want):
+    assert riccati.t1_route(n) == want
+
+
+@pytest.mark.parametrize(
+    "d,want", [(9, "lanes"), (32, "lanes"), (33, "stream"), (54, "stream"), (64, "stream"), (65, "scan"), (80, "scan")]
+)
+def test_block_route_at_its_limits(d, want):
+    assert riccati.route(d) == want
+
+
+def test_t1_library_route_matches_jax():
+    """(3, 129): lane 1 is not positive definite, NaN over its lower
+    triangle and zeros above; jnp.linalg.cholesky gives it no finite
+    factor either. The other lanes' factor and solve match the
+    reference's XLA branch (`chol_cv`, `chol_solve_cv` under vmap, which
+    take it at this size)."""
+    B, n = 3, 129
+    rng = np.random.default_rng(129)
+    S = spd_batch(rng, B, n, non_pd=(1,))
+    b = rng.normal(size=(B, n))
+    before = dict(cuda_riccati.LAUNCHES)
+    L = riccati.chol(torch.tensor(S))
+    x = riccati.chol_solve(L, torch.tensor(b))
+    assert cuda_riccati.LAUNCHES == before  # a CPU tensor counts nothing
+    torch.testing.assert_close(L, riccati.chol_library(torch.tensor(S)), rtol=0, atol=0, equal_nan=True)
+    L = L.numpy()
+    Lj = np.asarray(jax.vmap(jrc.chol_cv)(jnp.asarray(S)))
+    assert nan_lanes(L).tolist() == [False, True, False]
+    assert (~np.isfinite(Lj).all(axis=(1, 2))).tolist() == [False, True, False]
+    low = np.tril(np.ones((n, n), bool))
+    assert np.isnan(L[1][low]).all() and (L[1][~low] == 0).all()
+    ok = [0, 2]
+    _rel_close(L[ok], Lj[ok])
+    _rel_close(L[ok], np.asarray(jnp.linalg.cholesky(jnp.asarray(S[ok]))))
+    xj = np.asarray(jax.vmap(jrc.chol_solve_cv)(jnp.asarray(Lj[ok]), jnp.asarray(b[ok])))
+    _rel_close(x.numpy()[ok], xj)
+    assert np.isnan(x.numpy()[1]).all()
+
+
+def _tridiag(rng, B, T, d, bad=()):
+    """Block-tridiagonal SPD batches (strongly diagonal D, couplings 0.3
+    N(0, 1)); the (lane, stage) blocks in `bad` negated."""
+    A = rng.normal(size=(B, T, d, d))
+    D = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
+    O = 0.3 * rng.normal(size=(B, T - 1, d, d))
+    for lane, stage in bad:
+        D[lane, stage] *= -1.0
+    return D, O
+
+
+def test_scan_route_matches_jax():
+    """(3, 5, 65): lane 2's stage 3 is not positive definite, so its L is
+    NaN over the lower triangle from stage 3 on and its M from M_3 on (the
+    reference's scan: not finite from the same stage on). The other
+    lanes' factor, solve and solve_multi (K=3) match the reference's."""
+    B, T, d, BAD, T_BAD = 3, 5, 65, 2, 3
+    rng = np.random.default_rng(65)
+    D, O = _tridiag(rng, B, T, d, bad=((BAD, T_BAD),))
+    b, bk = rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 3))
+    before = dict(cuda_riccati.LAUNCHES)
+    Lt, Mt = riccati.factor(torch.tensor(D), torch.tensor(O))
+    xt = riccati.solve(Lt, Mt, torch.tensor(b)).numpy()
+    Xt = riccati.solve_multi(Lt, Mt, torch.tensor(bk)).numpy()
+    assert cuda_riccati.LAUNCHES == before
+    Lt, Mt = Lt.numpy(), Mt.numpy()
+    Lr, Mr = (np.asarray(a) for a in jax.vmap(jrc.factor)(jnp.asarray(D), jnp.asarray(O)))
+    low = np.tril(np.ones((d, d), bool))
+    assert np.isnan(Lt[BAD, T_BAD:][:, low]).all() and (Lt[BAD, T_BAD:][:, ~low] == 0).all()
+    assert np.isnan(Mt[BAD, T_BAD:]).all() and np.isfinite(Mt[BAD, :T_BAD]).all()
+    stage_bad = ~np.isfinite(Lt).all(axis=(-2, -1))
+    assert (stage_bad == ~np.isfinite(Lr).all(axis=(-2, -1))).all()
+    assert stage_bad.any(axis=1).tolist() == [i == BAD for i in range(B)]
+    ok = [0, 1]
+    _rel_close(Lt[ok], Lr[ok])
+    _rel_close(Mt[ok], Mr[ok])
+    _rel_close(Lt[BAD, :T_BAD], Lr[BAD, :T_BAD])
+    xr = jax.vmap(jrc.solve)(*(jnp.asarray(a[ok]) for a in (Lr, Mr, b)))
+    Xr = jax.vmap(jrc.solve_multi)(*(jnp.asarray(a[ok]) for a in (Lr, Mr, bk)))
+    _rel_close(xt[ok], xr)
+    _rel_close(Xt[ok], Xr)
+    assert np.isnan(xt[BAD]).all() and np.isnan(Xt[BAD]).all()
+
+
+@pytest.mark.parametrize("n", [7, 129])
+def test_scan_route_at_one_stage_is_the_t1_route(n):
+    """With T=1 the scan is one Cholesky factor and one solve: the same
+    numbers as the T=1 library route."""
+    rng = np.random.default_rng(n)
+    S = torch.tensor(spd_batch(rng, 2, n))[:, None]
+    b = torch.tensor(rng.normal(size=(2, 1, n)))
+    L, M = riccati.factor_scan(S, S.new_zeros(2, 0, n, n))
+    assert M.shape == (2, 0, n, n)
+    assert torch.equal(L[:, 0], riccati.chol_library(S[:, 0]))
+    assert torch.equal(riccati.solve_scan(L, M, b)[:, 0], riccati.chol_solve_library(L[:, 0], b[:, 0]))
+
+
+def test_schur_solve_past_the_kernel_width_matches_jax():
+    """The pendulum swing-up at horizon 44 (n = 2·44 + 43 = 131 variables)
+    on schur with the serial line search, in float64 from the problem's
+    state guess and zero actions: the port's T=1 factor and solve take
+    the library route, and the solve takes the reference's steps (the
+    same solved flag and iterations, the solution within the goldens'
+    atol)."""
+    from calipso_tpu import TrajOptSolver as JaxTrajOpt
+    from calipso_tpu.models import pendulum as jpendulum
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import pendulum
+
+    horizon = 44
+    jopts = calipso_tpu.Options(linear_solver="schur", line_search_mode="serial")
+    out = []
+    for build, m, extra in (
+        (JaxTrajOpt, jpendulum, {}),
+        (TrajOptSolver, pendulum, {"device": "cpu"}),
+    ):
+        prob = m.swingup_problem(horizon)
+        opts = jopts if build is JaxTrajOpt else options_from_jax(jopts)
+        ts = build(
+            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
+            equality=prob["equality"], options=opts, **extra,
+        )
+        assert ts.num_variables == 131
+        assert riccati.t1_route(ts.num_variables) == "library"
+        ts.initialize_states(prob["state_guess"])
+        out.append(ts.solve())
+    rj, rt = out
+    assert bool(rt.solved) == bool(rj.solved) is True
+    assert int(rt.iterations) == int(rj.iterations)
+    np.testing.assert_allclose(rt.variables.numpy(), np.asarray(rj.variables), atol=SOL_ATOL, rtol=0)
