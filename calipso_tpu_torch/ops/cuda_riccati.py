@@ -61,7 +61,8 @@ the plain PyTorch version, a CUDA tensor launches the kernel (or raises
 on a dtype, shape or layout the kernel does not take). `LAUNCHES` counts
 kernel launches, one per wrapper call that launched, and, under the
 `*_library` and `*_scan` keys, the calls of `ops/riccati`'s routes past
-the kernels' widths on CUDA tensors.
+the kernels' widths on CUDA tensors (and `solve_t1_multi_library`, its
+K-column schur solve).
 
 A matrix that is not positive definite comes out with NaN over its whole
 lower triangle on both paths: that is the inertia signal the solver's
@@ -82,6 +83,8 @@ LAUNCHES = {
     "solve_batched_fused": 0, "solve_batched_lanes": 0, "transpose": 0,
     # the library and scan routes of ops/riccati, past MAX_N and MAX_D
     "factor_t1_library": 0, "solve_t1_library": 0, "factor_scan": 0, "solve_scan": 0,
+    # the schur backend's K-column solve (two triangular solves, any n)
+    "solve_t1_multi_library": 0,
 }
 MAX_N = 128  # T=1 kernels
 MAX_D = 64  # block-tridiagonal kernels (lanes and stream)

@@ -45,11 +45,16 @@ CPU tensor to its plain PyTorch version (`ops/cuda_riccati.py`); the
 library and scan routes run the same calls on either device, and count
 each call on a CUDA tensor in `cuda_riccati.LAUNCHES` (keys
 `factor_t1_library`, `solve_t1_library`, `factor_scan`, `solve_scan`).
+`chol_solve_multi`, the schur backend's solve for K right-hand sides
+(implicit differentiation), is the reference's pair of triangular solves
+at every width, counted as `solve_t1_multi_library`.
 A lane that is not positive definite comes out with NaN over the lower
 triangle of its factor (the inertia signal), never an exception; in the
 block-tridiagonal factor, from the first stage that is not positive
 definite on (see `ops/cuda_riccati.py`).
 """
+
+import torch
 
 from calipso_tpu_torch.ops import cuda_riccati
 
@@ -93,6 +98,17 @@ def chol_solve_library(L, b):
     calls as the T=1 kernel's plain version."""
     _count("solve_t1_library", L)
     return cuda_riccati.solve_t1_plain(L, b)
+
+
+def chol_solve_multi(L, B):
+    """X with L L^T X = B for L (B, n, n) lower and K right-hand sides B
+    (B, n, K), by two triangular solves: what the reference's schur
+    backend takes for several columns at any width
+    (`calipso_tpu/solver/kkt.py:738-742`, XLA's `solve_triangular`, no
+    Pallas kernel). Counted as `solve_t1_multi_library` on CUDA tensors."""
+    _count("solve_t1_multi_library", L)
+    y = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def factor_scan(D, O):

@@ -7,11 +7,11 @@ other and checks that the field sets agree).
 
 The port has five of the six KKT backends: ``linear_solver`` "schur",
 "riccati", "cr", "ldl" and "lu" (riccati and cr for trajopt problems),
-and ``refinement_fallback=True``. Values that select a path it does not
-have are refused when the solver is built, with `NotImplementedError`
-naming the ROADMAP item that brings them (see
-`solver/solve.py:resolve_options`): ``linear_solver="spike"`` and
-``spike_mesh`` (item 19), ``differentiate=True`` (item 18).
+``refinement_fallback=True`` and ``differentiate=True`` (on all five).
+Values that select a path it does not have are refused when the solver
+is built, with `NotImplementedError` naming the ROADMAP item that brings
+them (see `solver/solve.py:resolve_options`): ``linear_solver="spike"``
+and ``spike_mesh`` (item 19).
 
 ``matmul_precision="highest"`` keeps float32 matrix products in full
 float32 on the GPU (`torch.backends.cuda.matmul.allow_tf32` and
@@ -101,7 +101,7 @@ class Options:
     line_search_mode: str = "auto"
     parallel_line_search_width: int = 8
 
-    # implicit differentiation of the solution (not ported)
+    # implicit differentiation of the solution (SolveResult.sensitivity)
     differentiate: bool = False
 
     # keep the caller-provided primal-dual point instead of reinitializing

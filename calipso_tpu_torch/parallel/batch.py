@@ -4,8 +4,9 @@ The counterpart of `calipso_tpu/parallel/batch.py`. The solver is
 batch-first (see `solver/solve.py`), so a batch needs no transform: the
 lane axis is the leading axis of every tensor. A batch runs on the
 solver's device (the card unless asked otherwise), where every input is
-moved. Sharding a batch over devices (`mesh=`) is ROADMAP Queue 1 item
-19.
+moved. With `Options(differentiate=True)` a batch's result carries each
+lane's sensitivity to its parameters, (B, total, p) (`solve_fn`).
+Sharding a batch over devices (`mesh=`) is ROADMAP Queue 1 item 19.
 """
 
 from __future__ import annotations

@@ -15,6 +15,7 @@ import torch
 
 from calipso_tpu_torch.options import Options
 from calipso_tpu_torch.ops.cones import ConeLayout
+from calipso_tpu_torch.solver import differentiate
 from calipso_tpu_torch.solver.kkt import Blocks
 from calipso_tpu_torch.solver.problem import ProblemFunctions
 from calipso_tpu_torch.solver.solve import State, make_solve, resolve_options
@@ -22,7 +23,10 @@ from calipso_tpu_torch.solver.solve import State, make_solve, resolve_options
 
 class SolveResult(NamedTuple):
     state: State
-    sensitivity: torch.Tensor  # (..., total, num_parameters); zeros (not ported)
+    sensitivity: torch.Tensor  # (..., total, num_parameters), zeros if not differentiated
+    # (...,) each lane's estimated relative error of its sensitivity
+    # (differentiate.Sensitivity.error), zeros if not differentiated
+    sensitivity_error: torch.Tensor
 
     @property
     def variables(self):
@@ -43,16 +47,33 @@ class SolveResult(NamedTuple):
 
 def solve_fn(fns, layout: ConeLayout, opts: Options, callbacks=None):
     """Functional batched solve: (x0 (B, n), theta (B, p) or None, warm)
-    -> SolveResult with a leading lane axis. The closure carries `stats`
-    (see `make_solve`)."""
+    -> SolveResult with a leading lane axis. With `opts.differentiate` the
+    result carries the solution's sensitivity (B, total, p) to theta and
+    its error estimate (`solver/differentiate.py`), else zeros. The
+    closure carries `stats` (see `make_solve`), which adds, for the last
+    call, the lanes whose factor at the solution took the inertia ladder
+    ("sensitivity_ladder_lanes") and the refinement trips
+    ("sensitivity_refine_trips"), empty and 0 without differentiation."""
     core = make_solve(fns, layout, opts, callbacks)
+    npar = fns.dims.parameters
+    stats = core.stats
 
     def run(x0, theta=None, warm=None) -> SolveResult:
         state = core(x0, theta, warm)
-        sens = x0.new_zeros((x0.shape[0], fns.dims.total, fns.dims.parameters))
-        return SolveResult(state, sens)
+        B = x0.shape[0]
+        stats.update(sensitivity_ladder_lanes=[], sensitivity_refine_trips=0)
+        if not (opts.differentiate and npar > 0):
+            return SolveResult(state, x0.new_zeros((B, fns.dims.total, npar)), x0.new_zeros(B))
+        if theta is None:
+            theta = x0.new_zeros((B, npar))
+        theta = theta.detach().to(dtype=x0.dtype, device=x0.device)
+        sens = differentiate.sensitivity(fns, layout, opts, state, theta)
+        stats.update(
+            sensitivity_ladder_lanes=torch.nonzero(sens.ladder)[:, 0].tolist(), sensitivity_refine_trips=sens.refine_trips
+        )
+        return SolveResult(state, sens.value, sens.error)
 
-    run.stats = core.stats
+    run.stats = stats
     return run
 
 

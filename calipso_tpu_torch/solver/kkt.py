@@ -37,9 +37,8 @@ The backends (`Options.linear_solver`):
   solve of the full 6-block system (`lu_solve_full`), which is also the
   escalation of `Options.refinement_fallback`.
 "spike" (the horizon sharded over devices) is ROADMAP Queue 1 item 19.
-`solve_sym` takes one right-hand side (B, ns), or on riccati, cr and ldl
-several (B, ns, K); several on schur belong to differentiation (ROADMAP
-Queue 1 item 18).
+`solve_sym` takes one right-hand side (B, ns) or several (B, ns, K) (the
+columns of implicit differentiation, `solver/differentiate.py`).
 """
 
 from __future__ import annotations
@@ -561,14 +560,11 @@ def num_zero_eigs(fact: Factorization, method="schur", structure=None):
 
 def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", structure=None):
     """Solve the condensed symmetric system for rhs (B, n + m_e + m_c), or
-    on the riccati, cr and ldl backends for K right-hand sides at once,
-    rhs (B, n + m_e + m_c, K). "lu" applies its schur factor."""
+    for K right-hand sides at once, rhs (B, n + m_e + m_c, K): on schur
+    by two triangular solves with the factor (`ops/riccati.chol_solve_multi`,
+    as the reference takes them), on riccati by the stream sweeps
+    (`solve_multi`). "lu" applies its schur factor."""
     vec = rhs.dim() == 2
-    if not vec and method not in STRUCTURED + ("ldl",):
-        raise NotImplementedError(
-            "solve_sym with several right-hand sides on the schur backend belongs "
-            "to differentiation: ROADMAP Queue 1 item 18"
-        )
     if method == "ldl":
         return ldl.ldl_solve(fact.L, fact.d, rhs)
     # per-lane matrix products and scalings of one column or of K columns
@@ -592,8 +588,10 @@ def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", struc
             cols = _banded_solve_multi(structure, _block_solver(fact), rhs_x[..., None] if vec else rhs_x)
             dx = cols[..., 0] if vec else cols
         dx = _apply_border(fact, structure, dx)
-    else:
+    elif vec:
         dx = rc.chol_solve(fact.L, rhs_x.contiguous())
+    else:
+        dx = rc.chol_solve_multi(fact.L, rhs_x)
     dy = (mv(fact.gx, dx) - req) / lane(ceq) if me > 0 else req
     if mc > 0:
         dz = cones.c_block_solve(

@@ -18,9 +18,11 @@ Hessians): under `vmap`, forward mode (`jacfwd`, and `hessian`, which is
 (measured with torch 2.13 on the cartpole dynamics, errors of order 1e2),
 and user dynamics solve small linear systems.
 
-Only the x-derivatives the schur path needs exist here; the
-theta-derivatives (fxt, gt, ht, gty_xt, htz_xt) serve implicit
-differentiation, which the port does not have yet.
+The theta-derivatives (fxt, gt, ht, gty_xt, htz_xt) serve implicit
+differentiation (`solver/differentiate.py`), which runs after the solve
+loop and inside `torch.autograd.Function.forward`, where grad mode is
+off; they switch it on themselves, since `vmap(jacrev(.))` under
+`torch.no_grad()` returns wrong derivatives (torch 2.13).
 """
 
 from __future__ import annotations
@@ -68,6 +70,16 @@ def probe_size(fn, *shapes) -> int:
         return int(torch.as_tensor(fn(*args)).numel())
 
 
+def with_grad(fn):
+    """fn run with grad mode on, whatever the caller's (see module doc)."""
+
+    def run(*args):
+        with torch.enable_grad():
+            return fn(*args)
+
+    return run
+
+
 class Dimensions(NamedTuple):
     """Problem dimensions."""
 
@@ -86,8 +98,10 @@ class Dimensions(NamedTuple):
 
 
 class ProblemFunctions:
-    """Dense autodiff oracle for (f, g, h) and the x-derivatives the solver
-    evaluates. Every method is batched over a leading lane axis."""
+    """Dense autodiff oracle for (f, g, h) and the derivatives the solver
+    evaluates. Every method is batched over a leading lane axis; the
+    theta-derivatives are (B, n, p) (fxt, gty_xt, htz_xt), (B, m_e, p)
+    (gt) and (B, m_c, p) (ht)."""
 
     def __init__(self, objective, equality, cone, num_variables, num_parameters=0):
         f = _normalize(objective)
@@ -116,6 +130,13 @@ class ProblemFunctions:
         self._fxx = vmap(jacrev(grad(f1)))
         self._gty_xx = vmap(jacrev(grad(gty)))
         self._htz_xx = vmap(jacrev(grad(htz)))
+
+        # parameter derivatives (implicit differentiation)
+        self.fxt = with_grad(vmap(jacrev(grad(f1), argnums=1)))
+        self.gt = with_grad(vmap(jacrev(g1, argnums=1)))
+        self.ht = with_grad(vmap(jacrev(h1, argnums=1)))
+        self.gty_xt = with_grad(vmap(jacrev(grad(gty), argnums=1)))
+        self.htz_xt = with_grad(vmap(jacrev(grad(htz), argnums=1)))
 
     def lagrangian_hessian_xx(self, x, theta, y, z, constraint_tensor=True):
         """fxx + sum_i y_i grad^2 g_i + sum_i z_i grad^2 h_i, (B, n, n)."""

@@ -37,10 +37,6 @@ BIG = 1.0e8  # empty-filter sentinel
 
 def _refuse_unported(opts):
     """Raise for options whose code path the port does not have yet."""
-    if opts.differentiate:
-        raise NotImplementedError(
-            "differentiate=True: implicit differentiation is ROADMAP Queue 1 item 18"
-        )
     if opts.spike_mesh is not None:
         raise NotImplementedError(
             "spike_mesh: horizon sharding is ROADMAP Queue 1 item 19"
@@ -719,13 +715,14 @@ def make_solve(fns, layout, opts, callbacks=None):
         # which gradients were summed, depended on what the process had
         # run before: the first batch after another solve ran the same ops
         # in another order and came out with other bits
-        with torch.autograd.set_multithreading_enabled(False):
+        # grad mode is switched on even inside a caller's torch.no_grad()
+        # (or an autograd.Function's forward): under it, vmap(jacrev(.))
+        # returns wrong derivatives through torch.linalg.solve (torch
+        # 2.13); the inputs are detached instead, so no graph is built
+        with torch.autograd.set_multithreading_enabled(False), torch.enable_grad():
             return _solve(x0, theta, warm, parallel)
 
     def _solve(x0, theta, warm, parallel):
-        # no torch.no_grad() here: under it, vmap(jacrev(.)) returns wrong
-        # derivatives through torch.linalg.solve (torch 2.13); the inputs
-        # are detached instead, so no autograd graph is built
         st = init_state(x0, theta, warm)
         while True:
             outer = (st.outer_i < opts.max_outer_iterations) & ~(st.solved | st.failed)

@@ -23,8 +23,11 @@ z (B, n) and theta (B, p) with the lane axis first. The riccati backend
 also reads the Lagrangian Hessian in stage-block tridiagonal form
 (`lagrangian_hessian_blocks`), placed from the same grouped Hessians with
 0/1 stage and offset maps, so no dense (n, n) Hessian is built on its
-path. The theta-derivatives belong to differentiation (ROADMAP Queue 1
-item 18).
+path. The theta-derivatives of implicit differentiation (fxt, gt, ht,
+gty_xt, htz_xt) come from the same grouped transforms, taken by theta:
+their parameter columns placed by 0/1 one-hot parameter maps, their
+variable rows as the gradients' (grad mode switched on inside, as in
+`solver/problem.py`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 from torch.func import grad, jacrev, vmap
 
-from calipso_tpu_torch.solver.problem import Dimensions
+from calipso_tpu_torch.solver.problem import Dimensions, with_grad
 
 
 class _Group(NamedTuple):
@@ -133,16 +136,22 @@ class StructuredProblemFunctions:
         built once per (device, dtype)."""
         key = (str(ref.device), ref.dtype)
         if key not in self._cache:
-            dev, n = ref.device, self._n
+            dev, n, p = ref.device, self._n, self._p
+
+            def onehot(idx, size):
+                """0/1 (..., k, size) map of static indices; the sentinel
+                index == size maps to no column."""
+                out = np.zeros(idx.shape + (size + 1,))
+                np.put_along_axis(out, idx[..., None], 1.0, axis=-1)
+                return torch.as_tensor(out[..., :size], dtype=ref.dtype, device=dev)
 
             def group_tables(g):
-                onehot = np.zeros(g.zcols.shape + (n + 1,))
-                np.put_along_axis(onehot, g.zcols[..., None], 1.0, axis=-1)
                 return dict(
                     zc=torch.as_tensor(g.zcols, device=dev),
                     pc=torch.as_tensor(g.pcols, device=dev),
                     rows=torch.as_tensor(g.rows, device=dev),
-                    C=torch.as_tensor(onehot[..., :n], dtype=ref.dtype, device=dev),
+                    C=onehot(g.zcols, n),
+                    P=onehot(g.pcols, p),
                 )
 
             as_idx = lambda a: None if a is None else torch.as_tensor(a, device=dev)
@@ -295,6 +304,83 @@ class StructuredProblemFunctions:
             yg = y[:, tabs["general_rows"]]
             H = H + vmap(jacrev(grad(_scal(self.general))))(x, theta, yg)
         return H
+
+    # ---- theta-derivatives (implicit differentiation) ------------------------
+
+    @staticmethod
+    def _place_mixed(Mx, C, P):
+        """(B, G, w, q) member mixed derivatives -> (B, n, p) flat sum."""
+        return torch.einsum("gwn,bgwp->bnp", C, torch.einsum("bgwq,gqp->bgwp", Mx, P))
+
+    def _theta_jacobian(self, groups, tabs, perm, z, theta, general):
+        """d(values)/dtheta, (B, m, p), rows in row order."""
+        B, p = z.shape[0], self._p
+        parts = []
+        for g, tab in zip(groups, tabs):
+            if g.npw == 0:
+                parts.append(z.new_zeros((B, g.zcols.shape[0] * g.rdim, p)))
+                continue
+            Zf, Wf = self._stage_args(g, tab, z, theta)
+            J = vmap(jacrev(g.fn, argnums=1))(Zf, Wf).reshape(B, -1, g.rdim, g.npw)
+            parts.append(torch.einsum("bgrq,gqp->bgrp", J, tab["P"]).reshape(B, -1, p))
+        if general:
+            parts.append(vmap(jacrev(self.general, argnums=1))(z, theta))
+        if not parts:
+            return z.new_zeros((B, 0, p))
+        out = torch.cat(parts, dim=1)
+        return out if perm is None else out[:, perm]
+
+    @with_grad
+    def gt(self, z, theta):
+        tabs = self._tables(z)
+        return self._theta_jacobian(
+            self.eq_groups, tabs["eq"], tabs["eq_perm"], z, theta, self.general is not None
+        )
+
+    @with_grad
+    def ht(self, z, theta):
+        tabs = self._tables(z)
+        return self._theta_jacobian(self.cone_groups, tabs["cone"], tabs["cone_perm"], z, theta, False)
+
+    @with_grad
+    def fxt(self, z, theta):
+        """d/dtheta of grad_z(sum of costs), (B, n, p)."""
+        tabs = self._tables(z)
+        out = z.new_zeros((z.shape[0], self._n, self._p))
+        for g, tab in zip(self.cost_groups, tabs["cost"]):
+            if g.npw == 0:
+                continue
+            Zf, Wf = self._stage_args(g, tab, z, theta)
+            Mx = vmap(jacrev(grad(g.fn), argnums=1))(Zf, Wf).reshape(z.shape[0], -1, g.width, g.npw)
+            out = out + self._place_mixed(Mx, tab["C"], tab["P"])
+        return out
+
+    def _dual_mixed(self, groups, tabs, z, theta, dual):
+        out = z.new_zeros((z.shape[0], self._n, self._p))
+        for g, tab in zip(groups, tabs):
+            if g.npw == 0:
+                continue
+            Zf, Wf = self._stage_args(g, tab, z, theta)
+            Yf = dual[:, tab["rows"]].reshape(-1, g.rdim)
+            Mx = vmap(jacrev(grad(_scal(g.fn)), argnums=1))(Zf, Wf, Yf)
+            out = out + self._place_mixed(Mx.reshape(z.shape[0], -1, g.width, g.npw), tab["C"], tab["P"])
+        return out
+
+    @with_grad
+    def gty_xt(self, z, theta, y):
+        """d/dtheta of grad_z(g' y), (B, n, p)."""
+        tabs = self._tables(z)
+        out = self._dual_mixed(self.eq_groups, tabs["eq"], z, theta, y)
+        if self.general is not None:
+            yg = y[:, tabs["general_rows"]]
+            out = out + vmap(jacrev(grad(_scal(self.general)), argnums=1))(z, theta, yg)
+        return out
+
+    @with_grad
+    def htz_xt(self, z, theta, dual):
+        """d/dtheta of grad_z(h' z), (B, n, p)."""
+        tabs = self._tables(z)
+        return self._dual_mixed(self.cone_groups, tabs["cone"], z, theta, dual)
 
     # ---- stage-block tridiagonal Hessian (riccati backend) ------------------
 

@@ -37,22 +37,26 @@ def _tensor(a, device, dtype):
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def blocks_from_numpy(blocks, device="cpu", dtype=torch.float64) -> Blocks:
-    """The port's Blocks from any (x, r, s, y, z, t) sequence of arrays."""
-    return Blocks(*(_tensor(a, device, dtype) for a in blocks))
+def blocks_from_numpy(blocks, device="cpu", dtype=torch.float64, single=False) -> Blocks:
+    """The port's Blocks from any (x, r, s, y, z, t) sequence of arrays;
+    with `single`, arrays of one solve, given a lane axis of 1."""
+    lane = (lambda a: np.asarray(a)[None]) if single else (lambda a: a)
+    return Blocks(*(_tensor(lane(a), device, dtype) for a in blocks))
 
 
-def state_from_numpy(state, device="cpu", dtype=torch.float64) -> State:
-    """The port's State from a reference State (batched arrays, lane axis
-    first); float fields take `dtype`, integer and bool fields keep theirs
-    (integers as int32, the port's counter type)."""
+def state_from_numpy(state, device="cpu", dtype=torch.float64, single=False) -> State:
+    """The port's State from a reference State: batched arrays, lane axis
+    first, or with `single` the State of one solve (`Solver.solve`), given
+    a lane axis of 1. Float fields take `dtype`, integer and bool fields
+    keep theirs (integers as int32, the port's counter type)."""
+    lane = (lambda a: np.asarray(a)[None]) if single else (lambda a: a)
     fields = {}
     for name in State._fields:
         value = getattr(state, name)
         if name == "p":
-            fields[name] = blocks_from_numpy(value, device, dtype)
+            fields[name] = blocks_from_numpy(value, device, dtype, single)
             continue
-        t = _tensor(value, device, dtype)
+        t = _tensor(lane(value), device, dtype)
         if t.dtype not in (torch.bool,) and not t.is_floating_point():
             t = t.to(torch.int32)
         fields[name] = t

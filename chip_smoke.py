@@ -126,12 +126,50 @@ Phases (each fails loudly; none catches its own failure):
      T=1 kernel, held to the same solve on the CPU (solved, iterations
      within +-15%, states within 1e-3); and ops/riccati.factor, solve and
      solve_multi at (B, T, d) = (4, 5, 65) on the scan route, one lane
-     not positive definite, held to the same calls on the CPU.
+     not positive definite, held to the same calls on the CPU;
+  13. implicit differentiation (run after phase 12), each path with the
+     launch counts set to 0 just before it and read just after: (a) the
+     flagship batch (B=8192, float32) with differentiate=True and its
+     initial state as the parameter (p = 2): sensitivity (8192, 80, 2),
+     the T=1 kernels and the K-column schur solve (two triangular solves,
+     counted as solve_t1_multi_library), at least one more factor_t1
+     launch than the same batch undifferentiated, the same lanes solved,
+     the wall differentiation adds to a warm batch, and 16 lanes'
+     sensitivity against the float64 sensitivity at the same points
+     (every lane whose own error estimate, SolveResult.sensitivity_error,
+     is at most 1e-5 within 1e-4) and of the same lanes solved again on
+     the card; (b) the pendulum at horizon 44 (n = 131,
+     "auto" -> riccati, d = 3, B=1024, float32) differentiated: the lanes
+     pair and the stream sweeps at K = 2, no T=1 kernel, and the same lane
+     check; (c) the differentiable solve (autograd.Function) in float64 on
+     4 flagship lanes solved to 1e-10: backward() of a scalar function of
+     the solution equals sens' w_bar and central differences;
+  14. the applications: (a) the pendulum MPC of tests/test_mpc.py:46-60
+     for 1024 scenarios near upright, 100 warm-started steps in float32:
+     every lane solved at every step, every final state inside the test's
+     bounds, the mean iterations after step 0 not above step 0's, on the
+     T=1 kernels; (b) the cart-pole MPC auto-tuning of
+     tests/test_autotuning.py:106-183 over 256 initial states in float64,
+     3 gradient steps through the differentiable solve: the loss falls.
+  Phase 11d also solves, in float64 with the reference tests'
+  options and assertions, cyberdrift (schur at n = 286: the T=1 library
+  route, the serial line search its reference test runs on the CPU), one
+  solve from the reference test's guess held to its assertions or, where
+  it fails (its outcome moves with the last bit), to the branch rule of
+  cyberdrift_solve: every call of the library route backward stable, its
+  merits within 1e-10 of the port's CPU float64 solve's over the first
+  30 steps, and that CPU solve meeting the assertions; and the state-triggered rocket (T=51, d=17: the lanes kernels) (the
+  quadruped drop's reference test runs in the CPU tests only:
+  tests/test_torch_drop.py); phases 2e and 5 hold and
+  time the kernels at the shapes phases 11d, 13 and 14 give them: the
+  lanes pair at (1024, 44, 3) and (1, 51, 17), the stream kernels at
+  (1024, 44, 3) with K=2 and (1, 51, 17), the T=1 pair at (256, 19).
 
 The solves are bound by the host's dispatch and leave the card idle most
 of the time, so beside the hopper batch's cold batch (11b), and beside no
 other timed window, run phases 7, 11c and 11d (float64 single solves) in
-a second process on the card and the CPU float64 re-solves of the
+two more processes on the card (7, 11c and 11d's first three models in
+one, cyberdrift and the state-triggered rocket in the other) and the CPU float64 re-solves of the
 quadruped (phase 6) and the hopper (11a, 11b) in three more; the warm
 batches, profiles and single solves' walls have the card and the host to
 themselves.
@@ -323,17 +361,84 @@ CONTACT_KERNELS = {
 # leaves no room for a lane that is not positive definite beside one that
 # is: those checks take none (the T=1 pair checks a failing system alone)
 B_CONTACT = 1024
-CONTACT_LANES_SHAPES = tuple((B, HORIZON_HOPPER, d) for d in (26, 12) for B in (B_CONTACT, 1))
-CONTACT_STREAM_SHAPES = tuple((B, T, d, K) for T, d, K in ((HORIZON_HOPPER, 26, 4), (11, 33, 1)) for B in (B_CONTACT, 1))
+# and the shapes the paths of phases 11d, 13 and 14 give the kernels: the
+# differentiated pendulum batch at horizon 44 (B=1024, T=44, d=3: the lanes
+# pair, and the stream sweeps with its K=2 parameter columns) and the
+# state-triggered rocket's single solve (B=1, T=51, d=17: the lanes pair;
+# the stream pair there at K=1 too)
+B_DIFF, HORIZON_DIFF = 1024, 44
+APP_LANES_SHAPES = ((B_DIFF, HORIZON_DIFF, 3), (1, 51, 17))
+APP_STREAM_SHAPES = ((B_DIFF, HORIZON_DIFF, 3, 2), (1, 51, 17, 1))
+CONTACT_LANES_SHAPES = tuple((B, HORIZON_HOPPER, d) for d in (26, 12) for B in (B_CONTACT, 1)) + APP_LANES_SHAPES
+CONTACT_STREAM_SHAPES = tuple(
+    (B, T, d, K) for T, d, K in ((HORIZON_HOPPER, 26, 4), (11, 33, 1)) for B in (B_CONTACT, 1)
+) + APP_STREAM_SHAPES
 # the T=1 pair's panel kernels (n in 33..128) at the panels' edges and the
 # bunny hop's n=110, each at B=1024 and B=1
 WIDE_T1_SHAPES = tuple((B, n) for n in (33, 64, 65, 96, 110, 128) for B in (B_CONTACT, 1))
+# the T=1 pair at the cart-pole tuning's width (phase 14: B=256, n=19)
+B_TUNE = 256
+APP_T1_SHAPES = ((B_TUNE, 19),)
 # past the kernels' widths (ops/riccati.t1_route, route): the pendulum
 # swing-up at horizon 44 (n = 131) on schur, and the block-tridiagonal
 # functions at d = 65, both in float64 on the card (phase 12)
 HORIZON_WIDE = 44
 SCAN_SHAPE = (4, 5, 65)
 WIDE_ROUTE_KERNELS = {"pendulum n=131": ("factor_t1_library", "solve_t1_library")}
+# phases 13, 14 and 11d's additions: the kernels (and library routes) each
+# path must launch, and no other. Implicit differentiation's K-column
+# solve takes the stream sweeps on riccati and two triangular solves on
+# schur (ops/riccati.chol_solve_multi, as the reference takes them)
+APP_KERNELS = {
+    "flagship differentiated": ("factor_t1", "solve_t1", "solve_t1_multi_library"),
+    "pendulum n=131 differentiated": ("factor_lanes", "solve_lanes", "solve_fwd_stream", "solve_bwd_stream"),
+    "differentiable solve": ("factor_t1", "solve_t1", "solve_t1_multi_library"),
+    "pendulum MPC": ("factor_t1", "solve_t1"),
+    "cart-pole tuning": ("factor_t1", "solve_t1", "solve_t1_multi_library"),
+    "cyberdrift": ("factor_t1_library", "solve_t1_library"),
+    "state-triggered rocket": ("factor_lanes", "solve_lanes"),
+}
+# phase 11d: cyberdrift's branch rule (cyberdrift_solve). Its card solve
+# is held step by step against the port's CPU float64 solve from the same
+# guess: their merits within CYBER_FOLLOW_RTOL over the first
+# CYBER_FOLLOW_STEPS steps (on the CPU the port follows the reference to
+# 7.8e-13 over those steps and the two are 1e-6 apart at step 56:
+# tests/test_torch_models.py); "parted" past CYBER_PART_RTOL. Every call
+# of the library route in its run is held to a normwise backward error of
+# CYBER_BACKWARD_TOL in float64 (n = 286: n eps = 3.2e-14), and a factor
+# that reports a lane not positive definite to a least eigenvalue under
+# CYBER_BACKWARD_TOL times the matrix's Frobenius norm
+CYBER_FOLLOW_STEPS, CYBER_FOLLOW_RTOL, CYBER_PART_RTOL = 30, 1e-10, 1e-6
+CYBER_BACKWARD_TOL = 1e-12
+# phase 13: 16 lanes' float32 sensitivity against the float64 sensitivity
+# at the same points (every lane whose own error estimate,
+# SolveResult.sensitivity_error, is at most DIFF_TRUST within DIFF_RTOL, and
+# the median lane within DIFF_RTOL) and against the float64 solve's of the
+# same lanes (the median lane within DIFF_SOLVE_RTOL). The condensed system
+# has condition ~1e5 at a solution (rho = 1e5): unrefined, the float32
+# columns were 3.0% (flagship) and 7% (the median lane at horizon 44) off
+# on the card; refined on the 6-block operator (solver/differentiate.py),
+# 1.9e-7 and 4.9e-6 (the median lanes). A lane whose estimate is over
+# DIFF_TRUST (a tenth of DIFF_RTOL: on the CPU the estimate is within 3x of
+# the error) is one the port itself reports untrustworthy: it is printed
+# with its error, estimate and largest entries, not held to a limit
+DIFF_LANES = 16
+DIFF_RTOL, DIFF_SOLVE_RTOL = 1e-4, 1e-3
+DIFF_TRUST = DIFF_RTOL / 10
+# the differentiable solve against central differences of float64 solves
+# to 1e-10 on 4 lanes: the sensitivity is that of the regularized system
+# (eps 1e-7), 9.4e-5 off the differences on the CPU
+DIFF_FD_LANES, DIFF_FD_EPS, DIFF_FD_RTOL = 4, 1e-6, 1e-3
+# phase 14: the pendulum MPC of tests/test_mpc.py:46-60 for B_MPC scenarios
+# near upright (theta - pi and omega each U(-0.3, 0.3), default_rng(0);
+# the test's one scenario is (-0.4, 0.3)), MPC_STEPS steps, float32, and
+# the test's bounds on the final state
+B_MPC, MPC_STEPS = 1024, 100
+MPC_BOUNDS = (0.01, 0.02)
+# the cart-pole tuning of tests/test_autotuning.py:106-183 over B_TUNE
+# initial states (the test's plus 0.05 N(0, 1), default_rng(0)), float64
+# (the test's tolerances are 1e-6), max_iterations=3
+TUNE_ITERATIONS = 3
 
 
 def check(cond, msg):
@@ -1442,9 +1547,9 @@ def hopper_solver(options, device):
 
 
 def check_route(tag, name, launches):
-    """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS) names for the
-    path `name` launched, and no other kernel did."""
-    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS}[name]
+    """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS, APP_KERNELS)
+    names for the path `name` launched, and no other kernel did."""
+    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS, **APP_KERNELS}[name]
     print(f"{tag} kernel launches in the {name} run: {launches}")
     check(all(launches[k] > 0 for k in want), f"{name}: a kernel of its route never launched: {launches}")
     off = {k: v for k, v in launches.items() if k not in want and v}
@@ -1645,7 +1750,7 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     st = res.state
     print(
         f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c and 11d ran on the card "
-        f"beside it, in a second process, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
+        f"beside it, in two more processes, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
         f"{bts.stats['host_syncs']}; digest of its solution {x_digest(st)}"
     )
     check_route(tag, "hopper gait", launches)
@@ -1751,23 +1856,27 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
     return launches
 
 
-def contact_models_phase(tag, cr, Options, dev):
-    """Phase 11d: ball-in-cup, the box move and the bunny hop in float64 on
-    the card, each with its reference test's options, guess and
-    assertions (tests/test_contact.py:28-41 and :109-122,
-    tests/test_bunnyhop.py:15-30), each on its own route. Returns
-    {model: launches}."""
+def contact_models_phase(tag, cr, Options, dev, models):
+    """Phase 11d: ball-in-cup, the box move, the bunny hop, cyberdrift and
+    the state-triggered rocket (of these, `models`) in float64 on the
+    card, each with its reference test's options, guess and assertions
+    (tests/test_contact.py:28-41, :109-170, tests/test_bunnyhop.py:15-30),
+    each on its own route. Returns {model: launches}."""
     import torch
-    from calipso_tpu_torch import Solver, TrajOptSolver
-    from calipso_tpu_torch.models import ball_in_cup, box, bunnyhop
+    from calipso_tpu_torch import TrajOptSolver
 
     skip = ("state_guess", "state_initial", "state_goal", "action_guess", "penalty_initial")
 
-    def trajopt(prob, actions):
-        ts = TrajOptSolver(options=Options(), device="cuda", **{k: v for k, v in prob.items() if k not in skip})
+    def trajopt_with(prob, options, actions=None):
+        ts = TrajOptSolver(options=options, device="cuda", **{k: v for k, v in prob.items() if k not in skip})
         ts.initialize_states(prob["state_guess"])
-        ts.initialize_actions(actions)
+        actions = prob.get("action_guess") if actions is None else actions
+        if actions is not None:
+            ts.initialize_actions(actions)
         return ts
+
+    def trajopt(prob, actions):
+        return trajopt_with(prob, Options(), actions)
 
     def run(name, solve):
         zero_launches(cr)
@@ -1786,6 +1895,21 @@ def contact_models_phase(tag, cr, Options, dev):
         return r, launches
 
     out = {}
+    if "ball-in-cup" in models:
+        ball_in_cup_box_bunny_hop(tag, cr, Options, dev, run, trajopt, models, out)
+    if "cyberdrift" in models:
+        cyberdrift_solve(tag, Options, run, out)
+    if "state-triggered rocket" in models:
+        state_triggered_rocket_solve(tag, Options, run, trajopt_with, out)
+    return out
+
+
+def ball_in_cup_box_bunny_hop(tag, cr, Options, dev, run, trajopt, models, out):
+    """Phase 11d's first three models (see contact_models_phase)."""
+    import torch
+    from calipso_tpu_torch import Solver
+    from calipso_tpu_torch.models import ball_in_cup, box, bunnyhop
+
     # ball-in-cup: tests/test_contact.py:test_ball_in_cup
     rng = np.random.default_rng(0)
     actions = [np.concatenate([1e-3 * rng.normal(size=2), 1e-3 * np.ones(1)]) for _ in range(20)]
@@ -1819,15 +1943,172 @@ def contact_models_phase(tag, cr, Options, dev):
     gaps = float(bunnyhop.gaps(z[: 6 * bunnyhop.N].reshape(bunnyhop.N, 6)).min())
     print(f"{tag} bunny hop: wheels {jump:.3e} from the obstacle heights (limit 1e-3), least contact gap {gaps:.3e} (limit -1e-4)")
     check(jump <= 1e-3 and gaps > -1e-4, "bunny hop: a wheel missed its height or went through the ground")
-    return out
 
 
-def float64_phases(tag, t_start):
-    """The float64 single solves, run in a second process on the card
+def cyberdrift_solver(Options, device):
+    """tests/test_contact.py:test_cyberdrift's problem, options and initial
+    actions as a TrajOptSolver on `device`, each inner step's merit
+    appended to its `merits`; (solver, options, problem). The line search
+    is the serial one, what "auto" takes on the CPU the reference test
+    runs on (the card's "auto" is parallel)."""
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import cyberdrift
+
+    opts = Options(
+        residual_tolerance=1e-3, optimality_tolerance=1e-3, equality_tolerance=1e-3,
+        complementarity_tolerance=1e-3, slack_tolerance=1e-3, penalty_initial=10.0, linear_solver="schur",
+        line_search_mode="serial",
+    )
+    prob = cyberdrift.drift_problem()
+    skip = ("state_guess", "state_initial", "state_goal", "action_guess", "penalty_initial")
+    ts = TrajOptSolver(options=opts, device=device, **{k: v for k, v in prob.items() if k not in skip})
+    ts.initialize_states(prob["state_guess"])
+    rng = np.random.default_rng(1)
+    ts.initialize_actions([np.concatenate([1e-3 * rng.normal(size=2), np.tile([1.0, 0.1, 0.1], 4)]) for _ in range(14)])
+    ts.merits = []
+    ts.solver.callbacks(inner=lambda d: ts.merits.append(d["merit"].detach()))
+    return ts, opts, prob
+
+
+@contextlib.contextmanager
+def library_backward_errors(rc):
+    """Hold every call of ops/riccati's library route (chol_library,
+    chol_solve_library) against its inputs in float64 on the card: yields
+    {"factor": normwise backward errors |S - L L'|_F / |S|_F of the lanes
+    it factored, "not_pd": least eigenvalue over |S|_F of the lanes it
+    reported not positive definite (NaN), "solve": |b - L L' x|_inf /
+    (|L|_inf |L'|_inf |x|_inf + |b|_inf)}, each a list of per-call
+    maxima (device scalars; "factor" and "solve" -inf where a call had no
+    such lane)."""
+    import torch
+
+    chol, solve = rc.chol_library, rc.chol_solve_library
+    out = {"factor": [], "not_pd": [], "solve": []}
+    norm_inf = lambda A: A.abs().sum(-1).amax(-1)
+    worst = lambda v, m: torch.where(m, v, float("-inf")).amax()
+
+    def factor(S):
+        L = chol(S)
+        Sd, Ld = S.double(), L.double()
+        fro = torch.linalg.matrix_norm(Sd)
+        ok = torch.isfinite(Ld).flatten(1).all(1)
+        Lz = torch.where(ok[:, None, None], Ld, 0.0)
+        out["factor"].append(worst(torch.linalg.matrix_norm(Sd - Lz @ Lz.mT) / fro, ok))
+        if not bool(ok.all()):
+            out["not_pd"].append((torch.linalg.eigvalsh(Sd[~ok])[:, 0] / fro[~ok]).amax())
+        return L
+
+    def chol_solve(L, b):
+        x = solve(L, b)
+        Ld, bd, xd = L.double(), b.double(), x.double()
+        r = bd - (Ld @ (Ld.mT @ xd[..., None]))[..., 0]
+        eta = r.abs().amax(-1) / (norm_inf(Ld) * norm_inf(Ld.mT) * xd.abs().amax(-1) + bd.abs().amax(-1))
+        out["solve"].append(worst(eta, torch.isfinite(Ld).flatten(1).all(1)))
+        return x
+
+    rc.chol_library, rc.chol_solve_library = factor, chol_solve
+    try:
+        yield out
+    finally:
+        rc.chol_library, rc.chol_solve_library = chol, solve
+
+
+def cyberdrift_solve(tag, Options, run, out):
+    """Phase 11d's cyberdrift: tests/test_contact.py:test_cyberdrift (schur
+    at n = 286, past the T=1 kernels: the library route), one solve on the
+    card from the reference test's guess, and the port's float64 solve on
+    the CPU from the same guess, each inner step's merit recorded. Its
+    outcome moves with the last bit (tests/test_torch_models.py:
+    test_cyberdrift_outcome_depends_on_the_last_bit: from the guess scaled
+    by 1 + k 1e-15, k = 0..8, 2 of the reference's 9 float64 solves fail
+    and 3 of the port's). The branch rule: the card's solve meets the
+    reference test's contract and goal; or it does not, and (1) every call
+    of the library route in its run is backward stable
+    (library_backward_errors, CYBER_BACKWARD_TOL), (2) its merits follow
+    the CPU solve's within CYBER_FOLLOW_RTOL over the first
+    CYBER_FOLLOW_STEPS steps (the same arithmetic up to rounding), and (3)
+    the CPU solve meets the contract and the goal (the port solves the
+    reference test from this guess). The step where the two runs part is
+    printed either way."""
+    import torch
+    from calipso_tpu_torch.ops import riccati as rc
+
+    ts, opts, prob = cyberdrift_solver(Options, "cuda")
+    check(ts.num_variables == 286, f"cyberdrift n={ts.num_variables}")
+    goal = lambda ts, r: float(np.abs(ts.get_trajectory(r)[0][-1][0:3] - prob["state_goal"][0:3]).max())
+    g0 = torch.tensor(ts._guess, dtype=torch.float64, device="cuda")
+    with library_backward_errors(rc) as backward:
+        r, out["cyberdrift"] = run("cyberdrift", lambda: ts.solver.solve(g0))
+    met, gap = contract_met(r.state, opts), goal(ts, r)
+    worst = {k: max((float(v) for v in vals), default=float("-inf")) for k, vals in backward.items()}
+    calls = {k: len(v) for k, v in backward.items() if k != "not_pd"}
+    # the port's float64 solve on the CPU from the same guess, one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu, _, _ = cyberdrift_solver(Options, "cpu")
+        t0 = time.time()
+        rcpu = cpu.solver.solve(g0.cpu())
+        wall_cpu = time.time() - t0
+    finally:
+        torch.set_num_threads(threads)
+    met_cpu, gap_cpu = contract_met(rcpu.state, opts), goal(cpu, rcpu)
+    card_m = torch.stack(ts.merits).double().cpu().reshape(-1).numpy()
+    cpu_m = torch.stack(cpu.merits).double().reshape(-1).numpy()
+    steps = min(len(card_m), len(cpu_m))
+    rel = np.abs(card_m[:steps] - cpu_m[:steps]) / np.abs(cpu_m[:steps])
+    parted = np.nonzero(rel > CYBER_PART_RTOL)[0]
+    follow = float(rel[:CYBER_FOLLOW_STEPS].max())
+    print(
+        f"{tag} cyberdrift (float64, card, from the reference test's guess): contract met {met}, final pose "
+        f"{gap:.3e} from the goal (limit 1e-2); the library route's calls {calls}, largest backward errors: factor "
+        f"{worst['factor']:.3e}, solve {worst['solve']:.3e} (limit {CYBER_BACKWARD_TOL:g}), least eigenvalue over "
+        f"|S|_F of a lane reported not positive definite {worst['not_pd']:.3e} (limit {CYBER_BACKWARD_TOL:g})"
+    )
+    print(
+        f"{tag} cyberdrift on the CPU (float64, the port, one thread, same guess): solved {bool(rcpu.solved)} in "
+        f"{int(rcpu.iterations)} iterations, {wall_cpu:.2f} s, contract met {met_cpu}, final pose {gap_cpu:.3e} "
+        f"from the goal; card against CPU merits: largest relative gap over the first {CYBER_FOLLOW_STEPS} steps "
+        f"{follow:.3e} (limit {CYBER_FOLLOW_RTOL:g}), first step apart by more than {CYBER_PART_RTOL:g}: "
+        f"{int(parted[0]) if parted.size else None} of {steps}; gaps at steps 0, 10, 20, ...: "
+        + ", ".join(f"{v:.1e}" for v in rel[::10])
+    )
+    if met and gap <= 1e-2:
+        return
+    print(f"{tag} cyberdrift: the card's solve failed; the branch rule holds it to its CPU solve")
+    check(
+        max(worst["factor"], worst["solve"], worst["not_pd"]) <= CYBER_BACKWARD_TOL,
+        "cyberdrift: a call of the library route on the card is not backward stable",
+    )
+    check(follow <= CYBER_FOLLOW_RTOL and steps >= CYBER_FOLLOW_STEPS,
+          f"cyberdrift: the card's merits leave the CPU solve's within {CYBER_FOLLOW_STEPS} steps")
+    check(met_cpu and gap_cpu <= 1e-2, "cyberdrift: the port's CPU solve from the same guess fails the reference test")
+
+
+def state_triggered_rocket_solve(tag, Options, run, trajopt_with, out):
+    """Phase 11d's state-triggered rocket:
+    tests/test_contact.py:test_state_triggered_rocket (T=51, d=17)."""
+    from calipso_tpu_torch.models import rocket
+
+    prob = rocket.state_triggered_problem(horizon=51)
+    ts = trajopt_with(prob, Options(penalty_initial=prob["penalty_initial"]))
+    check(ts.solver.fns.stage_structure.dmax == 17, f"state-triggered rocket d={ts.solver.fns.stage_structure.dmax}")
+    r, out["state-triggered rocket"] = run("state-triggered rocket", ts.solve)
+    check(contract_met(r.state, Options()), "the state-triggered rocket did not meet the contract on the card")
+    worst = min(
+        (float(x[2]) - 3.0 for x in ts.get_trajectory(r)[0] if -float(x[0]) - 0.5 > 1e-4), default=float("inf")
+    )
+    print(f"{tag} state-triggered rocket: least altitude margin where triggered {worst:.3e} (limit -1e-4)")
+    check(worst > -1e-4, "state-triggered rocket: the trigger's constraint is violated")
+
+
+def float64_phases(tag, t_start, which="goldens"):
+    """The float64 single solves, run in two more processes on the card
     beside the hopper batch's cold batch (the card is idle most of a
-    host-bound batch): phase 7 (the quadruped gait golden), 11c (the
-    hopper golden) and 11d (ball-in-cup, box move, bunny hop), each with
-    its own launch counts. Returns {path: launches}."""
+    host-bound batch), each step with its own launch counts: `which` =
+    "goldens", phase 7 (the quadruped gait golden), 11c (the hopper
+    golden) and 11d's ball-in-cup, box move and bunny hop; "models", 11d's
+    cyberdrift and state-triggered rocket. Returns {path: launches}."""
     import torch
 
     from calipso_tpu_torch import Options
@@ -1836,13 +2117,19 @@ def float64_phases(tag, t_start):
     dev = torch.device("cuda")
 
     def phase(name):
-        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name} (second process)", flush=True)
+        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name} ({which} process)", flush=True)
 
-    out = {"quadruped_gait": quadruped_gait_phase(tag, cr, rc, Options, dev, phase)}
-    phase("11c: hopper gait golden (float64)")
-    out["hopper_golden"] = hopper_golden_phase(tag, cr, rc, Options, dev)
-    phase("11d: ball-in-cup, box move and bunny hop (float64)")
-    for model, counts in contact_models_phase(tag, cr, Options, dev).items():
+    if which == "goldens":
+        out = {"quadruped_gait": quadruped_gait_phase(tag, cr, rc, Options, dev, phase)}
+        phase("11c: hopper gait golden (float64)")
+        out["hopper_golden"] = hopper_golden_phase(tag, cr, rc, Options, dev)
+        phase("11d: ball-in-cup, box move, bunny hop (float64)")
+        models = ("ball-in-cup", "box move", "bunny hop")
+    else:
+        out = {}
+        phase("11d: cyberdrift, state-triggered rocket (float64)")
+        models = ("cyberdrift", "state-triggered rocket")
+    for model, counts in contact_models_phase(tag, cr, Options, dev, models).items():
         out[model.replace("-", "_").replace(" ", "_")] = counts
     return out
 
@@ -1851,19 +2138,20 @@ def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
     """Phase 11 (and phase 7, which runs beside it), each step with the
     launch counts of its process set to 0 just before it and read just
     after. Only the hopper batch's cold batch shares the card and the
-    host: phases 7, 11c and 11d run beside it in a second process, and the
-    CPU float64 re-solves of phases 6, 11a and 11b in three more, whose
+    host: phases 7, 11c and 11d run beside it in two more processes on the
+    card, and the CPU float64 re-solves of phases 6, 11a and 11b in three
+    more, whose
     results phase 6's `quadruped_against_cpu` and 11a's and 11b's checks
     then read. Returns {path: launches}."""
     phase("11a: hopper gait (float32, the bench's single solve)")
     launches, single_against_cpu = hopper_single_phase(tag, cr, Options, dev)
     out = {"hopper_gait": launches}
-    with spawn_pool(3) as cpu, spawn_pool() as second:
+    with spawn_pool(3) as cpu, spawn_pool(2) as card:
         refs = cpu_references(cpu)
-        beside = second.submit(float64_phases, tag, t_start)
+        beside = [card.submit(float64_phases, tag, t_start, which) for which in ("goldens", "models")]
         phase(
-            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c and 11d in a second "
-            "process and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
+            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c and 11d in two more "
+            "processes on the card and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
         )
 
         def settle(batch_against_cpu):
@@ -1873,8 +2161,9 @@ def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
             single_against_cpu(refs["hopper single"].result())
             phase("11b: hopper batch against its CPU float64 re-solve")
             batch_against_cpu(refs["hopper batch"].result())
-            phase("11b: waiting for the second process")
-            out.update(beside.result())
+            phase("11b: waiting for the float64 single solves")
+            for f in beside:
+                out.update(f.result())
 
         out["hopper_batch"] = hopper_batch_phase(tag, cr, Options, dev, phase, settle)
     return out
@@ -2251,22 +2540,29 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
             )
 
 
+# the shapes phases 2e and 5 hold and time the kernels at, beside the
+# main paths': (lanes, stream, T=1)
+OTHER_SHAPES = (CONTACT_LANES_SHAPES, CONTACT_STREAM_SHAPES, WIDE_T1_SHAPES + APP_T1_SHAPES)
+
+
 def contact_kernel_checks(tag, cr, dev, errs):
     """Phase 2e: the kernels against their plain versions at the contact
-    paths' shapes (CONTACT_*_SHAPES) and the T=1 pair at WIDE_T1_SHAPES,
-    float32 and float64, 8 lanes not positive definite where B >= 8.
-    Returns {shape label: (float32 times, float64 times)} of kernel, plain
-    and bound times, which phase 5 completes."""
+    paths' shapes and those of phases 11d, 13 and 14 (CONTACT_*_SHAPES)
+    and the T=1 pair at WIDE_T1_SHAPES and APP_T1_SHAPES, float32 and
+    float64, 8 lanes not positive definite where B >= 8. Returns {shape
+    label: (float32 times, float64 times)} of kernel, plain and bound
+    times, which phase 5 completes."""
+    lanes, stream, t1 = OTHER_SHAPES
     out = {}
-    for B, T, d in CONTACT_LANES_SHAPES:
+    for B, T, d in lanes:
         times, times64 = {}, {}
         check_lanes(tag, cr, dev, B, T, d, errs, times, times64)
         out[f"B={B} T={T} d={d}"] = times, times64
-    for B, T, d, K in CONTACT_STREAM_SHAPES:
+    for B, T, d, K in stream:
         times, times64 = {}, {}
         check_stream(tag, cr, dev, B, T, d, K, errs, times, times64)
         out[f"B={B} T={T} d={d} K={K}"] = times, times64
-    for B, n in WIDE_T1_SHAPES:
+    for B, n in t1:
         times, times64 = {}, {}
         check_t1(tag, cr, dev, errs, times, times64, B, n)
         out[f"B={B} n={n}"] = times, times64
@@ -2275,7 +2571,7 @@ def contact_kernel_checks(tag, cr, dev, errs):
 
 def print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by):
     print(
-        f"{tag} {kname} {name} {shape} (contact path or wide T=1): kernel {ms:.4f} ms host-launched, "
+        f"{tag} {kname} {name} {shape} (contact, phase 11d, 13, 14 or wide T=1 path): kernel {ms:.4f} ms host-launched, "
         f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
         + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
         + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
@@ -2283,21 +2579,20 @@ def print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, b
 
 
 def contact_kernel_times(tag, cr, dev, ctimes):
-    """Phase 5 at the contact paths' shapes and the wide T=1 shapes: each
-    kernel host-launched (phase 2e's times), replayed from a CUDA graph,
-    its plain version, its library call (float32: on the dense matrices
-    for the block-tridiagonal kernels, as LIBRARY_CALLS pairs them;
-    cholesky_ex and cholesky_solve for T=1) and its bound, float32 and
-    float64. Returns {(kernel, dtype name, shape): (ms, graph ms, plain
-    ms, library ms or None, (bound ms, bound by))}."""
-    cases = [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in CONTACT_LANES_SHAPES]
-    cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)) for B, T, d, K in CONTACT_STREAM_SHAPES]
-    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in WIDE_T1_SHAPES]
+    """Phase 5 at phase 2e's shapes (OTHER_SHAPES): each kernel
+    host-launched (phase 2e's times), replayed
+    from a CUDA graph, its plain version, its library call (float32: on
+    the dense matrices for the block-tridiagonal kernels, as
+    LIBRARY_CALLS pairs them; cholesky_ex and cholesky_solve for T=1) and
+    its bound, float32 and float64. Returns {(kernel, dtype name, shape):
+    (ms, graph ms, plain ms, library ms or None, (bound ms, bound by))}."""
+    lanes, stream, t1 = OTHER_SHAPES
+    cases = [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in lanes]
+    cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)) for B, T, d, K in stream]
+    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in t1]
     graphs = graph_times(tag, cr, dev, cases=cases)
-    library = {f"B={B} T={T} d={d}": library_times(cr, dev, B, T, d) for B, T, d in CONTACT_LANES_SHAPES}
-    library.update(
-        {f"B={B} T={T} d={d} K={K}": library_times(cr, dev, B, T, d, K) for B, T, d, K in CONTACT_STREAM_SHAPES}
-    )
+    library = {f"B={B} T={T} d={d}": library_times(cr, dev, B, T, d) for B, T, d in lanes}
+    library.update({f"B={B} T={T} d={d} K={K}": library_times(cr, dev, B, T, d, K) for B, T, d, K in stream})
     out = {}
     for shape, pair in ctimes.items():
         for name, into in zip(("float32", "float64"), pair):
@@ -2397,6 +2692,340 @@ def wide_routes_phase(tag, cr, rc, Options, dev):
     check(bool(torch.isnan(out["cuda"][2][1]).all()) and bool(torch.isfinite(out["cuda"][2][[0, 2, 3]]).all()),
           "scan route: lane 1's x is not NaN, or another lane's is")
     return launches
+
+
+def pendulum_solver(options, device, horizon):
+    """The flagship's pendulum swing-up (initial state as the stage-0
+    parameter) at `horizon` as a TrajOptSolver."""
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import pendulum
+
+    prob = pendulum.swingup_problem(horizon, parametric_initial_state=True)
+    ts = TrajOptSolver(
+        prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
+        equality=prob["equality"], parameters=prob["parameters"], options=options, device=device,
+    )
+    ts.initialize_states(prob["state_guess"])
+    return ts
+
+
+def timed(fn):
+    """(fn()'s result, seconds to the card's synchronize after it)."""
+    import torch
+
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def sensitivity_against_float64(tag, name, ts64, res, stats, thetas):
+    """Phase 13's lane check on the first DIFF_LANES lanes: (1) their
+    float32 sensitivity against the float64 sensitivity at the same
+    points (each lane's state, regularization and penalty cast to
+    float64): the float32 arithmetic's error, relative to each lane's
+    largest entry, within DIFF_RTOL on the median lane and on every lane
+    whose error estimate (res.sensitivity_error) is at most DIFF_TRUST;
+    (2) against the float64 sensitivity of the same lanes solved again in
+    float64 on the card by ts64 (a differentiating solver): the median
+    lane within DIFF_SOLVE_RTOL. `stats` is the batch's solver stats.
+    Every lane past DIFF_RTOL or DIFF_TRUST is printed with its estimate,
+    iterations, parameter and largest entries."""
+    import torch
+    from calipso_tpu_torch.solver.differentiate import solution_sensitivity
+
+    lanes = slice(0, DIFF_LANES)
+    s32 = res.sensitivity[lanes].double()
+    est = res.sensitivity_error[lanes].double()
+    check(bool(torch.isfinite(s32).all()), f"{name}: a checked float32 lane's sensitivity is not finite")
+    rel = lambda a, b: (a - b).abs().amax(dim=(1, 2)) / b.abs().amax(dim=(1, 2))
+    st = type(res.state)(*(
+        type(f)(*(a[lanes].double() for a in f)) if isinstance(f, tuple)
+        else (f[lanes].double() if f.is_floating_point() else f[lanes])
+        for f in res.state
+    ))
+    s64 = solution_sensitivity(ts64.solver.fns, ts64.solver.layout, ts64.solver.options, st, thetas[lanes].double())
+    at_point = rel(s32, s64)
+    r64 = ts64.batched().solve(parameters=thetas[lanes].double())
+    check(bool(r64.solved.all()), f"{name}: a float64 lane of the check did not solve")
+    solved64 = rel(s32, r64.sensitivity)
+    untrusted = [i for i in range(DIFF_LANES) if float(est[i]) > DIFF_TRUST]
+    off = [i for i in range(DIFF_LANES) if float(at_point[i]) > DIFF_RTOL or i in untrusted]
+    far = [i for i in off if i not in untrusted and float(at_point[i]) > DIFF_RTOL]
+    print(
+        f"{tag} {name}: float32 sensitivity of {DIFF_LANES} lanes against float64 at the same points: median "
+        f"max_rel_err {float(at_point.median()):.3e} (limit {DIFF_RTOL:g}), {DIFF_LANES - len(off)} lanes within "
+        f"{DIFF_RTOL:g} and trusted; lanes whose error estimate is over {DIFF_TRUST:g} {untrusted}; error "
+        f"estimates median {float(est.median()):.3e}, max {float(est.max()):.3e}; refinement trips "
+        f"{stats['sensitivity_refine_trips']}; lanes of the batch whose factor at the solution took the inertia "
+        f"ladder {stats['sensitivity_ladder_lanes'][:16]}; against the same lanes' float64 solve: median "
+        f"{float(solved64.median()):.3e} (limit {DIFF_SOLVE_RTOL:g}), max {float(solved64.max()):.3e}"
+    )
+    for i in off:
+        print(
+            f"{tag} {name}: lane {i}: max_rel_err {float(at_point[i]):.3e} at its point, error estimate "
+            f"{float(est[i]):.3e}{' (untrusted)' if i in untrusted else ''}, {float(solved64[i]):.3e} against its "
+            f"float64 solve; iterations {int(res.iterations[i])} / {int(r64.iterations[i])} (float32 / float64), "
+            f"parameter {thetas[i].tolist()}, largest entry {float(s32[i].abs().max()):.3e} / "
+            f"{float(s64[i].abs().max()):.3e} (float32 / float64 at the point)"
+        )
+    check(not far and float(at_point.median()) <= DIFF_RTOL,
+          f"{name}: float32 sensitivity off the float64 one at its point on trusted lanes {far}")
+    check(float(solved64.median()) <= DIFF_SOLVE_RTOL, f"{name}: float32 sensitivity off the float64 solve's")
+
+
+def differentiation_phase(tag, cr, Options, dev, phase):
+    """Phase 13: implicit differentiation on the card, each path with the
+    launch counts set to 0 just before it and read just after. (a) the
+    flagship (B_FLAG, float32, schur) with differentiate=True: sensitivity
+    (B, 80, 2), at least one more factor_t1 launch than the same batch
+    undifferentiated, the same lanes solved in the same iterations, the
+    wall a warm differentiated batch adds, and the lane check; (b) the
+    pendulum at horizon 44 (n = 131, "auto" -> riccati, d = 3, B_DIFF,
+    float32): the lanes pair and the stream sweeps (the K=2 solve) and no
+    T=1 kernel, and the lane check; (c) the differentiable solve in
+    float64 on DIFF_FD_LANES flagship lanes: backward() of a scalar
+    function of the solution equals sens' w_bar, and central differences
+    of float64 solves to 1e-10. Returns {path: launches}."""
+    import torch
+    from calipso_tpu_torch.solver.diffable import make_differentiable_solve
+    from calipso_tpu_torch.solver.differentiate import solution_sensitivity
+
+    out = {}
+    phase("13a: flagship differentiated (float32)")
+    x0s = torch.tensor((0.2 * np.random.default_rng(0).normal(size=(B_FLAG, 2))).astype(np.float32), device=dev)
+    plain = flagship(tol_options(Options), "cuda")
+    diff = flagship(tol_options(Options, differentiate=True), "cuda")
+    zero_launches(cr)
+    r0, _ = timed(lambda: plain.solve(parameters=x0s))
+    plain_launches = dict(cr.LAUNCHES)
+    zero_launches(cr)
+    r, _ = timed(lambda: diff.solve(parameters=x0s))
+    out["flagship_differentiated"] = launches = dict(cr.LAUNCHES)
+    check_route(tag, "flagship differentiated", launches)
+    check(
+        launches["factor_t1"] >= plain_launches["factor_t1"] + 1,
+        f"flagship differentiated: {launches['factor_t1']} factor_t1 launches, undifferentiated {plain_launches['factor_t1']}",
+    )
+    total = diff.fns.dims.total
+    check(tuple(r.sensitivity.shape) == (B_FLAG, total, 2) and total == 80, f"sensitivity {tuple(r.sensitivity.shape)}")
+    check(torch.equal(r.solved, r0.solved) and torch.equal(r.iterations, r0.iterations),
+          "flagship differentiated: the solve differs from the undifferentiated one")
+    check(bool(torch.isfinite(r.sensitivity[r.solved]).all()), "flagship differentiated: a solved lane's sensitivity is not finite")
+    solved, _ = report_solve(f"{tag} flagship differentiated", B_FLAG, r.state)
+    check(int(solved.sum()) >= MIN_SOLVED_FLAG, "flagship differentiated: too few lanes solved")
+    _, wall0 = timed(lambda: plain.solve(parameters=x0s))
+    _, wall1 = timed(lambda: diff.solve(parameters=x0s))
+    print(
+        f"{tag} flagship differentiated: lanes whose factor at the solution took the inertia ladder "
+        f"{diff.stats['sensitivity_ladder_lanes'][:16]}; factor_t1 launches {launches['factor_t1']} (undifferentiated "
+        f"{plain_launches['factor_t1']}); warm batch {wall1:.4f} s against {wall0:.4f} s undifferentiated: "
+        f"differentiation adds {wall1 - wall0:.4f} s"
+    )
+    sensitivity_against_float64(
+        tag, "flagship differentiated", pendulum_solver(tol_options(Options, differentiate=True), "cuda", HORIZON_FLAG),
+        r, diff.stats, x0s,
+    )
+
+    phase(f"13b: pendulum horizon {HORIZON_DIFF} differentiated (riccati, d=3, B={B_DIFF}, float32)")
+    ts = pendulum_solver(tol_options(Options, differentiate=True), "cuda", HORIZON_DIFF)
+    check(ts.solver.options.linear_solver == "riccati" and ts.solver.fns.stage_structure.dmax == 3,
+          f"pendulum n={ts.num_variables}: {ts.solver.options.linear_solver}, d={ts.solver.fns.stage_structure.dmax}")
+    th = torch.tensor((0.2 * np.random.default_rng(1).normal(size=(B_DIFF, 2))).astype(np.float32), device=dev)
+    bts = ts.batched()
+    zero_launches(cr)
+    r, wall = timed(lambda: bts.solve(parameters=th))
+    out["pendulum_n131_differentiated"] = launches = dict(cr.LAUNCHES)
+    check_route(tag, "pendulum n=131 differentiated", launches)
+    solved, _ = report_solve(f"{tag} pendulum n={ts.num_variables} differentiated", B_DIFF, r.state)
+    nan_lanes = torch.nonzero(~torch.isfinite(r.sensitivity).flatten(1).all(1))[:, 0].tolist()
+    print(
+        f"{tag} pendulum n={ts.num_variables} differentiated: cold batch {wall:.3f} s, sensitivity "
+        f"{tuple(r.sensitivity.shape)}; lanes whose factor at the solution took the inertia ladder: "
+        f"{bts.stats['sensitivity_ladder_lanes'][:16]}; lanes with a non-finite sensitivity {nan_lanes[:16]} (solved: "
+        f"{r.solved[nan_lanes[:16]].tolist()}, eps_p {r.state.eps_p_used[nan_lanes[:16]].tolist()})"
+    )
+    check(int(solved.sum()) >= B_DIFF - 8, "pendulum n=131 differentiated: too few lanes solved")
+    check(tuple(r.sensitivity.shape) == (B_DIFF, ts.solver.fns.dims.total, 2), "pendulum n=131: sensitivity shape")
+    check(bool(torch.isfinite(r.sensitivity[r.solved]).all()), "pendulum n=131: a solved lane's sensitivity is not finite")
+    sensitivity_against_float64(
+        tag, "pendulum n=131 differentiated",
+        pendulum_solver(tol_options(Options, differentiate=True), "cuda", HORIZON_DIFF), r, bts.stats, th,
+    )
+
+    phase(f"13c: the differentiable solve (float64, {DIFF_FD_LANES} lanes, against central differences)")
+    tight = Options(
+        residual_tolerance=1e-10, equality_tolerance=1e-8, complementarity_tolerance=1e-8,
+        optimality_tolerance=1e-8, slack_tolerance=1e-8,
+    )
+    ts = pendulum_solver(tight, "cuda", HORIZON_FLAG)
+    solve_w = make_differentiable_solve(ts.solver.fns, ts.solver.layout, ts.solver.options)
+    th0 = torch.tensor(0.2 * np.random.default_rng(2).normal(size=(DIFF_FD_LANES, 2)), device=dev)
+    c = torch.tensor(np.random.default_rng(3).normal(size=ts.solver.fns.dims.total), device=dev)
+    guess = torch.tensor(ts._guess, device=dev)
+    loss = lambda w: (torch.sin(w) * c).sum(-1)
+    zero_launches(cr)
+    th = th0.clone().requires_grad_(True)
+    w = solve_w(th, guess)
+    loss(w).sum().backward()
+    torch.cuda.synchronize()
+    out["differentiable_solve"] = launches = dict(cr.LAUNCHES)
+    check_route(tag, "differentiable solve", launches)
+    check(bool(solve_w.state.solved.all()), "differentiable solve: a lane did not solve")
+    sens = solution_sensitivity(ts.solver.fns, ts.solver.layout, ts.solver.options, solve_w.state, th0)
+    want = torch.einsum("bkp,bk->bp", sens, torch.cos(w.detach()) * c)
+    err_bwd = float((th.grad - want).abs().max() / want.abs().max())
+    fd = torch.zeros_like(th0)
+    with torch.no_grad():
+        for j in range(th0.shape[1]):
+            e = torch.zeros(th0.shape[1], dtype=th0.dtype, device=dev)
+            e[j] = DIFF_FD_EPS
+            fd[:, j] = (loss(solve_w(th0 + e, guess)) - loss(solve_w(th0 - e, guess))) / (2 * DIFF_FD_EPS)
+    err_fd = float(((fd - th.grad).abs() / th.grad.abs().clamp(min=1.0)).max())
+    print(
+        f"{tag} differentiable solve: iterations {solve_w.state.total_i.tolist()}; backward against sens' w_bar "
+        f"{err_bwd:.3e} (limit 1e-12), against central differences {err_fd:.3e} (limit {DIFF_FD_RTOL:g})"
+    )
+    check(err_bwd <= 1e-12, "differentiable solve: backward is not sens' w_bar")
+    check(err_fd <= DIFF_FD_RTOL, "differentiable solve: gradient off the central differences")
+    return out
+
+
+def pendulum_mpc_solver(Options, device, horizon=11):
+    """tests/test_mpc.py:_pendulum_mpc in the port: (TrajOptSolver, flat
+    guess, the plant for one lane)."""
+    import math
+
+    import torch
+    from calipso_tpu_torch import TrajOptSolver
+
+    def pend_c(x, u):
+        return torch.stack([x[1], u[0] / 0.25 - 9.81 * torch.sin(x[0]) / 0.5 - 0.1 * x[1] / 0.25])
+
+    def pend_d(y, x, u):
+        return y - (x + 0.05 * pend_c(0.5 * (x + y), u))
+
+    def goal(x):
+        return torch.stack([x[0] - math.pi, x[1]])
+
+    objective = [
+        *[(lambda x, u, w: goal(x) @ goal(x) + 0.01 * u @ u)] * (horizon - 1),
+        lambda x, u, w: 10.0 * goal(x) @ goal(x),
+    ]
+    ts = TrajOptSolver(
+        objective, [pend_d] * (horizon - 1), [2] * horizon, [1] * (horizon - 1),
+        equality=[lambda x, u, w: x - w, *[None] * (horizon - 1)],
+        parameters=[np.zeros(2)] + [np.zeros(0)] * (horizon - 1), options=Options(), device=device,
+    )
+    guess = np.zeros(ts.num_variables)
+    for t, idx in enumerate(ts._state_indices):
+        guess[idx] = np.array([math.pi, 0.0]) * t / (horizon - 1)
+
+    def simulate(x, u):
+        return x + 0.05 * pend_c(0.5 * (2 * x + 0.05 * pend_c(x, u)), u)
+
+    return ts, guess, simulate
+
+
+def cartpole_tuning(Options, device, B):
+    """tests/test_autotuning.py:106-183 in the port over B initial states:
+    (loss, w0, x0 (B, 4), the policy)."""
+    import torch
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.apps import autotuning
+    from calipso_tpu_torch.models import cartpole
+
+    T = 4
+
+    def stage_cost(x, u, w):
+        return 0.5 * x @ (w[:4] * x) + 0.05 * (u @ u)
+
+    def final_cost(x, u, w):
+        return 0.5 * x @ (w[:4] * x)
+
+    ts = TrajOptSolver(
+        [stage_cost] * (T - 1) + [final_cost], [cartpole.discrete] * (T - 1), [4] * T, [1] * (T - 1),
+        equality=[lambda x, u, w: x - w[4:8], *[None] * (T - 1)],
+        parameters=[np.concatenate([np.ones(4), np.zeros(4)])] + [np.ones(4)] * (T - 2) + [10.0 * np.ones(4)],
+        options=Options(residual_tolerance=1e-6, equality_tolerance=1e-6, complementarity_tolerance=1e-6),
+        device=device,
+    )
+
+    def theta_builder(weights, state):
+        ten = torch.full((4,), 10.0, dtype=weights.dtype, device=weights.device)
+        return torch.cat([weights, state] + [weights] * (T - 2) + [ten])
+
+    pol = autotuning.make_mpc_policy(ts, np.zeros(ts.num_variables), theta_builder, ts._action_indices[0], 4)
+
+    def sim(x, u):
+        y = x + 0.05 * cartpole.continuous(x, u)
+        for _ in range(3):
+            y = x + 0.05 * cartpole.continuous(0.5 * (x + y), u)
+        return y
+
+    loss = autotuning.rollout_loss(
+        pol.policy, sim, 5, np.diag([1.0, 5.0, 0.1, 0.1]), 0.01 * np.eye(1), np.array([0.0, np.pi, 0.0, 0.0]),
+        np.zeros(1),
+    )
+    x0 = np.array([0.1, np.pi - 0.2, 0.0, 0.0]) + 0.05 * np.random.default_rng(0).normal(size=(B, 4))
+    w0 = torch.ones(4, dtype=torch.float64, device=ts.solver.device)
+    return loss, w0, torch.tensor(x0, device=ts.solver.device), pol, ts
+
+
+def apps_phase(tag, cr, Options, dev, phase):
+    """Phase 14: the applications on the card, each with the launch counts
+    set to 0 just before it and read just after: (a) the pendulum MPC
+    (apps/mpc.py) for B_MPC scenarios, MPC_STEPS warm-started steps,
+    float32: every lane solved at every step, every final state inside
+    the test's bounds, the mean iterations after step 0 not above step
+    0's; (b) the cart-pole tuning (apps/autotuning.py) over B_TUNE
+    initial states, float64, TUNE_ITERATIONS steps: the loss falls.
+    Returns {path: launches}."""
+    import math
+
+    import torch
+    from calipso_tpu_torch.apps import autotuning
+    from calipso_tpu_torch.apps.mpc import make_mpc_controller, mpc_rollout
+
+    out = {}
+    phase(f"14a: pendulum MPC (B={B_MPC}, {MPC_STEPS} steps, float32)")
+    ts, guess, simulate = pendulum_mpc_solver(Options, "cuda")
+    rng = np.random.default_rng(0)
+    x0 = np.array([math.pi, 0.0]) + 0.3 * rng.uniform(-1.0, 1.0, size=(B_MPC, 2))
+    ctrl = make_mpc_controller(ts, guess, lambda x: x)
+    zero_launches(cr)
+    roll, wall = timed(lambda: mpc_rollout(ctrl, simulate, torch.tensor(x0, dtype=torch.float32, device=dev), MPC_STEPS))
+    out["pendulum_mpc"] = launches = dict(cr.LAUNCHES)
+    check_route(tag, "pendulum MPC", launches)
+    its = roll.iterations.float()
+    final = roll.states[:, -1].double()
+    gap = ((final[:, 0] - math.pi).abs().max().item(), final[:, 1].abs().max().item())
+    print(
+        f"{tag} pendulum MPC: {MPC_STEPS} steps of {B_MPC} lanes in {wall:.2f} s ({1e3 * wall / MPC_STEPS:.1f} ms a "
+        f"step); unsolved lane-steps {int((~roll.solved).sum())}; mean iterations step 0 {float(its[:, 0].mean()):.3f}, "
+        f"after {float(its[:, 1:].mean()):.3f} (lanes whose warm mean exceeds their cold step: "
+        f"{int((its[:, 1:].mean(1) > its[:, 0]).sum())}); final |theta - pi| <= {gap[0]:.3e} (limit "
+        f"{MPC_BOUNDS[0]:g}), |omega| <= {gap[1]:.3e} (limit {MPC_BOUNDS[1]:g})"
+    )
+    check(roll.states.dtype == torch.float32 and bool(torch.isfinite(roll.states).all()), "MPC: states")
+    check(bool(roll.solved.all()), "MPC: a lane did not solve at some step")
+    check(gap[0] < MPC_BOUNDS[0] and gap[1] < MPC_BOUNDS[1], "MPC: a final state outside the test's bounds")
+    check(float(its[:, 1:].mean()) <= float(its[:, 0].mean()), "MPC: warm steps cost more than the cold one")
+
+    phase(f"14b: cart-pole auto-tuning (B={B_TUNE}, float64, max_iterations={TUNE_ITERATIONS})")
+    loss, w0, x0t, pol, ts = cartpole_tuning(Options, "cuda", B_TUNE)
+    check(ts.solver.options.linear_solver == "schur" and ts.num_variables == 19, f"tuning n={ts.num_variables}")
+    zero_launches(cr)
+    (w, history), wall = timed(lambda: autotuning.autotune(loss, w0, x0t, max_iterations=TUNE_ITERATIONS))
+    out["cartpole_tuning"] = launches = dict(cr.LAUNCHES)
+    check_route(tag, "cart-pole tuning", launches)
+    print(
+        f"{tag} cart-pole tuning: loss history {history} in {wall:.2f} s; weights {w.tolist()}; the last "
+        f"solve's lanes solved {int(pol.solve.state.solved.sum())}/{B_TUNE}"
+    )
+    check(all(math.isfinite(v) for v in history) and history[-1] < history[0], "tuning: the loss did not fall")
+    check(bool(pol.solve.state.solved.all()), "tuning: a lane of the last solve did not solve")
+    return out
 
 
 def kernel_phases(tag, cr, dev, phase):
@@ -2804,6 +3433,10 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     phase("12: schur past n=128 (pendulum, horizon 44) and the scan past d=64, float64")
     path_launches_wide = wide_routes_phase(tag, cr, rc, Options, dev)
 
+    # 13. implicit differentiation; 14. MPC and auto-tuning
+    app_launches = differentiation_phase(tag, cr, Options, dev, phase)
+    app_launches.update(apps_phase(tag, cr, Options, dev, phase))
+
     # 6. the batched quadruped on the card (riccati backend, stream route)
     qlaunches, quadruped_against_cpu = quadruped_phase(tag, cr, Options, dev, phase)
 
@@ -2811,6 +3444,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     # the CPU float64 re-solves, beside the hopper batch's cold batch
     path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
     path_launches["pendulum_n131"] = path_launches_wide
+    path_launches.update(app_launches)
 
     sources = {
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",

@@ -49,10 +49,11 @@ def _rel_err(got, want, ok):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [1, 5, 32, 33, 63, 64, 65, 96, 97, 110, 127, 128])
+@pytest.mark.parametrize("n", [1, 5, 19, 32, 33, 63, 64, 65, 96, 97, 110, 127, 128])
 def test_kernels_match_plain(cuda, n, dtype):
     """B=37 is not a multiple of any warps-per-block count (ragged batch
-    edge); n=33 and above take the panel kernels, at the panels' edges
+    edge); n=19 is the cart-pole tuning's and the MPC pendulum's width is
+    32; n=33 and above take the panel kernels, at the panels' edges
     (63, 64, 65, 96, 97, 127, 128: a ragged or a full last panel); n=110
     is the bunny hop's; n=128 f64 needs the raised shared-memory limit.
     Lanes 3 and 20 are not positive definite."""
@@ -143,13 +144,17 @@ def tridiag_batch(rng, B, T, d, non_pd=()):
 @pytest.mark.parametrize(
     "B,T,d",
     [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33),
-     (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12), (1, 21, 26), (1, 21, 12)],
+     (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12), (1, 21, 26), (1, 21, 12),
+     (1024, 44, 3), (37, 51, 17), (1, 51, 17)],
 )
 def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     """The batched rocket's and the contact class's stage blocks (31 x 9,
     8 x 54), the hopper batch's (21 x 26, in the register factor's width-32
     bucket) and ball-in-cup's (21 x 12), each also as the single solves
-    give them (one lane), rocket101's (one lane, 101 x 9), a ragged edge past the
+    give them (one lane), the differentiated pendulum batch at horizon 44
+    (44 x 3) and the state-triggered rocket's (51 x 17, the first width of
+    the register factor's width-32 bucket; one lane, as its single solve
+    gives it), rocket101's (one lane, 101 x 9), a ragged edge past the
     rocket's B (1030), and the edges of what the kernels take (T=1, d=1,
     d=64, whose float64 working set needs the raised shared-memory limit,
     d=33 with two rows per thread, and a horizon whose u does not fit in
@@ -211,7 +216,7 @@ def test_factor_lanes_register_path_edges(cuda, B, T, d, bad_stage, dtype):
 @pytest.mark.parametrize(
     "B,n,shift",
     [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 0), (37, 110, 1), (37, 65, 1),
-     (1024, 128, 0)],
+     (1024, 128, 0), (256, 19, 0)],
 )
 def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
     """solve_t1's register kernel below and at the warp's width and the
@@ -244,7 +249,7 @@ def test_solve_t1_register_path_edges(cuda, B, n, shift, dtype):
 @pytest.mark.parametrize(
     "B,n,shift",
     [(37, 31, 0), (37, 32, 0), (37, 32, 1), (37, 33, 0), (8193, 32, 0), (8193, 31, 1), (37, 110, 1), (37, 65, 1),
-     (1024, 128, 0)],
+     (1024, 128, 0), (256, 19, 0)],
 )
 def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
     """factor_t1's register kernel below and at the warp's width and the
@@ -274,6 +279,61 @@ def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
     assert _rel_err(L, Lp, torch.tensor(~bad, device=cuda)) <= RTOL[dtype]
     warps, blocks = cuda_riccati.factor_t1_layout(dtype, n)
     assert warps >= 1 and blocks >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,T,d,K", [(1024, 44, 3, 2), (37, 51, 17, 3)])
+def test_stream_sweeps_on_the_lanes_factor(cuda, B, T, d, K, dtype):
+    """Implicit differentiation's K-column solve on the riccati backend at
+    a lanes-route width: factor_lanes' (L, M), then ops/riccati.solve_multi
+    on the stream sweeps (the differentiated pendulum batch's 44 x 3 with
+    its 2 parameter columns; 51 x 17 at K=3). Lanes 2 and B-1 are not
+    positive definite from the middle stage on: NaN over all of their X."""
+    from calipso_tpu_torch.ops import riccati
+
+    rng = np.random.default_rng(B + T + d + K)
+    bad = [2, B - 1]
+    D, O, _ = tridiag_batch(rng, B, T, d, non_pd=[(lane, T // 2) for lane in bad])
+    b = rng.normal(size=(B, T, d, K))
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
+    assert riccati.route(d) == "lanes"
+    before = dict(cuda_riccati.LAUNCHES)
+    L, M = riccati.factor(D, O)
+    X = riccati.solve_multi(L, M, b)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]}
+    assert moved == {"factor_lanes": 1, "solve_fwd_stream": 1, "solve_bwd_stream": 1}
+    Lp, Mp = cuda_riccati.factor_lanes_plain(D, O)
+    Xp = cuda_riccati.solve_bwd_stream_plain(Lp, Mp, cuda_riccati.solve_fwd_stream_plain(Lp, Mp, b))
+    lanes = torch.tensor([i not in bad for i in range(B)], device=cuda)
+    assert _rel_err(X, Xp, lanes) <= RTOL[dtype]
+    assert bool(torch.isnan(X[~lanes]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,n,K", [(8192, 32, 2), (3, 131, 2)])
+def test_schur_multi_column_solve_on_the_card(cuda, B, n, K, dtype):
+    """The schur backend's K-column solve (implicit differentiation):
+    ops/riccati.chol_solve_multi, two triangular solves with the factor at
+    any width, counted as solve_t1_multi_library, matches the same call on
+    the CPU; a lane not positive definite is NaN."""
+    from calipso_tpu_torch.ops import riccati
+
+    rng = np.random.default_rng(B + n)
+    S = spd_batch(rng, B, n, non_pd=(1,))
+    b = rng.normal(size=(B, n, K))
+    out = {}
+    before = dict(cuda_riccati.LAUNCHES)
+    for where in ("cuda", "cpu"):
+        t = lambda a: torch.tensor(a, dtype=dtype, device=where)
+        L = riccati.chol(t(S))
+        out[where] = riccati.chol_solve_multi(L, t(b))
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["solve_t1_multi_library"] == before["solve_t1_multi_library"] + 1
+    got, want = out["cuda"].cpu(), out["cpu"]
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got[1]).all())
+    ok = ~torch.isnan(want)
+    assert float((got[ok] - want[ok]).abs().max() / want[ok].abs().max()) <= RTOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

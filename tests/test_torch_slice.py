@@ -317,23 +317,27 @@ def test_single_solve_is_a_batch_of_one(pendulum_pair):
 def test_unported_paths_raise(monkeypatch):
     opts = calipso_tpu_torch.Options
     for bad in (
-        opts(differentiate=True),
         opts(linear_solver="spike"),
         opts(spike_mesh=object()),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pendulum_solver("torch", 5, bad)
-    # (the cr, ldl and lu backends and refinement_fallback are ported:
-    # tests/test_torch_cr.py and tests/test_torch_ldl.py; so are several
-    # right-hand sides on riccati, cr and ldl, but not on schur)
+    # (the cr, ldl and lu backends, refinement_fallback and implicit
+    # differentiation are ported: tests/test_torch_cr.py,
+    # tests/test_torch_ldl.py and tests/test_torch_differentiate.py; so
+    # are several right-hand sides on every backend, schur included)
     for ported in ("cr", "ldl", "lu"):
         assert pendulum_solver("torch", 5, opts(linear_solver=ported)).solver.options.linear_solver == ported
     pendulum_solver("torch", 5, opts(refinement_fallback=True))
+    assert pendulum_solver("torch", 5, opts(differentiate=True)).solver.options.differentiate
     from calipso_tpu_torch.models import pendulum
     from calipso_tpu_torch.solver import kkt
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kkt.solve_sym(None, None, torch.zeros(2, 3, 4), 3, 0, 0, "schur")
+    L = torch.eye(3, dtype=torch.float64).expand(2, 3, 3)
+    fact = kkt.Factorization(L, None, torch.zeros(2, 0, 3), torch.zeros(2, 0, 3), None, None,
+                             torch.ones(2), torch.zeros(2), torch.zeros(2))
+    rhs = torch.arange(24, dtype=torch.float64).reshape(2, 3, 4)
+    assert torch.equal(kkt.solve_sym(None, fact, rhs, 3, 0, 0, "schur"), rhs)
 
     prob = pendulum.swingup_problem(33)
     bts = pendulum_solver("torch", 5, opts()).batched()
