@@ -19,6 +19,13 @@ riccati KKT backends runs in hand-written CUDA kernels
 (`ops/cuda_riccati.py`) for CUDA tensors and in plain PyTorch for CPU
 tensors. Every entry point solves on the card unless given
 `device="cpu"`.
+
+`examples/` holds the JAX package's seven example scripts, ported
+(`python -m calipso_tpu_torch.examples.<name>`). `utils/` holds the
+checkpoint (`checkpoint.save_point`, `load_point`), profiling
+(`profiling.trace`, `iteration_stats`, `batch_stats`) and platform
+helpers and `aot`, the manifest of kernel libraries behind the batched
+solvers' `aot_save` / `aot_load` (`parallel/batch.py`).
 """
 
 from calipso_tpu_torch.options import Options

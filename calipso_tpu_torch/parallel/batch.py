@@ -6,7 +6,10 @@ lane axis is the leading axis of every tensor. A batch runs on the
 solver's device (the card unless asked otherwise), where every input is
 moved. With `Options(differentiate=True)` a batch's result carries each
 lane's sensitivity to its parameters, (B, total, p) (`solve_fn`).
-Sharding a batch over devices (`mesh=`) is ROADMAP Queue 1 item 19.
+`aot_save` / `aot_load` write and check a manifest of the kernel
+libraries a batch's routes use (`utils/aot.py`); checkpoints, profiling
+and iteration stats are in `utils/`. Sharding a batch over devices
+(`mesh=`) is ROADMAP Queue 1 item 19.
 """
 
 from __future__ import annotations
@@ -33,17 +36,31 @@ class _Batched:
         """Counters of the last solve ("host_syncs": loop tests)."""
         return self._run.stats
 
-    def aot_save(self, path, batch_size, num_parameters=None):
-        raise NotImplementedError(
-            "aot_save: the port runs eagerly and has no program cache "
-            "(ROADMAP Queue 1 item 20)"
-        )
+    def _dtype(self):
+        """The dtype a solve takes when the caller names none: none for a
+        BatchedSolver (the dtype of x0), whose aot_save takes float32 and
+        aot_load the manifest's, as the reference's do."""
+        return None
 
-    def aot_load(self, path):
-        raise NotImplementedError(
-            "aot_load: the port runs eagerly and has no program cache "
-            "(ROADMAP Queue 1 item 20)"
-        )
+    def aot_save(self, path, batch_size, num_parameters=None, dtype=None):
+        """Build, or find built, the kernel libraries this batch's routes
+        use at `batch_size` lanes in `dtype` (the solver's natural dtype
+        when None), and write their manifest to `path` (see
+        `utils/aot.py`). Returns `path`."""
+        from calipso_tpu_torch.utils import aot
+
+        return aot.save(self, path, batch_size, num_parameters, dtype or self._dtype() or torch.float32)
+
+    def aot_load(self, path, dtype=None):
+        """Check the manifest at `path` against this process (its sources,
+        dtype, routes, versions and environment) and load its libraries;
+        raises ValueError naming the first field that differs or the
+        library that is missing. `dtype` is the one solves will take (the
+        solver's natural dtype when None). Returns self."""
+        from calipso_tpu_torch.utils import aot
+
+        aot.load(self, path, dtype or self._dtype())
+        return self
 
 
 class BatchedSolver(_Batched):
@@ -103,6 +120,10 @@ class BatchedTrajOptSolver(_Batched):
         self.fns, self.layout = solver.fns, solver.layout
         self.options = solver.options
         self._run = solve_fn(self.fns, self.layout, self.options)
+
+    def _dtype(self):
+        g = getattr(self._ts, "_guess", None)
+        return torch.float64 if g is None else torch.as_tensor(g).dtype
 
     def solve(self, parameters=None, guess=None, warm=None, mesh=None, axis="batch") -> SolveResult:
         """Solve B scenarios. `parameters`: (B, p) flat per-stage parameter

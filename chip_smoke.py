@@ -164,12 +164,33 @@ Phases (each fails loudly; none catches its own failure):
   time the kernels at the shapes phases 11d, 13 and 14 give them: the
   lanes pair at (1024, 44, 3) and (1, 51, 17), the stream kernels at
   (1024, 44, 3) with K=2 and (1, 51, 17), the T=1 pair at (256, 19).
+  15. the examples (calipso_tpu_torch/examples), each through its entry
+     point at its script's size in float64, with its script's assertions
+     and the kernels (or library route) EXAMPLE_KERNELS predicts for it,
+     the launch counts set to 0 just before each and read just after:
+     nonconvex's three Solver problems (the T=1 kernels at B=1, n = 3, 2
+     and 6) and batched_scenarios (B=256, n=32, all solved) in the main
+     process; rocket_landing is phase 9's golden solve (cr: no kernel),
+     contact_implicit's quadruped gait, hopper gait and ball-in-cup are
+     the solves of phases 7, 11c and 11d; beside 11b's cold batch, the
+     quadruped gait v2 (held to its golden too) and autotuning_acrobot
+     (its H=31 swing-up on the lanes kernels at d=5, then its T=4 policy
+     on the T=1 kernels) in a third process, mpc_autotuning in the first
+     and drifting in the second (its assertions or, where the card's
+     solve fails, cyberdrift_branch_rule against the port's CPU solve of
+     the example); then each example's iterations and wall. Phases 2e and
+     5 hold and time the kernels at the shapes the examples give them:
+     the T=1 pair at (1, 2), (1, 3), (1, 6), (1, 19), (20, 19) and (256,
+     32), the lanes pair at (1, 31, 5), the stream kernels at (1, 11, 54)
+     with K=1 and 22 and at (1, 21, 26) with K=8.
 
 The solves are bound by the host's dispatch and leave the card idle most
 of the time, so beside the hopper batch's cold batch (11b), and beside no
-other timed window, run phases 7, 11c and 11d (float64 single solves) in
-two more processes on the card (7, 11c and 11d's first three models in
-one, cyberdrift and the state-triggered rocket in the other) and the CPU float64 re-solves of the
+other timed window, run phases 7, 11c and 11d (float64 single solves) and
+part of phase 15 in three more processes on the card (7, 11c, 11d's
+first three models and the mpc_autotuning example in one, cyberdrift,
+the state-triggered rocket and the drifting example in the second, the
+quadruped gait v2 and the autotuning_acrobot example in the third) and the CPU float64 re-solves of the
 quadruped (phase 6) and the hopper (11a, 11b) in three more; the warm
 batches, profiles and single solves' walls have the card and the host to
 themselves.
@@ -440,6 +461,44 @@ MPC_BOUNDS = (0.01, 0.02)
 # (the test's tolerances are 1e-6), max_iterations=3
 TUNE_ITERATIONS = 3
 
+# phase 15: the port's examples (calipso_tpu_torch/examples), each through
+# its entry point at its script's size, in float64 on the card: the kernels
+# (and library routes) each must launch, and no other (the cr route and
+# cyberdrift's n = 286 launch no kernel). The rocket landing, the hopper
+# gait, ball-in-cup and the quadruped gait are the solves of phases 9, 11c,
+# 11d and 7, which run them through the examples; phase 15 reads them
+T1_KERNELS = ("factor_t1", "solve_t1")
+TUNING_KERNELS = T1_KERNELS + ("solve_t1_multi_library",)
+EXAMPLE_KERNELS = {
+    "nonconvex wachter": T1_KERNELS,
+    "nonconvex maratos": T1_KERNELS,
+    "nonconvex complementarity": T1_KERNELS,
+    "batched_scenarios": T1_KERNELS,
+    "rocket_landing": (),
+    "contact_implicit hopper": HOPPER_KERNELS,
+    "contact_implicit ball": ("factor_lanes", "solve_lanes"),
+    "contact_implicit quadruped": QUAD_STREAM_KERNELS,
+    "contact_implicit quadruped_v2": QUAD_STREAM_KERNELS,
+    "drifting": ("factor_t1_library", "solve_t1_library"),
+    "mpc_autotuning": TUNING_KERNELS,
+    # the H=31 swing-up on the lanes route (d = 5), then the T=4 policy's
+    # differentiated solves on the T=1 kernels
+    "autotuning_acrobot": ("factor_lanes", "solve_lanes") + TUNING_KERNELS,
+}
+B_SCENARIOS = 256
+# the (kernel, shape) pairs phase 15's examples give the kernels (counted
+# on an H100), which phases 2e and 5 hold and time: the T=1 pair at
+# nonconvex's n = 2, 3 and 6 (B=1), the tuned MPC policies' n = 19 (B=1;
+# their differentiated solves' solve_t1 at B=20, one lane a parameter) and
+# batched_scenarios' (256, 32); the lanes pair at the acrobot swing-up's
+# (1, 31, 5); the stream kernels at the quadruped gaits' (1, 11, 54) with
+# K=1 and their border's K=22, and the sweeps at the hopper gait's border,
+# K=8 at B=1
+EXAMPLE_T1_SHAPES = ((1, 2), (1, 3), (1, 6), (1, 19), (20, 19), (B_SCENARIOS, 32))
+EXAMPLE_LANES_SHAPES = ((1, 31, 5),)
+EXAMPLE_STREAM_SHAPES = ((1, 11, 54, 1), (1, 11, 54, 22), (1, HORIZON_HOPPER, 26, 8))
+GOLDEN_GAIT_V2 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "quadruped_gait_v2.npz")
+
 
 def check(cond, msg):
     if not cond:
@@ -561,6 +620,16 @@ def rocket_solver(options, device):
 def zero_launches(cr):
     for k in cr.LAUNCHES:
         cr.LAUNCHES[k] = 0
+
+
+def example_summary(out, launches, phase, keys=()):
+    """What phase 15 reads of an example's run in an earlier phase (plain
+    numbers, to cross a process): solved, iterations, wall, its launches,
+    the phase, and the outcomes `keys` the example prints."""
+    return {
+        "solved": out["solved"], "iterations": out["iterations"], "seconds": out["seconds"],
+        "launches": launches, "phase": phase, **{k: out[k] for k in keys},
+    }
 
 
 def report_solve(tag, B, st):
@@ -1306,8 +1375,9 @@ def rocket101_solver(options, device, dtype):
 def cr_phase(tag, cr, Options, dev):
     """The cr backend on the card: rocket101 as the bench runs it
     (float32, one cold and one warm solve), the same solve in float64 with
-    default Options on its golden, and the batched rocket (B=1024) in
-    float32 with a CPU float64 re-solve of 4 lanes."""
+    default Options on its golden (the rocket_landing example), and the
+    batched rocket (B=1024) in float32 with a CPU float64 re-solve of 4
+    lanes. Returns the example's summary (example_summary)."""
     import torch
 
     opts = tol_options(Options, max_iterative_refinement=2, linear_solver="cr")
@@ -1345,21 +1415,26 @@ def cr_phase(tag, cr, Options, dev):
         f"{int(rr.iterations)}, warm solve {time.time() - t0:.4f} s (host clock; cr {warm:.4f} s)"
     )
 
+    # the golden solve is the rocket_landing example's (its options are
+    # Options(linear_solver="cr")'s, its guess rocket101_solver's)
+    from calipso_tpu_torch.examples import rocket_landing
+
     gold = np.load(GOLDEN_ROCKET101)
-    gts, gguess = rocket101_solver(Options(linear_solver="cr"), dev, np.float64)
-    t0 = time.time()
-    gts.solver.initialize(torch.tensor(gguess, device=dev))
-    gr = gts.solver.solve()
-    torch.cuda.synchronize()
+    zero_launches(cr)
+    ex = rocket_landing.main(dev)
+    launches = dict(cr.LAUNCHES)
+    gts, gr = ex["solver"], ex["result"]
     gz = gr.variables.cpu().numpy()
     states = np.concatenate(gts._state_indices)
     gap = float(np.abs(gz[states] - gold["variables"][states]).max())
     giters, gref = int(gr.iterations), int(gold["iterations"])
     print(
-        f"{tag} rocket101 on cr (float64, default Options): solved {bool(gr.solved)}, iterations {giters} "
-        f"(golden {gref}, limit +-2), max state gap to the golden {gap:.3e} (limit 1e-3), {time.time() - t0:.2f} s"
+        f"{tag} rocket101 on cr (float64, the rocket_landing example): solved {bool(gr.solved)}, iterations {giters} "
+        f"(golden {gref}, limit +-2), max state gap to the golden {gap:.3e} (limit 1e-3), {ex['seconds']:.2f} s"
     )
+    check(gr.variables.dtype == torch.float64 and gts.solver.options.linear_solver == "cr", "rocket101 example: dtype or backend")
     check(bool(gr.solved) and gap <= 1e-3 and abs(giters - gref) <= 2, "rocket101 on cr misses its golden")
+    example = example_summary(ex, launches, "9", ("final_position_error", "min_cone_margin"))
 
     ropts = tol_options(Options, max_iterative_refinement=2, linear_solver="cr")
     rts = rocket_solver(ropts, dev)
@@ -1379,6 +1454,7 @@ def cr_phase(tag, cr, Options, dev):
     ref = rocket_solver(ropts, "cpu").batched().solve(guess=torch.tensor(guess_np[:CPU_LANES_RESOLVE], dtype=torch.float64))
     cpu_resolve(tag, "rocket batch on cr", st, ref, CPU_LANES_RESOLVE, CPU_ATOL_ROCKET)
     warm_batches(tag, "rocket batch on cr", B_ROCKET, rbts, lambda: rbts.solve(guess=gpu_guess), st, reps=1)
+    return example
 
 
 def dense_phase(tag, cr, Options, dev):
@@ -1547,9 +1623,10 @@ def hopper_solver(options, device):
 
 
 def check_route(tag, name, launches):
-    """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS, APP_KERNELS)
-    names for the path `name` launched, and no other kernel did."""
-    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS, **APP_KERNELS}[name]
+    """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS, APP_KERNELS,
+    EXAMPLE_KERNELS) names for the path `name` launched, and no other
+    kernel did."""
+    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS, **APP_KERNELS, **EXAMPLE_KERNELS}[name]
     print(f"{tag} kernel launches in the {name} run: {launches}")
     check(all(launches[k] > 0 for k in want), f"{name}: a kernel of its route never launched: {launches}")
     off = {k: v for k, v in launches.items() if k not in want and v}
@@ -1749,8 +1826,8 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     launches = dict(cr.LAUNCHES)
     st = res.state
     print(
-        f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c and 11d ran on the card "
-        f"beside it, in two more processes, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
+        f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c, 11d and part of 15 ran on the "
+        f"card beside it, in three more processes, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
         f"{bts.stats['host_syncs']}; digest of its solution {x_digest(st)}"
     )
     check_route(tag, "hopper gait", launches)
@@ -1815,17 +1892,23 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
     tests/test_golden.py:test_golden_hopper_gait holds it (states within
     1e-2, iterations within +-15%); a solution on another local solution
     passes the branch rule instead: solved, the contract in float64, and
-    tests/test_contact.py:test_hopper_gait's travel and friction. Returns
-    its launches."""
+    tests/test_contact.py:test_hopper_gait's travel and friction. The solve
+    is the contact_implicit example's hopper_gait (default Options but
+    verbose, which changes no iterate). Returns its launches and the
+    example's summary."""
     import torch
 
+    from calipso_tpu_torch.examples import contact_implicit
+
     gold = np.load(GOLDEN_HOPPER)
-    gts = hopper_solver(Options(), "cuda")
     zero_launches(cr)
-    t0 = time.time()
-    gres, multi = solve_counting_multi(rc, gts.solve)
-    wall = time.time() - t0
+    ex, multi = solve_counting_multi(rc, lambda: contact_implicit.hopper_gait("cuda"))
     launches = dict(cr.LAUNCHES)
+    gts, gres, wall = ex["solver"], ex["result"], ex["seconds"]
+    check(
+        gts.solver.options == Options(linear_solver="riccati", verbose=True, print_frequency=25),
+        f"the hopper example's options: {gts.solver.options}",
+    )
     check(gres.variables.dtype == torch.float64, f"hopper golden solved in {gres.variables.dtype}")
     gz = gres.variables.cpu()
     states = np.concatenate(gts._state_indices)
@@ -1837,7 +1920,7 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
     travel, friction = (float(v[0]) for v in hopper_gait_checks(cpu_ts, gz[None]))
     on_golden = gap <= 1e-2
     print(
-        f"{tag} hopper gait (float64, card): solved {bool(gres.solved)}, iterations {iters} (golden {ref}, band "
+        f"{tag} hopper gait (float64, card, the contact_implicit example): solved {bool(gres.solved)}, iterations {iters} (golden {ref}, band "
         f"{lo:.1f}-{hi:.1f}), max state gap to the golden {gap:.3e} (limit 1e-2), {wall:.2f} s; solve_multi calls "
         f"{multi}; in float64: max |g| {eq_viol:.3e}, least cone margin {cone_margin:.3e}, travel "
         f"{travel:.6f}, least friction margin {friction:.3e}"
@@ -1853,7 +1936,7 @@ def hopper_golden_phase(tag, cr, rc, Options, dev):
             eq_viol <= BRANCH_TOL and cone_margin >= -BRANCH_TOL and travel >= 0.5 - 1e-4 and friction >= -1e-6,
             "the hopper gait's other local solution fails the contract or the reference test's travel and friction",
         )
-    return launches
+    return launches, example_summary(ex, launches, "11c", ("travel", "z_range"))
 
 
 def contact_models_phase(tag, cr, Options, dev, models):
@@ -1861,7 +1944,9 @@ def contact_models_phase(tag, cr, Options, dev, models):
     the state-triggered rocket (of these, `models`) in float64 on the
     card, each with its reference test's options, guess and assertions
     (tests/test_contact.py:28-41, :109-170, tests/test_bunnyhop.py:15-30),
-    each on its own route. Returns {model: launches}."""
+    each on its own route (ball-in-cup through the contact_implicit
+    example). Returns {model: launches}, and under "examples" the
+    example's summary."""
     import torch
     from calipso_tpu_torch import TrajOptSolver
 
@@ -1910,12 +1995,15 @@ def ball_in_cup_box_bunny_hop(tag, cr, Options, dev, run, trajopt, models, out):
     from calipso_tpu_torch import Solver
     from calipso_tpu_torch.models import ball_in_cup, box, bunnyhop
 
-    # ball-in-cup: tests/test_contact.py:test_ball_in_cup
-    rng = np.random.default_rng(0)
-    actions = [np.concatenate([1e-3 * rng.normal(size=2), 1e-3 * np.ones(1)]) for _ in range(20)]
-    ts = trajopt(ball_in_cup.problem(), actions)
+    # ball-in-cup: tests/test_contact.py:test_ball_in_cup, whose problem,
+    # options and guess are the contact_implicit example's
+    from calipso_tpu_torch.examples import contact_implicit
+
+    ex = {}
+    r, out["ball-in-cup"] = run("ball-in-cup", lambda: ex.update(contact_implicit.ball_in_cup("cuda")) or ex["result"])
+    ts = ex["solver"]
     check(ts.solver.fns.stage_structure.dmax == 12, f"ball-in-cup d={ts.solver.fns.stage_structure.dmax}")
-    r, out["ball-in-cup"] = run("ball-in-cup", ts.solve)
+    out["examples"] = {"contact_implicit ball": example_summary(ex, out["ball-in-cup"], "11d", ("distance",))}
     check(contract_met(r.state, Options()), "ball-in-cup did not meet the contract on the card")
     string = max(float((x[4:6] - x[6:8]) @ (x[4:6] - x[6:8])) for x in ts.get_trajectory(r)[0])
     print(f"{tag} ball-in-cup: longest squared string {string:.6f} (limit {ball_in_cup.STRING_LENGTH**2 + 1e-3:g})")
@@ -2016,73 +2104,91 @@ def library_backward_errors(rc):
 def cyberdrift_solve(tag, Options, run, out):
     """Phase 11d's cyberdrift: tests/test_contact.py:test_cyberdrift (schur
     at n = 286, past the T=1 kernels: the library route), one solve on the
-    card from the reference test's guess, and the port's float64 solve on
-    the CPU from the same guess, each inner step's merit recorded. Its
-    outcome moves with the last bit (tests/test_torch_models.py:
-    test_cyberdrift_outcome_depends_on_the_last_bit: from the guess scaled
-    by 1 + k 1e-15, k = 0..8, 2 of the reference's 9 float64 solves fail
-    and 3 of the port's). The branch rule: the card's solve meets the
-    reference test's contract and goal; or it does not, and (1) every call
-    of the library route in its run is backward stable
-    (library_backward_errors, CYBER_BACKWARD_TOL), (2) its merits follow
-    the CPU solve's within CYBER_FOLLOW_RTOL over the first
-    CYBER_FOLLOW_STEPS steps (the same arithmetic up to rounding), and (3)
-    the CPU solve meets the contract and the goal (the port solves the
-    reference test from this guess). The step where the two runs part is
-    printed either way."""
+    card from the reference test's guess, held to the reference test's
+    contract and goal or, where it fails, by cyberdrift_branch_rule to the
+    port's float64 solve on the CPU from the same guess."""
     import torch
-    from calipso_tpu_torch.ops import riccati as rc
 
     ts, opts, prob = cyberdrift_solver(Options, "cuda")
     check(ts.num_variables == 286, f"cyberdrift n={ts.num_variables}")
     goal = lambda ts, r: float(np.abs(ts.get_trajectory(r)[0][-1][0:3] - prob["state_goal"][0:3]).max())
-    g0 = torch.tensor(ts._guess, dtype=torch.float64, device="cuda")
-    with library_backward_errors(rc) as backward:
+    g0 = torch.tensor(ts._guess, dtype=torch.float64, device=ts.solver.device)
+
+    def card():
         r, out["cyberdrift"] = run("cyberdrift", lambda: ts.solver.solve(g0))
-    met, gap = contract_met(r.state, opts), goal(ts, r)
+        return r, ts.merits, goal(ts, r)
+
+    def cpu():
+        c, _, _ = cyberdrift_solver(Options, "cpu")
+        r = c.solver.solve(g0.cpu())
+        return r, c.merits, goal(c, r)
+
+    cyberdrift_branch_rule(tag, "cyberdrift", "the reference test", card, cpu, lambda r, gap: contract_met(r.state, opts) and gap <= 1e-2)
+
+
+def cyberdrift_branch_rule(tag, name, guess, card, cpu, holds):
+    """Cyberdrift's outcome moves with the last bit
+    (tests/test_torch_models.py: test_cyberdrift_outcome_depends_on_the_last_bit:
+    from the guess scaled by 1 + k 1e-15, k = 0..8, 2 of the reference's 9
+    float64 solves fail and 3 of the port's). card() and cpu() each solve
+    from `guess` (on the card, and on the CPU with one torch thread) and
+    return (result, each inner step's merit, final pose gap); holds(result,
+    gap) is the assertions the solve answers to. The branch rule: the
+    card's solve holds; or it does not, and (1) every call of the library
+    route in its run is backward stable (library_backward_errors,
+    CYBER_BACKWARD_TOL), (2) its merits follow the CPU solve's within
+    CYBER_FOLLOW_RTOL over the first CYBER_FOLLOW_STEPS steps (the same
+    arithmetic up to rounding), and (3) the CPU solve holds (the port
+    solves the problem from this guess). The step where the two runs part
+    is printed either way. Returns (card result, card holds)."""
+    import torch
+    from calipso_tpu_torch.ops import riccati as rc
+
+    with library_backward_errors(rc) as backward:
+        r, card_merits, gap = card()
+    met = holds(r, gap)
     worst = {k: max((float(v) for v in vals), default=float("-inf")) for k, vals in backward.items()}
     calls = {k: len(v) for k, v in backward.items() if k != "not_pd"}
-    # the port's float64 solve on the CPU from the same guess, one thread
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        cpu, _, _ = cyberdrift_solver(Options, "cpu")
         t0 = time.time()
-        rcpu = cpu.solver.solve(g0.cpu())
+        rcpu, cpu_merits, gap_cpu = cpu()
         wall_cpu = time.time() - t0
     finally:
         torch.set_num_threads(threads)
-    met_cpu, gap_cpu = contract_met(rcpu.state, opts), goal(cpu, rcpu)
-    card_m = torch.stack(ts.merits).double().cpu().reshape(-1).numpy()
-    cpu_m = torch.stack(cpu.merits).double().reshape(-1).numpy()
+    met_cpu = holds(rcpu, gap_cpu)
+    card_m = torch.stack(card_merits).double().cpu().reshape(-1).numpy()
+    cpu_m = torch.stack(cpu_merits).double().reshape(-1).numpy()
     steps = min(len(card_m), len(cpu_m))
     rel = np.abs(card_m[:steps] - cpu_m[:steps]) / np.abs(cpu_m[:steps])
     parted = np.nonzero(rel > CYBER_PART_RTOL)[0]
     follow = float(rel[:CYBER_FOLLOW_STEPS].max())
     print(
-        f"{tag} cyberdrift (float64, card, from the reference test's guess): contract met {met}, final pose "
+        f"{tag} {name} (float64, card, from {guess}'s guess): its assertions hold {met}, final pose "
         f"{gap:.3e} from the goal (limit 1e-2); the library route's calls {calls}, largest backward errors: factor "
         f"{worst['factor']:.3e}, solve {worst['solve']:.3e} (limit {CYBER_BACKWARD_TOL:g}), least eigenvalue over "
         f"|S|_F of a lane reported not positive definite {worst['not_pd']:.3e} (limit {CYBER_BACKWARD_TOL:g})"
     )
     print(
-        f"{tag} cyberdrift on the CPU (float64, the port, one thread, same guess): solved {bool(rcpu.solved)} in "
-        f"{int(rcpu.iterations)} iterations, {wall_cpu:.2f} s, contract met {met_cpu}, final pose {gap_cpu:.3e} "
+        f"{tag} {name} on the CPU (float64, the port, one thread, same guess): solved {bool(rcpu.solved)} in "
+        f"{int(rcpu.iterations)} iterations, {wall_cpu:.2f} s, its assertions hold {met_cpu}, final pose {gap_cpu:.3e} "
         f"from the goal; card against CPU merits: largest relative gap over the first {CYBER_FOLLOW_STEPS} steps "
         f"{follow:.3e} (limit {CYBER_FOLLOW_RTOL:g}), first step apart by more than {CYBER_PART_RTOL:g}: "
         f"{int(parted[0]) if parted.size else None} of {steps}; gaps at steps 0, 10, 20, ...: "
         + ", ".join(f"{v:.1e}" for v in rel[::10])
     )
-    if met and gap <= 1e-2:
-        return
-    print(f"{tag} cyberdrift: the card's solve failed; the branch rule holds it to its CPU solve")
+    if met:
+        return r, met
+    print(f"{tag} {name}: the card's solve failed; the branch rule holds it to its CPU solve")
     check(
         max(worst["factor"], worst["solve"], worst["not_pd"]) <= CYBER_BACKWARD_TOL,
-        "cyberdrift: a call of the library route on the card is not backward stable",
+        f"{name}: a call of the library route on the card is not backward stable",
     )
     check(follow <= CYBER_FOLLOW_RTOL and steps >= CYBER_FOLLOW_STEPS,
-          f"cyberdrift: the card's merits leave the CPU solve's within {CYBER_FOLLOW_STEPS} steps")
-    check(met_cpu and gap_cpu <= 1e-2, "cyberdrift: the port's CPU solve from the same guess fails the reference test")
+          f"{name}: the card's merits leave the CPU solve's within {CYBER_FOLLOW_STEPS} steps")
+    check(met_cpu, f"{name}: the port's CPU solve from the same guess fails its assertions")
+    return r, met
 
 
 def state_triggered_rocket_solve(tag, Options, run, trajopt_with, out):
@@ -2103,12 +2209,16 @@ def state_triggered_rocket_solve(tag, Options, run, trajopt_with, out):
 
 
 def float64_phases(tag, t_start, which="goldens"):
-    """The float64 single solves, run in two more processes on the card
+    """The float64 single solves, run in three more processes on the card
     beside the hopper batch's cold batch (the card is idle most of a
     host-bound batch), each step with its own launch counts: `which` =
     "goldens", phase 7 (the quadruped gait golden), 11c (the hopper
-    golden) and 11d's ball-in-cup, box move and bunny hop; "models", 11d's
-    cyberdrift and state-triggered rocket. Returns {path: launches}."""
+    golden), 11d's ball-in-cup, box move and bunny hop and phase 15's
+    mpc_autotuning example; "models", 11d's cyberdrift and state-triggered
+    rocket and phase 15's drifting example; "examples", phase 15's
+    quadruped gait v2 and autotuning_acrobot example. Returns {"launches": {path:
+    launches}, "examples": {example: example_summary}} (the examples some
+    of these phases run for phase 15)."""
     import torch
 
     from calipso_tpu_torch import Options
@@ -2119,39 +2229,53 @@ def float64_phases(tag, t_start, which="goldens"):
     def phase(name):
         print(f"{tag} [{time.time() - t_start:.1f} s] phase {name} ({which} process)", flush=True)
 
+    launches, examples = {}, {}
+    if which == "examples":
+        examples["contact_implicit quadruped_v2"] = quadruped_gait_v2_example(tag, cr, rc, phase)
+        examples["autotuning_acrobot"] = tuning_example(tag, cr, phase, "autotuning_acrobot")
+        return {"launches": launches, "examples": examples}
     if which == "goldens":
-        out = {"quadruped_gait": quadruped_gait_phase(tag, cr, rc, Options, dev, phase)}
+        launches["quadruped_gait"], examples["contact_implicit quadruped"] = quadruped_gait_phase(
+            tag, cr, rc, Options, dev, phase
+        )
         phase("11c: hopper gait golden (float64)")
-        out["hopper_golden"] = hopper_golden_phase(tag, cr, rc, Options, dev)
+        launches["hopper_golden"], examples["contact_implicit hopper"] = hopper_golden_phase(tag, cr, rc, Options, dev)
         phase("11d: ball-in-cup, box move, bunny hop (float64)")
         models = ("ball-in-cup", "box move", "bunny hop")
     else:
-        out = {}
         phase("11d: cyberdrift, state-triggered rocket (float64)")
         models = ("cyberdrift", "state-triggered rocket")
-    for model, counts in contact_models_phase(tag, cr, Options, dev, models).items():
-        out[model.replace("-", "_").replace(" ", "_")] = counts
-    return out
+    out = contact_models_phase(tag, cr, Options, dev, models)
+    examples.update(out.pop("examples", {}))
+    if which == "models":
+        phase("15: drifting example (float64)")
+        examples["drifting"] = drifting_example(tag, cr)
+    else:
+        examples["mpc_autotuning"] = tuning_example(tag, cr, phase, "mpc_autotuning")
+    for model, counts in out.items():
+        launches[model.replace("-", "_").replace(" ", "_")] = counts
+    return {"launches": launches, "examples": examples}
 
 
-def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start):
+def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start, examples):
     """Phase 11 (and phase 7, which runs beside it), each step with the
     launch counts of its process set to 0 just before it and read just
     after. Only the hopper batch's cold batch shares the card and the
-    host: phases 7, 11c and 11d run beside it in two more processes on the
-    card, and the CPU float64 re-solves of phases 6, 11a and 11b in three
-    more, whose
-    results phase 6's `quadruped_against_cpu` and 11a's and 11b's checks
-    then read. Returns {path: launches}."""
+    host: phases 7, 11c, 11d and part of 15 run beside it in three more
+    processes on the card (float64_phases), and the CPU float64 re-solves
+    of phases 6, 11a and 11b in three more, whose results phase 6's
+    `quadruped_against_cpu` and 11a's and 11b's checks then read. Returns
+    {path: launches}; into `examples` the summaries of the examples those
+    processes run (example_summary)."""
     phase("11a: hopper gait (float32, the bench's single solve)")
     launches, single_against_cpu = hopper_single_phase(tag, cr, Options, dev)
     out = {"hopper_gait": launches}
-    with spawn_pool(3) as cpu, spawn_pool(2) as card:
+    with spawn_pool(3) as cpu, spawn_pool(3) as card:
         refs = cpu_references(cpu)
-        beside = [card.submit(float64_phases, tag, t_start, which) for which in ("goldens", "models")]
+        beside = [card.submit(float64_phases, tag, t_start, which) for which in ("goldens", "models", "examples")]
         phase(
-            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c and 11d in two more "
-            "processes on the card and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
+            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c, 11d and part of 15 in three "
+            "more processes on the card and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
         )
 
         def settle(batch_against_cpu):
@@ -2163,7 +2287,9 @@ def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
             batch_against_cpu(refs["hopper batch"].result())
             phase("11b: waiting for the float64 single solves")
             for f in beside:
-                out.update(f.result())
+                done = f.result()
+                out.update(done["launches"])
+                examples.update(done["examples"])
 
         out["hopper_batch"] = hopper_batch_phase(tag, cr, Options, dev, phase, settle)
     return out
@@ -2277,36 +2403,28 @@ def quadruped_phase(tag, cr, Options, dev, phase):
 
 def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
     """Phase 7: the quadruped gait golden in float64 on the card (the
-    riccati border through solve_multi on the stream kernels). Returns
-    its launches."""
+    riccati border through solve_multi on the stream kernels), solved by
+    the contact_implicit example (default Options, the problem's guess).
+    Returns its launches and the example's summary."""
     phase("7: quadruped gait")
-    from calipso_tpu_torch import TrajOptSolver
-    from calipso_tpu_torch.models import quadruped
+    from calipso_tpu_torch.examples import contact_implicit
 
     gold = np.load(GOLDEN_GAIT)
-    gprob = quadruped.gait_problem(horizon=11, travel=0.2)
-    gts = TrajOptSolver(
-        options=Options(), device="cuda",
-        **{k: v for k, v in gprob.items() if k not in ("state_guess", "state_initial", "action_guess")},
-    )
-    gts.initialize_states(gprob["state_guess"])
-    gts.initialize_actions(gprob["action_guess"])
+    zero_launches(cr)
+    ex, multi = solve_counting_multi(rc, lambda: contact_implicit.quadruped_gait("cuda"))
+    glaunches = dict(cr.LAUNCHES)
+    gts, gres, gwall = ex["solver"], ex["result"], ex["seconds"]
     gst = gts.solver.fns.stage_structure
     check(
         gts.solver.options.linear_solver == "riccati" and len(gst.general_stages) == 2,
         f"gait: {gts.solver.options.linear_solver}, general stages {gst.general_stages}",
     )
-    zero_launches(cr)
-    t0 = time.time()
-    gres, multi = solve_counting_multi(rc, gts.solve)
-    gwall = time.time() - t0
-    glaunches = dict(cr.LAUNCHES)
     gz = gres.variables.cpu().numpy()
     gstates = lambda z: np.concatenate([z[idx] for idx in gts._state_indices])
     ggap = float(np.abs(gstates(gz) - gstates(gold["variables"])).max())
     giters, gref = int(gres.iterations), int(gold["iterations"])
     print(
-        f"{tag} quadruped gait (float64, card): solved {bool(gres.solved)}, iterations {giters} "
+        f"{tag} quadruped gait (float64, card, the contact_implicit example): solved {bool(gres.solved)}, iterations {giters} "
         f"(golden {gref}, band {0.85 * gref:.1f}-{1.15 * gref:.1f}), max state gap to the golden {ggap:.3e} "
         f"(limit 1e-2), {gwall:.2f} s; solve_multi calls {multi}; launches {glaunches}"
     )
@@ -2317,9 +2435,157 @@ def quadruped_gait_phase(tag, cr, rc, Options, dev, phase):
         multi > 0 and all(glaunches[k] > 0 for k in QUAD_STREAM_KERNELS),
         f"the gait's border never ran on the stream kernels: {multi} solve_multi calls, {glaunches}",
     )
+    return glaunches, example_summary(ex, glaunches, "7", ("travel",))
 
-    return glaunches
 
+
+def quadruped_gait_v2_example(tag, cr, rc, phase):
+    """Phase 15's contact_implicit quadruped_gait_v2 (the mirrored
+    half-cycle gait with its stance phase, d = 54 on the stream route, the
+    border through solve_multi) in float64 on the card, run beside 11b:
+    the example's assertion (solved) and, as
+    tests/test_torch_quadruped.py:test_golden_quadruped_gait holds it,
+    tests/golden/quadruped_gait_v2.npz (states within 1e-2, iterations
+    within +-15%). Returns the example's summary."""
+    phase("15: contact_implicit quadruped_gait_v2 (float64)")
+    import torch
+    from calipso_tpu_torch.examples import contact_implicit
+
+    gold = np.load(GOLDEN_GAIT_V2)
+    zero_launches(cr)
+    ex, multi = solve_counting_multi(rc, lambda: contact_implicit.quadruped_gait_v2("cuda"))
+    launches = dict(cr.LAUNCHES)
+    ts, r = ex["solver"], ex["result"]
+    states = lambda z: np.concatenate([np.asarray(z)[idx] for idx in ts._state_indices])
+    gap = float(np.abs(states(r.variables.cpu().numpy()) - states(gold["variables"])).max())
+    iters, ref = int(r.iterations), int(gold["iterations"])
+    print(
+        f"{tag} quadruped gait v2 (float64, card, the contact_implicit example): solved {bool(r.solved)}, iterations "
+        f"{iters} (golden {ref}, band {0.85 * ref:.1f}-{1.15 * ref:.1f}), max state gap to the golden {gap:.3e} (limit "
+        f"1e-2), travel {ex['travel']:.3f} m, mirror periodicity error {ex['mirror_periodicity_err']:.2e}, "
+        f"{ex['seconds']:.2f} s; solve_multi calls {multi}"
+    )
+    check(r.variables.dtype == torch.float64, "quadruped gait v2: not solved in float64")
+    check(gap <= 1e-2 and 0.85 * ref <= iters <= 1.15 * ref, "quadruped gait v2 misses its golden")
+    check(multi > 0, "the gait v2's border never ran through solve_multi")
+    return example_summary(ex, launches, "15 (beside 11b)", ("travel", "mirror_periodicity_err"))
+
+
+def drifting_example(tag, cr):
+    """Phase 15's drifting example (examples/drifting.py: cyberdrift on
+    schur at n = 286, the T=1 library route) in float64 on the card, run
+    beside phase 11d's cyberdrift. Its problem, options and guess are the
+    reference test's, which 11d solves with the serial line search; the
+    example keeps "auto", the parallel line search on the card, so it runs
+    once more. Its assertions (solved, final pose within 1e-2) hold, or
+    cyberdrift_branch_rule holds it to the port's CPU float64 solve of the
+    example with the same (parallel) line search. Returns the example's
+    summary."""
+    import torch
+    from calipso_tpu_torch.examples import drifting
+
+    ex = {}
+
+    def card():
+        merits = []
+        zero_launches(cr)
+        ex.update(drifting.solve("cuda", inner=lambda d: merits.append(d["merit"].detach())))
+        ex["launches"] = dict(cr.LAUNCHES)
+        return ex["result"], merits, ex["pose_error"]
+
+    def cpu():
+        merits = []
+        out = drifting.solve(
+            "cpu", inner=lambda d: merits.append(d["merit"].detach()),
+            options=drifting.OPTIONS.replace(line_search_mode="parallel"),
+        )
+        return out["result"], merits, out["pose_error"]
+
+    holds = lambda r, gap: bool(r.solved) and gap < 1e-2
+    r, met = cyberdrift_branch_rule(tag, "drifting example", "the example", card, cpu, holds)
+    print(
+        f"{tag} drifting example (float64, card): solved {bool(r.solved)}, iterations {int(r.iterations)}, "
+        f"{ex['seconds']:.2f} s, final pose error {ex['pose_error']:.4f}; its assertions "
+        + ("hold" if met else "fail on the card (held by the branch rule)")
+    )
+    check(r.variables.dtype == torch.float64 and ex["solver"].num_variables == 286, "drifting: dtype or size")
+    summary = example_summary(ex, ex["launches"], "15 (beside 11b)", ("pose_error",))
+    summary["assertions_hold"] = met
+    return summary
+
+
+def example_run(cr, name, fn, phase):
+    """Run an example's entry point fn() to the card's end with the launch
+    counts set to 0 just before; (its outcome, {"launches", "phase",
+    "seconds"})."""
+    import torch
+
+    phase(f"15: {name}")
+    zero_launches(cr)
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"launches": dict(cr.LAUNCHES), "phase": "15", "seconds": time.time() - t0}
+
+
+def tuning_example(tag, cr, phase, name):
+    """Phase 15's auto-tuning example `name` (mpc_autotuning, or
+    autotuning_acrobot's swing-up and tuning), run beside 11b's cold
+    batch: host-bound loops of single solves, 52 and 191 s there on an
+    H100. Their assertions (the swing-up solves, the loss falls) are the
+    examples' own. Returns its summary."""
+    from calipso_tpu_torch.examples import autotuning_acrobot, mpc_autotuning
+
+    main = {"mpc_autotuning": mpc_autotuning.main, "autotuning_acrobot": autotuning_acrobot.main}[name]
+    out, sm = example_run(cr, name, lambda: main("cuda"), phase)
+    sm.update(phase="15 (beside 11b)", history=out["history"], weights=out["weights"].tolist())
+    if name == "autotuning_acrobot":
+        swing = out["swingup"]
+        check(swing["solver"].solver.fns.stage_structure.dmax == 5, "acrobot swing-up: not d = 5")
+        sm.update(solved=swing["solved"], iterations=swing["iterations"], swingup_s=swing["seconds"], tuning_s=out["seconds"])
+    print(f"{tag} {name} (float64, card): {sm['seconds']:.2f} s, rollout loss {sm['history'][0]:.6f} -> "
+          f"{sm['history'][-1]:.6f} in {len(sm['history']) - 1} steps")
+    return sm
+
+
+def examples_phase(tag, cr, dev, phase, reused):
+    """Phase 15: every example of calipso_tpu_torch/examples through its
+    entry point at its script's size, float64, on the card, each with its
+    script's assertions and the launches EXAMPLE_KERNELS predicts (counts
+    set to 0 just before each and read just after). `reused` holds the
+    summaries of the examples the earlier phases and the processes beside
+    11b ran (the rocket landing in 9, the quadruped gait in 7, the hopper
+    gait in 11c, ball-in-cup in 11d, the gait v2, drifting and the two
+    tunings beside 11b), read here. Prints each example's iterations and
+    wall; returns {path: launches}."""
+    import torch
+    from calipso_tpu_torch.examples import batched_scenarios, nonconvex
+
+    summaries = {}
+    for name, problem in nonconvex.PROBLEMS.items():
+        out, sm = example_run(cr, f"nonconvex {name}", lambda: problem("cuda"), phase)
+        check(out["variables"].dtype == np.float64 and out["solver"].options.linear_solver == "schur", f"nonconvex {name}")
+        summaries[f"nonconvex {name}"] = {**sm, "solved": out["solved"], "iterations": out["iterations"]}
+    out, sm = example_run(cr, "batched_scenarios", lambda: batched_scenarios.main(B_SCENARIOS, "cuda"), phase)
+    st = out["result"].state
+    check(
+        out["solved"] == B_SCENARIOS and st.p.x.dtype == torch.float64 and bool(torch.isfinite(st.p.x).all()),
+        f"batched_scenarios: {out['solved']} of {B_SCENARIOS} solved",
+    )
+    summaries["batched_scenarios"] = {
+        **sm, "solved": out["solved"], "iterations": int(st.total_i.max()), "solves_per_s": out["solves_per_s"],
+        "timed_batch_s": out["seconds"],
+    }
+    summaries.update(reused)
+    launches = {}
+    for name in EXAMPLE_KERNELS:
+        check(name in summaries, f"example {name} never ran")
+        sm = summaries[name]
+        check_route(tag, name, sm["launches"])
+        rest = {k: v for k, v in sm.items() if k not in ("launches", "phase", "seconds")}
+        print(f"{tag} example {name} (phase {sm['phase']}): {sm['seconds']:.2f} s; {rest}")
+        launches[f"example {name}"] = sm["launches"]
+    return launches
 
 def build_kernels(tag):
     """Phase 1: build every kernel library with nvcc (one process a
@@ -2542,7 +2808,11 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
 
 # the shapes phases 2e and 5 hold and time the kernels at, beside the
 # main paths': (lanes, stream, T=1)
-OTHER_SHAPES = (CONTACT_LANES_SHAPES, CONTACT_STREAM_SHAPES, WIDE_T1_SHAPES + APP_T1_SHAPES)
+OTHER_SHAPES = (
+    CONTACT_LANES_SHAPES + EXAMPLE_LANES_SHAPES,
+    CONTACT_STREAM_SHAPES + EXAMPLE_STREAM_SHAPES,
+    WIDE_T1_SHAPES + APP_T1_SHAPES + EXAMPLE_T1_SHAPES,
+)
 
 
 def contact_kernel_checks(tag, cr, dev, errs):
@@ -2571,7 +2841,7 @@ def contact_kernel_checks(tag, cr, dev, errs):
 
 def print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by):
     print(
-        f"{tag} {kname} {name} {shape} (contact, phase 11d, 13, 14 or wide T=1 path): kernel {ms:.4f} ms host-launched, "
+        f"{tag} {kname} {name} {shape} (contact, phase 11d, 13, 14, 15 or wide T=1 path): kernel {ms:.4f} ms host-launched, "
         f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
         + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
         + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
@@ -3423,7 +3693,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     blaunches = solve_batched_phase(tag, cr, rc, *captured["blocks"])
     # 9. the cr backend
     phase("9: cr backend (rocket101, its golden, the rocket batch)")
-    cr_phase(tag, cr, Options, dev)
+    examples = {"rocket_landing": cr_phase(tag, cr, Options, dev)}
     # 10. the ldl and lu backends and the refinement fallback
     phase("10: ldl, lu and refinement_fallback (pendulum B=1024, float64)")
     dense_phase(tag, cr, Options, dev)
@@ -3442,9 +3712,12 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
 
     # 11. the contact models on the card; 7. the quadruped gait golden and
     # the CPU float64 re-solves, beside the hopper batch's cold batch
-    path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start)
+    path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start, examples)
     path_launches["pendulum_n131"] = path_launches_wide
     path_launches.update(app_launches)
+
+    # 15. the examples, those earlier phases ran read from their summaries
+    path_launches.update(examples_phase(tag, cr, dev, phase, examples))
 
     sources = {
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",

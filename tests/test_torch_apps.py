@@ -206,24 +206,12 @@ def test_rollout_loss_is_the_lane_mean():
     assert abs(both - 0.5 * sum(one)) <= 1e-12 * abs(both)
 
 
-def _cartpole_tuning(pkg):
-    """The cart-pole MPC tuning of tests/test_autotuning.py in package
-    `pkg`: (loss, w0, x0)."""
+def _cartpole_tuning_jax():
+    """The cart-pole MPC tuning of tests/test_autotuning.py in the JAX
+    package: (loss, w0, x0)."""
+    from calipso_tpu.models import cartpole
+
     T = 4
-    if pkg == "jax":
-        from calipso_tpu.models import cartpole
-
-        Pk, cat, ones = calipso_tpu, jnp.concatenate, lambda w: 10.0 * jnp.ones(4)
-        w0, x0 = jnp.array([1.0, 1.0, 1.0, 1.0]), jnp.array([0.1, np.pi - 0.2, 0.0, 0.0])
-        extra, make_policy, rollout = {}, jtune.make_mpc_policy, jtune.rollout_loss
-    else:
-        from calipso_tpu_torch.models import cartpole
-
-        Pk, cat = calipso_tpu_torch, torch.cat
-        ones = lambda w: torch.full((4,), 10.0, dtype=w.dtype, device=w.device)
-        w0 = torch.ones(4, dtype=torch.float64)
-        x0 = torch.tensor([[0.1, np.pi - 0.2, 0.0, 0.0]], dtype=torch.float64)
-        extra, make_policy, rollout = dict(device="cpu"), ttune.make_mpc_policy, ttune.rollout_loss
 
     def stage_cost(x, u, w):
         return 0.5 * x @ (w[:4] * x) + 0.05 * (u @ u)
@@ -231,17 +219,17 @@ def _cartpole_tuning(pkg):
     def final_cost(x, u, w):
         return 0.5 * x @ (w[:4] * x)
 
-    opts = Pk.Options(residual_tolerance=1e-6, equality_tolerance=1e-6, complementarity_tolerance=1e-6,
-                      line_search_mode="serial")
-    ts = Pk.TrajOptSolver(
+    opts = calipso_tpu.Options(residual_tolerance=1e-6, equality_tolerance=1e-6, complementarity_tolerance=1e-6,
+                               line_search_mode="serial")
+    ts = calipso_tpu.TrajOptSolver(
         [lambda x, u, w: 0.5 * x @ (w[:4] * x) + 0.05 * (u @ u), *[stage_cost] * (T - 2), final_cost],
         [cartpole.discrete] * (T - 1), [4] * T, [1] * (T - 1),
         equality=[lambda x, u, w: x - w[4:8], *[None] * (T - 1)],
         parameters=[np.concatenate([np.ones(4), np.zeros(4)])] + [np.ones(4)] * (T - 2) + [10.0 * np.ones(4)],
-        options=opts, **extra,
+        options=opts,
     )
-    theta_builder = lambda weights, state: cat([weights, state] + [weights] * (T - 2) + [ones(weights)])
-    pol = make_policy(ts, np.zeros(ts.num_variables), theta_builder, ts._action_indices[0], 4)
+    theta_builder = lambda weights, state: jnp.concatenate([weights, state] + [weights] * (T - 2) + [10.0 * jnp.ones(4)])
+    pol = jtune.make_mpc_policy(ts, np.zeros(ts.num_variables), theta_builder, ts._action_indices[0], 4)
 
     def sim(x, u):
         y = x + 0.05 * cartpole.continuous(x, u)
@@ -249,20 +237,23 @@ def _cartpole_tuning(pkg):
             y = x + 0.05 * cartpole.continuous(0.5 * (x + y), u)
         return y
 
-    loss = rollout(pol.policy, sim, 5, np.diag([1.0, 5.0, 0.1, 0.1]), 0.01 * np.eye(1),
-                   np.array([0.0, np.pi, 0.0, 0.0]), np.zeros(1))
-    return loss, w0, x0
+    loss = jtune.rollout_loss(pol.policy, sim, 5, np.diag([1.0, 5.0, 0.1, 0.1]), 0.01 * np.eye(1),
+                              np.array([0.0, np.pi, 0.0, 0.0]), np.zeros(1))
+    return loss, jnp.array([1.0, 1.0, 1.0, 1.0]), jnp.array([0.1, np.pi - 0.2, 0.0, 0.0])
 
 
 @pytest.mark.heavy
 def test_cartpole_autotuning_matches_jax():
     """tests/test_autotuning.py:test_cartpole_mpc_autotuning in both
-    packages (max_iterations=3): the loss falls, with the reference's
-    history."""
-    loss, w0, x0 = _cartpole_tuning("torch")
-    _, history = ttune.autotune(loss, w0, x0, max_iterations=3)
+    packages (max_iterations=3), the port's through its example
+    (examples/mpc_autotuning.py's problem, options and start: the test's,
+    whose serial line search is what "auto" takes on the CPU): the loss
+    falls, with the reference's history."""
+    from calipso_tpu_torch.examples import mpc_autotuning
+
+    history = mpc_autotuning.main("cpu", max_iterations=3)["history"]
     assert history[-1] < history[0], history
-    jloss, jw0, jx0 = _cartpole_tuning("jax")
+    jloss, jw0, jx0 = _cartpole_tuning_jax()
     _, want = jtune.autotune(jloss, jw0, jx0, max_iterations=3)
     assert len(history) == len(want)
     np.testing.assert_allclose(history, want, rtol=HISTORY_RTOL, atol=0)

@@ -228,12 +228,21 @@ def _ball_actions():
 
 def test_ball_in_cup_matches_jax():
     """tests/test_contact.py:test_ball_in_cup (T=21, default Options, lanes
-    route at d=12) in both packages; the port's solve also meets the
-    reference test's assertions (the contract and the string length)."""
-    tj, tt = (_trajopt(pkg, m.problem(), calipso_tpu.Options(), _ball_actions())
-              for pkg, m in ((calipso_tpu, jball), (calipso_tpu_torch, tball)))
+    route at d=12) in both packages, the port's through its example
+    (contact_implicit.ball_in_cup: the same problem, options and guess);
+    the port's solve also meets the reference test's assertions (the
+    contract and the string length)."""
+    from calipso_tpu_torch.examples import contact_implicit
+
+    tj = _trajopt(calipso_tpu, jball.problem(), calipso_tpu.Options(), _ball_actions())
+    out = contact_implicit.ball_in_cup("cpu")
+    tt, rt = out["solver"], out["result"]
+    # the example's guess is the test's (the port model's own guess)
+    np.testing.assert_array_equal(
+        np.asarray(tt._guess), np.asarray(_trajopt(calipso_tpu_torch, tball.problem(), calipso_tpu.Options(), _ball_actions())._guess)
+    )
     assert tt.solver.options.linear_solver == "riccati" and tt.solver.fns.stage_structure.dmax == 12
-    rj, rt = tj.solve(), tt.solve()
+    rj = tj.solve()
     _same_solve(tj, tt, rj, rt)
     assert_contract(rt)
     for x in tt.get_trajectory(rt)[0]:
@@ -343,10 +352,14 @@ def test_golden_hopper_gait():
     port's float64 arithmetic differs from the reference's in the last
     bits, and the gait then lands on another local solution (as the
     reference does from a guess 1e-15 away), which must meet the contract
-    and test_hopper_gait's travel and friction."""
+    and test_hopper_gait's travel and friction. Solved through the port's
+    example (contact_implicit.hopper_gait: default Options but verbose,
+    which changes no iterate: tests/test_torch_examples.py)."""
+    from calipso_tpu_torch.examples import contact_implicit
+
     gold = np.load(os.path.join(os.path.dirname(__file__), "golden", "hopper_gait.npz"))
-    ts = _trajopt(calipso_tpu_torch, thop.gait_problem(), calipso_tpu.Options())
-    r = ts.solve()
+    out = contact_implicit.hopper_gait("cpu")
+    ts, r = out["solver"], out["result"]
     _hopper_gait_asserts(ts, r)
     gap = np.abs(_states(ts, r.variables.numpy()) - _states(ts, gold["variables"])).max()
     print(f"the port's hopper gait: {int(r.iterations)} iterations, {gap:.3e} from the golden")

@@ -29,7 +29,7 @@ from tests.test_torch_riccati import (  # noqa: F401 (point: a fixture)
     B, INDEFINITE, STEP_ATOL, _jax_blocks, _kkt_args, _residual, _rocket_pair, _t, _torch_blocks,
     _tridiag_batch, point,
 )
-from tests.test_torch_slice import SOL_ATOL, _rocket
+from tests.test_torch_slice import SOL_ATOL
 from tests.torch_parity import pendulum_solver
 
 ATOL = 1e-9
@@ -193,20 +193,17 @@ def test_cr_border_batch_matches_jax():
 
 
 def test_golden_rocket101_cr():
-    """bench.py's rocket101 (examples/rocket_landing.py) on cr: the T=101
+    """bench.py's rocket101 (examples/rocket_landing.py) on cr, solved
+    through the port's example (calipso_tpu_torch/examples/rocket_landing,
+    whose options are Options(linear_solver="cr")'s on the CPU): the T=101
     single solve lands on tests/golden/rocket101.npz, states within 1e-3,
-    iterations within 2."""
+    iterations within 2, and the example's own assertions hold."""
+    from calipso_tpu_torch.examples import rocket_landing
+
     gold = np.load(os.path.join(os.path.dirname(__file__), "golden", "rocket101.npz"))
-    ts, prob = _rocket("torch", 101, calipso_tpu.Options(linear_solver="cr"))
+    out = rocket_landing.main("cpu")
+    ts, r = out["solver"], out["result"]
     assert ts.solver.options.linear_solver == "cr"
-    guess = np.zeros(ts.num_variables)
-    for t, idx in enumerate(ts._state_indices):
-        guess[idx] = np.asarray(prob["state_guess"][t])
-    rng = np.random.default_rng(0)
-    for t, idx in enumerate(ts._action_indices):
-        guess[idx] = 1e-3 * rng.normal(size=3)
-    ts.solver.initialize(torch.tensor(guess))
-    r = ts.solver.solve()
     assert bool(r.solved)
     z, zg = r.variables.numpy(), gold["variables"]
     for idx in ts._state_indices:

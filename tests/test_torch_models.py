@@ -154,7 +154,8 @@ def test_acrobot_swingup_matches_jax():
 
 @pytest.mark.heavy
 def test_cyberdrift_matches_reference_test():
-    """tests/test_contact.py:test_cyberdrift in both packages: the
+    """tests/test_contact.py:test_cyberdrift in both packages, the port's
+    through its example (calipso_tpu_torch/examples/drifting): the
     reference test's options (schur pinned), initial actions and
     assertions; each inner step's merit within FOLLOW_RTOL of the
     reference's over the first FOLLOW_STEPS steps, and the iterations
@@ -164,11 +165,19 @@ def test_cyberdrift_matches_reference_test():
         complementarity_tolerance=1e-3, slack_tolerance=1e-3, penalty_initial=10.0,
         linear_solver="schur", line_search_mode="serial",
     )
+    from calipso_tpu_torch.examples import drifting
+
     rng = np.random.default_rng(1)
     actions = [np.concatenate([1e-3 * rng.normal(size=2), np.tile([1.0, 0.1, 0.1], 4)]) for _ in range(14)]
     build = lambda pkg: (jcyber if pkg == "jax" else tcyber).drift_problem()
     merits = {"jax": [], "torch": []}
-    out = _both(build, opts, actions, merits)
+    out = {"jax": _solve("jax", build("jax"), opts, actions, merits["jax"])}
+    # the port's through its example: the reference test's problem, guess
+    # and options, the serial line search "auto" takes on the CPU
+    # (tests/test_torch_examples.py:test_drifting_example_is_the_reference_test)
+    port = drifting.solve("cpu", inner=lambda d: merits["torch"].append(float(d["merit"].reshape(-1)[0])))
+    assert port["solver"].solver.options.replace(line_search_mode="serial") == options_from_jax(opts)
+    out["torch"] = (port["solver"], port["result"])
     steps = min(len(merits["jax"]), len(merits["torch"]))
     mj, mt = (np.array(merits[pkg][:steps]) for pkg in ("jax", "torch"))
     rel = np.abs(mt - mj) / np.abs(mj)

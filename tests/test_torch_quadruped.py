@@ -20,6 +20,7 @@ from torch.func import jacrev, vmap
 import calipso_tpu
 import calipso_tpu_torch
 from calipso_tpu.models import quadruped as jq
+from calipso_tpu_torch.examples import contact_implicit
 from calipso_tpu_torch.models import quadruped as tq
 from calipso_tpu_torch.utils.convert import options_from_jax
 
@@ -205,17 +206,23 @@ def test_mpc_batch_solves_with_feet_on_the_ground():
 def test_golden_quadruped_gait(golden, build, kw):
     """The port's version of tests/test_golden.py:test_golden_quadruped_gait
     and _v2 (default Options, so "auto" -> riccati with the
-    general-equality border on the stream route): solved, states within
-    1e-2 of the golden, iterations within +-15% of its count."""
+    general-equality border on the stream route), solved through the
+    port's examples (contact_implicit.quadruped_gait, _v2: the problem's
+    own guess): solved, states within 1e-2 of the golden, iterations
+    within +-15% of its count."""
     gold = np.load(os.path.join(os.path.dirname(__file__), "golden", f"{golden}.npz"))
+    out = getattr(contact_implicit, golden)("cpu")
+    ts, r = out["solver"], out["result"]
     prob = getattr(tq, build)(**kw)
-    args = {k: v for k, v in prob.items() if k not in ("state_guess", "state_initial", "action_guess")}
-    ts = calipso_tpu_torch.TrajOptSolver(options=calipso_tpu_torch.Options(), device="cpu", **args)
-    ts.initialize_states(prob["state_guess"])
-    ts.initialize_actions(prob["action_guess"])
+    guess = np.zeros(ts.num_variables)
+    for idx, x in zip(ts._state_indices, prob["state_guess"]):
+        guess[idx] = x
+    for idx, u in zip(ts._action_indices, prob["action_guess"]):
+        guess[idx] = u
+    np.testing.assert_array_equal(np.asarray(ts._guess), guess)
     st = ts.solver.fns.stage_structure
+    assert ts.solver.options == calipso_tpu_torch.Options(linear_solver="riccati")
     assert ts.solver.options.linear_solver == "riccati" and len(st.general_stages) == 2
-    r = ts.solve()
     assert bool(r.solved)
     states = lambda z: np.concatenate([np.asarray(z)[idx] for idx in ts._state_indices])
     np.testing.assert_allclose(states(r.variables.numpy()), states(gold["variables"]), atol=1e-2)

@@ -314,7 +314,7 @@ def test_single_solve_is_a_batch_of_one(pendulum_pair):
     np.testing.assert_allclose(states[-1], [np.pi, 0.0], atol=1e-4)
 
 
-def test_unported_paths_raise(monkeypatch):
+def test_unported_paths_raise(monkeypatch, tmp_path):
     opts = calipso_tpu_torch.Options
     for bad in (
         opts(linear_solver="spike"),
@@ -342,11 +342,15 @@ def test_unported_paths_raise(monkeypatch):
     prob = pendulum.swingup_problem(33)
     bts = pendulum_solver("torch", 5, opts()).batched()
     bs = calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2, device="cpu")
-    for call in (lambda: bts.aot_save("x", 2), lambda: bts.aot_load("x"),
-                 lambda: bts.solve(parameters=torch.zeros(2, 2), mesh=object()),
-                 lambda: bs.aot_save("x", 2), lambda: bs.solve(torch.zeros(2, 2), mesh=object())):
+    for call in (lambda: bts.solve(parameters=torch.zeros(2, 2), mesh=object()),
+                 lambda: bs.solve(torch.zeros(2, 2), mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
+    # aot_save / aot_load are ported (utils/aot.py: a manifest of the
+    # kernel libraries; tests/test_torch_utils.py)
+    for solver in (bts, bs):
+        path = str(tmp_path / f"{type(solver).__name__}.json")
+        assert solver.aot_save(path, 2) == path and solver.aot_load(path) is solver
     # without device=, every entry point solves on the card, and a
     # machine without one refuses rather than falling back to the CPU
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
