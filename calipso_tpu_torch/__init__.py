@@ -25,7 +25,10 @@ tensors. Every entry point solves on the card unless given
 checkpoint (`checkpoint.save_point`, `load_point`), profiling
 (`profiling.trace`, `iteration_stats`, `batch_stats`) and platform
 helpers and `aot`, the manifest of kernel libraries behind the batched
-solvers' `aot_save` / `aot_load` (`parallel/batch.py`).
+solvers' `aot_save` / `aot_load` (`parallel/batch.py`). `parallel/mesh.py`
+is a one-axis mesh of torch.distributed ranks, over which the batched
+solvers' `mesh=` shards a batch and `linear_solver="spike"` a horizon
+(`ops/spike.py`); `parallel/dryrun.py` is the multi-rank dry run.
 """
 
 from calipso_tpu_torch.options import Options

@@ -1,12 +1,11 @@
 """Batched scenario solving (`examples/batched_scenarios.py`): a whole
 pendulum swing-up trajopt solve (T=11, n=32, schur) over a batch of
-initial states, each the stage-0 parameter of its lane, on one device.
+initial states, each the stage-0 parameter of its lane, on one device,
+then, with more than one card (or `--ranks P`), the same batch sharded
+over P ranks through `mesh=` (`parallel/batch.py`; rank r on card r mod
+the cards, every rank on the CPU with `--cpu`).
 
-The reference's second half shards the batch over every device when
-there is more than one; the port's `mesh=` is not written yet (ROADMAP
-Queue 1 item 19), so on a host with several cards that call raises.
-
-Run:  python -m calipso_tpu_torch.examples.batched_scenarios [batch_size] [--cpu]
+Run:  python -m calipso_tpu_torch.examples.batched_scenarios [batch_size] [--ranks P] [--cpu]
 """
 
 from __future__ import annotations
@@ -19,12 +18,10 @@ import torch
 
 from calipso_tpu_torch import Options, TrajOptSolver
 from calipso_tpu_torch.models import pendulum
+from calipso_tpu_torch.parallel import mesh as pm
 
 
-def main(batch=256, device="cuda"):
-    """Solve `batch` scenarios twice (the second timed) and return
-    {"solved", "batch", "iterations" (B,), "states" (B, n), "seconds",
-    "solves_per_s", "device_kind", "solver", "result"}."""
+def _batched(device):
     prob = pendulum.swingup_problem(horizon=11, parametric_initial_state=True)
     kw = {
         k: v
@@ -34,12 +31,29 @@ def main(batch=256, device="cuda"):
     ts = TrajOptSolver(options=Options(), device=device, **kw)
     xg = np.array([np.pi, 0.0])
     ts.initialize_states([xg * t / 10 for t in range(11)])
-    bts = ts.batched()
+    return ts.batched()
+
+
+def _scenarios(batch):
+    return torch.tensor(0.2 * np.random.default_rng(0).normal(size=(batch, 2)), dtype=torch.float64)
+
+
+def _sharded(mesh, batch):
+    """One rank of the sharded half: the whole batch's result."""
+    return _batched(mesh.device).solve(parameters=_scenarios(batch), mesh=mesh)
+
+
+def main(batch=256, device="cuda", ranks=None):
+    """Solve `batch` scenarios twice (the second timed), then over `ranks`
+    ranks (by default one a card; none on the CPU) when the batch splits
+    evenly, and return {"solved", "batch", "iterations" (B,), "states" (B,
+    n), "seconds", "solves_per_s", "device_kind", "sharded" (the sharded
+    solve's {"ranks", "solved", "states"}, or None), "solver",
+    "result"}."""
+    bts = _batched(device)
     on_card = bts.device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-
-    rng = np.random.default_rng(0)
-    x0s = torch.tensor(0.2 * rng.normal(size=(batch, 2)), dtype=torch.float64)
+    x0s = _scenarios(batch)
 
     # one device
     res = bts.solve(parameters=x0s)
@@ -52,11 +66,15 @@ def main(batch=256, device="cuda"):
     kind = torch.cuda.get_device_name(bts.device) if on_card else "cpu"
     print(f"batch: {solved}/{batch} solved, {batch / dt:.0f} solves/s on {kind}")
 
-    # sharded over all devices (mesh=: ROADMAP Queue 1 item 19)
-    count = torch.cuda.device_count() if on_card else 1
-    if count > 1 and batch % count == 0:
-        print(f"sharding over {count} devices: mesh= is not ported yet (ROADMAP Queue 1 item 19)")
-        bts.solve(parameters=x0s, mesh=[torch.device("cuda", i) for i in range(count)])
+    # sharded over the ranks, each rank on its card (or the CPU)
+    cards = torch.cuda.device_count() if on_card else 0
+    ranks = (cards or 1) if ranks is None else ranks
+    sharded = None
+    if ranks > 1 and batch % ranks == 0:
+        devices = [f"cuda:{r % cards}" for r in range(ranks)] if on_card else "cpu"
+        res_sh = pm.launch(_sharded, ranks, batch, axis="batch", device=devices)[0]
+        sharded = {"ranks": ranks, "solved": int(res_sh.state.solved.sum()), "states": res_sh.variables.numpy()}
+        print(f"sharded over {ranks} ranks: {sharded['solved']}/{batch} solved")
 
     return {
         "solved": solved,
@@ -66,11 +84,14 @@ def main(batch=256, device="cuda"):
         "seconds": dt,
         "solves_per_s": batch / dt,
         "device_kind": kind,
+        "sharded": sharded,
         "solver": bts,
         "result": res,
     }
 
 
 if __name__ == "__main__":
-    args = [a for a in sys.argv[1:] if a != "--cpu"]
-    main(int(args[0]) if args else 256, "cpu" if "--cpu" in sys.argv[1:] else "cuda")
+    argv = sys.argv[1:]
+    ranks = int(argv[argv.index("--ranks") + 1]) if "--ranks" in argv else None
+    args = [a for i, a in enumerate(argv) if a not in ("--cpu", "--ranks") and (i == 0 or argv[i - 1] != "--ranks")]
+    main(int(args[0]) if args else 256, "cpu" if "--cpu" in argv else "cuda", ranks)

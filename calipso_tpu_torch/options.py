@@ -5,13 +5,14 @@ with the same defaults, so one set of options configures both packages
 (`calipso_tpu_torch.utils.convert.options_from_jax` copies one into the
 other and checks that the field sets agree).
 
-The port has five of the six KKT backends: ``linear_solver`` "schur",
-"riccati", "cr", "ldl" and "lu" (riccati and cr for trajopt problems),
-``refinement_fallback=True`` and ``differentiate=True`` (on all five).
-Values that select a path it does not have are refused when the solver
-is built, with `NotImplementedError` naming the ROADMAP item that brings
-them (see `solver/solve.py:resolve_options`): ``linear_solver="spike"``
-and ``spike_mesh`` (item 19).
+The port has the six KKT backends: ``linear_solver`` "schur",
+"riccati", "cr", "ldl", "lu" and "spike" (riccati, cr and spike for
+trajopt problems), ``refinement_fallback=True`` and
+``differentiate=True`` (on all six). "spike" shards the horizon over the
+ranks of ``spike_mesh``, a `calipso_tpu_torch.parallel.mesh.Mesh` whose
+``axis`` must be ``spike_axis``; the horizon must split into chunks of
+at least 2 stages a rank. What a solver cannot take is refused when it is
+built (see `solver/solve.py:resolve_options`).
 
 ``matmul_precision="highest"`` keeps float32 matrix products in full
 float32 on the GPU (`torch.backends.cuda.matmul.allow_tf32` and
@@ -88,7 +89,9 @@ class Options:
 
     # linear-solver backend: "auto" resolves to "riccati" for trajopt
     # problems with more than 96 variables, else "schur" (dense Cholesky of
-    # the (n, n) primal Schur complement); also "cr", "ldl" and "lu"
+    # the (n, n) primal Schur complement); also "cr", "ldl", "lu" and
+    # "spike" (the horizon sharded over the ranks of spike_mesh, a
+    # parallel.mesh.Mesh over the axis spike_axis)
     linear_solver: str = "auto"
     spike_mesh: object = None
     spike_axis: str = "horizon"

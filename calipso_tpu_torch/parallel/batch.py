@@ -8,24 +8,64 @@ moved. With `Options(differentiate=True)` a batch's result carries each
 lane's sensitivity to its parameters, (B, total, p) (`solve_fn`).
 `aot_save` / `aot_load` write and check a manifest of the kernel
 libraries a batch's routes use (`utils/aot.py`); checkpoints, profiling
-and iteration stats are in `utils/`. Sharding a batch over devices
-(`mesh=`) is ROADMAP Queue 1 item 19.
+and iteration stats are in `utils/`.
+
+`solve(..., mesh=mesh, axis=...)` shards the batch over the ranks of a
+`parallel.mesh.Mesh` whose axis is `axis`: every rank passes the same
+global inputs, solves its own B/P rows on `mesh.device` (B must be a
+multiple of P) with nothing communicated during the solves, and every
+field of the result is gathered, so that every rank returns the result
+of the unsharded solve. `stats` stay the rank's own.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.utils._pytree as pytree
 
 from calipso_tpu_torch.ops.cones import ConeLayout
 from calipso_tpu_torch.options import Options
+from calipso_tpu_torch.parallel.mesh import Mesh
 from calipso_tpu_torch.solver.api import SolveResult, resolve_device, solve_fn
 from calipso_tpu_torch.solver.kkt import Blocks
 from calipso_tpu_torch.solver.problem import ProblemFunctions
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh=: batch sharding is ROADMAP Queue 1 item 19")
+def _mesh_device(mesh, axis):
+    """The device a sharded batch solves on; refuses a mesh that is not a
+    Mesh over `axis`."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= must be a calipso_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+    if mesh.axis != axis:
+        raise ValueError(f"axis {axis!r} is not the axis of the mesh ({mesh.axis!r})")
+    return mesh.device
+
+
+def _gather_lanes(mesh, tree):
+    """Every rank's lanes of every tensor of `tree` ((b, ...) each),
+    gathered in rank order into (P b, ...): one all_gather for each dtype."""
+    leaves, spec = pytree.tree_flatten(tree)
+    out = list(leaves)
+    tensors = [i for i, t in enumerate(leaves) if isinstance(t, torch.Tensor)]
+    for dtype in dict.fromkeys(leaves[i].dtype for i in tensors):
+        idx = [i for i in tensors if leaves[i].dtype == dtype]
+        flat = [leaves[i].reshape(leaves[i].shape[0], -1) for i in idx]
+        g = mesh.all_gather(torch.cat(flat, dim=1)).flatten(0, 1)  # (P b, columns)
+        for i, part in zip(idx, torch.split(g, [f.shape[1] for f in flat], dim=1)):
+            out[i] = part.reshape((g.shape[0],) + leaves[i].shape[1:])
+    return pytree.tree_unflatten(out, spec)
+
+
+def _solve_sharded(run, mesh, *batch):
+    """run(*batch) on this rank's rows of the (B, ...) tensors and Blocks
+    in `batch` (None passes through), every field of the result gathered
+    over the ranks of `mesh`."""
+    B = next(t for t in pytree.tree_leaves(batch) if isinstance(t, torch.Tensor)).shape[0]
+    if B % mesh.size:
+        raise ValueError(f"a batch of {B} lanes does not split evenly over {mesh.size} ranks")
+    b = B // mesh.size
+    rows = pytree.tree_map_only(torch.Tensor, lambda t: t[mesh.rank * b : (mesh.rank + 1) * b], batch)
+    return _gather_lanes(mesh, run(*rows))
 
 
 class _Batched:
@@ -93,10 +133,15 @@ class BatchedSolver(_Batched):
         self._run = solve_fn(self.fns, self.layout, options)
 
     def solve(self, x0_batch, theta_batch=None, mesh=None, axis="batch") -> SolveResult:
-        _refuse_mesh(mesh)
-        x0_batch = torch.as_tensor(x0_batch).to(self.device)
+        """Solve the lanes of x0_batch (B, n) with theta_batch (B, p) (or no
+        parameters); with `mesh`, shard them over its ranks (see module
+        doc)."""
+        device = self.device if mesh is None else _mesh_device(mesh, axis)
+        x0_batch = torch.as_tensor(x0_batch).to(device)
         if theta_batch is not None:
-            theta_batch = torch.as_tensor(theta_batch).to(device=self.device, dtype=x0_batch.dtype)
+            theta_batch = torch.as_tensor(theta_batch).to(device=device, dtype=x0_batch.dtype)
+        if mesh is not None:
+            return _solve_sharded(self._run, mesh, x0_batch, theta_batch)
         return self._run(x0_batch, theta_batch)
 
 
@@ -130,8 +175,9 @@ class BatchedTrajOptSolver(_Batched):
         rows (or None for a parameterless problem). `guess`: (B, n) or (n,)
         or None (the TrajOptSolver's guess, broadcast). `warm`: a batched
         primal-dual Blocks from a previous batched solve (used when
-        Options.warmstart is set); numpy arrays are accepted too."""
-        _refuse_mesh(mesh)
+        Options.warmstart is set); numpy arrays are accepted too. `mesh`:
+        shard the batch over its ranks (see module doc)."""
+        device = self.device if mesh is None else _mesh_device(mesh, axis)
         if parameters is not None:
             parameters = torch.as_tensor(parameters)
         if guess is None:
@@ -153,7 +199,6 @@ class BatchedTrajOptSolver(_Batched):
                 "cannot infer batch size: pass a batched `parameters` (B, p) "
                 "or a batched `guess` (B, n)"
             )
-        device = self.device
         if parameters is None:
             dtype = guess.dtype
             parameters = torch.zeros((B, self.fns.dims.parameters), dtype=dtype, device=device)
@@ -166,4 +211,6 @@ class BatchedTrajOptSolver(_Batched):
         parameters = parameters.to(device=device, dtype=dtype)
         if warm is not None:
             warm = Blocks(*(torch.as_tensor(a).to(device=device, dtype=dtype) for a in warm))
+        if mesh is not None:
+            return _solve_sharded(self._run, mesh, guess, parameters, warm)
         return self._run(guess, parameters, warm)

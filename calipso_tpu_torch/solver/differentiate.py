@@ -161,15 +161,14 @@ def _relative(corr, d):
 def _repeat(tree, K):
     """Every tensor of a factorization (or Hessian) tree with each lane
     repeated K times along the lane axis, lane-major: lane b's K copies
-    become lanes b K .. b K + K - 1."""
-    if tree is None:
-        return None
+    become lanes b K .. b K + K - 1. What is not a tensor (None, a spike
+    factor's mesh) passes through."""
     if isinstance(tree, kkt.BandHessian):
         return kkt.BandHessian(_repeat(tree.D, K), _repeat(tree.O, K), _repeat(tree.Hgen, K), tree.st)
     if isinstance(tree, tuple):
         items = [_repeat(a, K) for a in tree]
         return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
-    return tree.repeat_interleave(K, dim=0)
+    return tree.repeat_interleave(K, dim=0) if isinstance(tree, torch.Tensor) else tree
 
 
 def _refine(layout, opts, Hxx, fact, eps_p, rhs6, d, dims, trips):
@@ -228,7 +227,8 @@ def _factor_at_solution(layout, opts, Hxx, gx, hx, s, t, rho, eps_p, eps_d, meth
     `scaling_regularization` a trip, up to the dtype-capped
     `max_regularization`; a lane past it keeps its NaN factor). Returns
     (the factorization, the lanes that took the ladder (B,) bool)."""
-    fact = kkt.factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method, structure)
+    mesh = opts.spike_mesh if method == "spike" else None
+    fact = kkt.factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method, structure, mesh)
     ok = kkt.inertia_ok(fact, structure)
     ladder = ~ok
     if not bool(ladder.any()):
@@ -240,6 +240,6 @@ def _factor_at_solution(layout, opts, Hxx, gx, hx, s, t, rho, eps_p, eps_d, meth
         live = ~ok & (e_p <= max_reg)
         if not bool(live.any()):
             return fact, ladder
-        trial = kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, eps_d, method, structure)
+        trial = kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, eps_d, method, structure, mesh)
         fact = select(live, trial, fact)
         ok = ok | (live & kkt.inertia_ok(trial, structure))

@@ -36,7 +36,13 @@ The backends (`Options.linear_solver`):
 - "lu": the inertia ladder runs on schur, the step comes from a dense LU
   solve of the full 6-block system (`lu_solve_full`), which is also the
   escalation of `Options.refinement_fallback`.
-"spike" (the horizon sharded over devices) is ROADMAP Queue 1 item 19.
+- "spike" (trajopt problems): the same stage blocks and border, with the
+  horizon sharded over the ranks of `Options.spike_mesh` (a
+  `parallel.mesh.Mesh`): each rank factors its chunk of T/P stages, the P
+  separators form a small system every rank factors
+  (`ops/spike.py`). Every rank holds the replicated problem and gets the
+  whole solution; the inertia test and the pivot count are reduced over
+  the ranks, so that every rank takes the same branches.
 `solve_sym` takes one right-hand side (B, ns) or several (B, ns, K) (the
 columns of implicit differentiation, `solver/differentiate.py`).
 """
@@ -53,6 +59,7 @@ from calipso_tpu_torch.ops import cones
 from calipso_tpu_torch.ops import cyclic_reduction as crd
 from calipso_tpu_torch.ops import ldl
 from calipso_tpu_torch.ops import riccati as rc
+from calipso_tpu_torch.ops import spike as sp
 
 
 def _mv(A, v):
@@ -253,27 +260,31 @@ class Factorization(NamedTuple):
     d: Optional[torch.Tensor] = None  # ldl: (B, ns) pivots of D
     # cr: (levels, L_final) of ops/cyclic_reduction.factor
     cr: Optional[tuple] = None
+    # spike: this rank's share of ops/spike.factor_sharded
+    spike: Optional[sp.SpikeFactor] = None
 
 
-STRUCTURED = ("riccati", "cr")  # the backends that need a stage structure
+STRUCTURED = ("riccati", "cr", "spike")  # the backends that need a stage structure
 
 
-def check_method(method, structure=None):
-    """Refuse a backend the port does not have (spike, naming the ROADMAP
-    item that brings it) or one the problem cannot take."""
+def check_method(method, structure=None, mesh=None):
+    """Refuse an unknown backend or one the problem cannot take: the
+    stage-block backends need a trajopt problem, and spike a mesh
+    (`Options.spike_mesh`) whose ranks split the horizon into chunks of
+    at least 2 stages."""
     if method in ("schur", "ldl", "lu"):
         return
-    if method in STRUCTURED:
-        if structure is None:
-            raise ValueError(
-                f"linear_solver={method!r} requires a trajopt problem (stage structure)"
-            )
-        return
-    if method == "spike":
-        raise NotImplementedError(
-            "linear_solver='spike': horizon sharding over devices is ROADMAP Queue 1 item 19"
+    if method not in STRUCTURED:
+        raise ValueError(f"unknown linear_solver {method!r}")
+    if method == "spike" and mesh is None:
+        raise ValueError(
+            "linear_solver='spike' needs Options.spike_mesh (a calipso_tpu_torch.parallel.mesh.Mesh "
+            "over whose ranks the horizon shards)"
         )
-    raise ValueError(f"unknown linear_solver {method!r}")
+    if structure is None:
+        raise ValueError(f"linear_solver={method!r} requires a trajopt problem (stage structure)")
+    if method == "spike":
+        sp.check_split(structure.horizon, mesh.size)
 
 
 def _ceq(rho, eps_p, eps_d):
@@ -285,20 +296,22 @@ def _has_border(structure):
     return bool(structure.num_general) and len(structure.general_stages) >= 2
 
 
-def factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method="schur", structure=None):
+def factorize(layout, Hxx, gx, hx, s, t, rho, eps_p, eps_d, method="schur", structure=None, mesh=None):
     """Factor the condensed system: the primal Schur complement S dense
     for "schur" (and "lu", whose ladder runs on it) through the T=1
-    kernels, in stage blocks for "riccati" (the block-tridiagonal kernels)
-    and "cr" (cyclic reduction), or the whole condensed matrix for
-    "ldl"."""
-    check_method(method, structure)
+    kernels, in stage blocks for "riccati" (the block-tridiagonal kernels),
+    "cr" (cyclic reduction) and "spike" (the horizon sharded over the
+    ranks of `mesh`), or the whole condensed matrix for "ldl"."""
+    check_method(method, structure, mesh)
     if method in STRUCTURED:
         D, O = _riccati_blocks(layout, structure, Hxx, gx, hx, s, t, rho, eps_p, eps_d)
         if method == "riccati":
             L, M = rc.factor(D, O)
             fact = Factorization(L, M, gx, hx, s, t, rho, eps_p, eps_d)
-        else:
+        elif method == "cr":
             fact = Factorization(None, None, gx, hx, s, t, rho, eps_p, eps_d, cr=crd.factor(D, O))
+        else:
+            fact = Factorization(None, None, gx, hx, s, t, rho, eps_p, eps_d, spike=sp.factor_sharded(D, O, mesh))
         if _has_border(structure):
             Wg, Lc, dc = _general_border(structure, _block_solver(fact), gx, rho, eps_p, eps_d)
             fact = fact._replace(Wg=Wg, Lc=Lc, dc=dc)
@@ -401,11 +414,14 @@ def _riccati_blocks(layout, st, Hxx, gx, hx, s, t, rho, eps_p, eps_d):
 
 
 def _block_solver(fact: Factorization):
-    """The stage-block solve of a riccati or cr factorization: (B, T,
-    dmax, K) right-hand sides -> S_band^{-1} applied to them."""
+    """The stage-block solve of a riccati, cr or spike factorization (spike
+    on the ranks of its mesh): right-hand sides (B, T, dmax, K), or one
+    (B, T, dmax) on riccati and spike -> S_band^{-1} applied to them."""
     if fact.cr is not None:
         return lambda Bb: crd.solve_multi(fact.cr, Bb)
-    return lambda Bb: rc.solve_multi(fact.L, fact.M, Bb)
+    if fact.spike is not None:
+        return lambda Bb: sp.solve_fact(fact.spike, Bb)
+    return lambda Bb: (rc.solve if Bb.dim() == 3 else rc.solve_multi)(fact.L, fact.M, Bb)
 
 
 def _banded_solve_multi(structure, solve_blocks, Bm):
@@ -496,14 +512,17 @@ def _border_inertia_ok(fact: Factorization, structure):
 def inertia_ok(fact: Factorization, structure=None):
     """Target inertia (n positive, m_e + m_c negative, no zero
     eigenvalue), per lane. ldl reads it off sign(D); the Cholesky backends
-    off a finite factor (schur and riccati: L; cr: every level's), with
-    the capacitance's inertia on a border."""
+    off a finite factor (schur and riccati: L; cr: every level's; spike:
+    every rank's interior and separator factors, reduced over the ranks
+    of its mesh), with the capacitance's inertia on a border."""
     if fact.d is not None:
         n, me, mc = fact.gx.shape[-1], fact.gx.shape[-2], fact.hx.shape[-2]
         pos, neg, zero = ldl.inertia_counts(fact.d)
         return (pos == n) & (neg == me + mc) & (zero == 0)
     if fact.cr is not None:
         ok = crd.factors_finite(fact.cr)
+    elif fact.spike is not None:
+        ok = sp.factors_finite(fact.spike)
     else:
         ok = torch.isfinite(fact.L).flatten(1).all(dim=1)
     return ok & _border_inertia_ok(fact, structure)
@@ -534,14 +553,38 @@ def _cr_pad_masks(structure, device):
     return masks
 
 
+def _spike_pivots(fact: Factorization, structure):
+    """(B, T, dmax) pivots of a spike factorization, the same on every
+    rank: every rank's interior pivots gathered, in stage order, then the
+    P separators', with NaN on the padded slots of ragged stages. Rank p
+    owns stages [p Tc, (p + 1) Tc), its last stage the separator, so the
+    gathered interior rows are the stages that are not separators, in
+    order."""
+    f = fact.spike
+    mesh = f.mesh
+    dI = mesh.all_gather(torch.diagonal(f.L, dim1=-2, dim2=-1)).movedim(0, 1).flatten(1, 2)
+    dS = torch.diagonal(f.Ls, dim1=-2, dim2=-1)
+    T, Tc = structure.horizon, structure.horizon // mesh.size
+    sep = np.zeros(T, bool)
+    sep[Tc - 1 :: Tc] = True
+    pad = structure.blk_idx == structure.num_variables
+    masks = structure.tensor(("spike_pad", mesh.size), np.concatenate([pad[~sep], pad[sep]]), dI.device)
+    diags = torch.cat([dI, dS], dim=1)
+    return torch.where(masks, torch.full_like(diags, float("nan")), diags)
+
+
 def num_zero_eigs(fact: Factorization, method="schur", structure=None):
     """Zero-eigenvalue count for the rank-deficiency branch of the
     inertia correction, per lane: exact from sign(D) for ldl; for the
     Cholesky backends, pivots that collapsed below a dtype-scaled
-    threshold. riccati and cr exclude the padded unit pivots of ragged
-    stages (padded dimensions stay identity through every reduction)."""
+    threshold. riccati, cr and spike exclude the padded unit pivots of
+    ragged stages (padded dimensions stay identity through every
+    reduction); spike counts every rank's pivots (one all_gather over
+    its mesh)."""
     if method == "ldl":
         return ldl.inertia_counts(fact.d)[2]
+    if method == "spike":
+        return _tiny_pivots(_spike_pivots(fact, structure).flatten(1))
     nan = lambda a: torch.full_like(a, float("nan"))
     if method == "cr":
         levels, L_final = fact.cr
@@ -563,7 +606,8 @@ def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", struc
     for K right-hand sides at once, rhs (B, n + m_e + m_c, K): on schur
     by two triangular solves with the factor (`ops/riccati.chol_solve_multi`,
     as the reference takes them), on riccati by the stream sweeps
-    (`solve_multi`). "lu" applies its schur factor."""
+    (`solve_multi`), on spike through `ops/spike.solve_fact` on the ranks
+    of its mesh. "lu" applies its schur factor."""
     vec = rhs.dim() == 2
     if method == "ldl":
         return ldl.ldl_solve(fact.L, fact.d, rhs)
@@ -582,8 +626,8 @@ def solve_sym(layout, fact: Factorization, rhs, n, me, mc, method="schur", struc
         t3 = cones.c_block_solve(layout, fact.s, fact.t, fact.eps_p, fact.eps_d, rcone)
         rhs_x = rhs_x + mtv(fact.hx, t3)
     if method in STRUCTURED:
-        if vec and method == "riccati":
-            dx = structure.from_blocks(rc.solve(fact.L, fact.M, structure.to_blocks(rhs_x)))
+        if vec and method != "cr":
+            dx = structure.from_blocks(_block_solver(fact)(structure.to_blocks(rhs_x)))
         else:
             cols = _banded_solve_multi(structure, _block_solver(fact), rhs_x[..., None] if vec else rhs_x)
             dx = cols[..., 0] if vec else cols

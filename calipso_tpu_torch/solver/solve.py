@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from calipso_tpu_torch.ops import cones
+from calipso_tpu_torch.parallel.mesh import Mesh
 from calipso_tpu_torch.solver import kkt
 from calipso_tpu_torch.solver.kkt import Blocks
 from calipso_tpu_torch.utils.norms import inf_norm, norm_p, one_norm
@@ -35,23 +36,28 @@ from calipso_tpu_torch.utils.norms import inf_norm, norm_p, one_norm
 BIG = 1.0e8  # empty-filter sentinel
 
 
-def _refuse_unported(opts):
-    """Raise for options whose code path the port does not have yet."""
-    if opts.spike_mesh is not None:
-        raise NotImplementedError(
-            "spike_mesh: horizon sharding is ROADMAP Queue 1 item 19"
-        )
+def _check_options(opts):
+    """Refuse a line-search mode the solve does not have, and a spike_mesh
+    that is not a `parallel.mesh.Mesh` over the axis `spike_axis` names."""
     if opts.line_search_mode not in ("auto", "serial", "parallel"):
         raise ValueError(f"unknown line_search_mode {opts.line_search_mode!r}")
+    mesh = opts.spike_mesh
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"spike_mesh must be a calipso_tpu_torch.parallel.mesh.Mesh, got {type(mesh).__name__}")
+        if mesh.axis != opts.spike_axis:
+            raise ValueError(f"spike_axis {opts.spike_axis!r} is not the axis of spike_mesh ({mesh.axis!r})")
 
 
 def resolve_options(opts, fns, device=None):
     """Resolve linear_solver='auto' as the reference does (riccati for a
-    trajopt problem with more than 96 variables, else schur) and, given
-    the device the solve runs on, line_search_mode='auto' ("parallel" on
-    CUDA, "serial" on the CPU). The 96 crossover was measured on a TPU
-    and is kept for parity (ROADMAP keeps its re-measurement open)."""
-    _refuse_unported(opts)
+    trajopt problem with more than 96 variables, else schur; never spike)
+    and, given the device the solve runs on, line_search_mode='auto'
+    ("parallel" on CUDA, "serial" on the CPU). The 96 crossover was
+    measured on a TPU and is kept for parity (ROADMAP keeps its
+    re-measurement open). spike needs a trajopt problem and a spike_mesh
+    whose ranks split its horizon into chunks of at least 2 stages."""
+    _check_options(opts)
     if opts.line_search_mode == "auto" and device is not None:
         mode = "parallel" if torch.device(device).type == "cuda" else "serial"
         opts = opts.replace(line_search_mode=mode)
@@ -59,7 +65,7 @@ def resolve_options(opts, fns, device=None):
     if opts.linear_solver == "auto":
         big = structure is not None and fns.dims.variables > 96
         opts = opts.replace(linear_solver="riccati" if big else "schur")
-    kkt.check_method(opts.linear_solver, structure)
+    kkt.check_method(opts.linear_solver, structure, opts.spike_mesh)
     return opts
 
 
@@ -106,9 +112,10 @@ def _where(mask, a, b):
 
 def select(mask, new, old):
     """Lane-wise choice between two states, Blocks or nested tuples of
-    tensors (None stays None): new where mask."""
-    if new is None:
-        return None
+    tensors: new where mask. What is not a tensor (None, a spike factor's
+    mesh) is the same in both and passes through."""
+    if not isinstance(new, (tuple, torch.Tensor)):
+        return new
     if type(new) is tuple:
         return tuple(select(mask, a, b) for a, b in zip(new, old))
     if isinstance(new, tuple):
@@ -191,7 +198,8 @@ def make_solve(fns, layout, opts, callbacks=None):
     # steps come from the full-system LU (do_step)
     method = "schur" if opts.linear_solver == "lu" else opts.linear_solver
     structure = getattr(fns, "stage_structure", None)
-    # the riccati and cr backends read the Hessian as stage blocks straight
+    mesh = opts.spike_mesh if method == "spike" else None
+    # the riccati, cr and spike backends read the Hessian as stage blocks straight
     # from the structured oracles, never as a dense (n, n) matrix
     block_maps = getattr(fns, "_block_maps", None)
     use_band_hessian = method in kkt.STRUCTURED and block_maps is not None and block_maps() is not None
@@ -245,7 +253,7 @@ def make_solve(fns, layout, opts, callbacks=None):
         return res, fx, g, h, sot
 
     def factorize(Hxx, gx, hx, s, t, rho, e_p, e_d):
-        return kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, e_d, method, structure)
+        return kkt.factorize(layout, Hxx, gx, hx, s, t, rho, e_p, e_d, method, structure, mesh)
 
     def solve_with(fact, res):
         return kkt.solve_with(layout, fact, res, n, me, mc, method, structure)
@@ -262,7 +270,7 @@ def make_solve(fns, layout, opts, callbacks=None):
         ok0 = kkt.inertia_ok(fact0, structure)
         # the pieces of a factorization that vary (the factors and the
         # border; None where the backend has none)
-        varying = lambda f: (f.L, f.M, f.Wg, f.Lc, f.dc, f.d, f.cr)
+        varying = lambda f: (f.L, f.M, f.Wg, f.Lc, f.dc, f.d, f.cr, f.spike)
 
         # rank deficiency -> dual regularization scaled by kappa
         zero0 = kkt.num_zero_eigs(fact0, method, structure)
@@ -304,8 +312,8 @@ def make_solve(fns, layout, opts, callbacks=None):
             done = torch.where(act, ok, done)
             failed = torch.where(act, fail_now, failed)
             trips = trips + act.to(trips.dtype)
-        L, M, Wg, Lc, dc, dvec, cr = core
-        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact, Wg, Lc, dc, dvec, cr)
+        L, M, Wg, Lc, dc, dvec, cr, spike = core
+        fact = kkt.Factorization(L, M, gx, hx, s, t, rho, e_p_fact, e_d_fact, Wg, Lc, dc, dvec, cr, spike)
         # the warm start moves only when the ladder ran
         eps_p_last_new = torch.where(ok0, eps_p_last, e_p_fact)
         return fact, failed, eps_p_last_new, trips

@@ -112,9 +112,10 @@ Phases (each fails loudly; none catches its own failure):
      hop (a flat NLP, n=110, on the T=1 kernels) in float64 with their
      reference tests' options, guesses and assertions; (b) a B=1024 hopper
      batch in float32, guesses perturbed by 0.01 N(0, 1), at least B-32
-     solved, a CPU float64 re-solve of 4 lanes under the branch rule, a
-     timed warm batch with per-layer host timers and a profile of its
-     first 5 lockstep iterations. Phases 2 and 5 hold and time the lanes
+     solved, a CPU float64 re-solve of 4 lanes under the branch rule, and
+     the first 5 lockstep iterations of a batch timed with per-layer host
+     timers and profiled (no whole warm batch: its ~190 s went to phase
+     16). Phases 2 and 5 hold and time the lanes
      kernels at (T, d) = (21, 26) and (21, 12), the stream kernels at (21,
      26) with K=4 and at (11, 33) with K=1, and the T=1 kernels' panel
      path at n = 33, 64, 65, 96, 110 (the bunny hop's) and 128, each at
@@ -183,6 +184,30 @@ Phases (each fails loudly; none catches its own failure):
      the T=1 pair at (1, 2), (1, 3), (1, 6), (1, 19), (20, 19) and (256,
      32), the lanes pair at (1, 31, 5), the stream kernels at (1, 11, 54)
      with K=1 and 22 and at (1, 21, 26) with K=8.
+  16. more than one rank on the one card (calipso_tpu_torch/parallel:
+     mesh.launch spawns the ranks, every rank on cuda:0, gloo through
+     host memory; each rank's launches counted from 0 just before its
+     path and read just after): (a) the flagship batch sharded over 2
+     ranks through .batched().solve(parameters=x0s, mesh=mesh), 4096
+     lanes a rank, factor_t1 and solve_t1 launched on each rank, the same
+     gathered bits on every rank, at least B-8 lanes solved, the same
+     solved lanes as phase 3's unsharded batch up to 8 and the states of
+     lanes solved in both within 1e-3; (c) on the same 2 ranks,
+     parallel/dryrun in float32 (the twin of __graft_entry__'s
+     dryrun_multichip): loss and gradient finite and the same bits on
+     both ranks, 4/4 lanes solved, the spike solve at horizon 4 in
+     riccati's iterations, the two d = 54 drop lanes solved on the stream
+     kernels; (b) the pendulum at horizon 44 (n = 131, d = 3), B=256,
+     float64, on linear_solver="spike" over 4 ranks (11 stages a chunk):
+     factor_lanes on the chunk interiors and the separators, the stream
+     sweeps on the K = 6 boundary columns and refinement's columns,
+     solve_lanes on the right-hand sides, no T=1 kernel and no scan; held
+     to riccati on the same batch in this process (the same solved flags
+     and iterations per lane, states within 1e-8). Phases 2e and 5 hold
+     and time the kernels at the shapes phase 16 gives them: the lanes
+     pair at (256, 10, 3), (256, 4, 3), (1, 1, 3) (a T=1 interior, its O
+     empty) and (1, 2, 3), the stream kernels at (256, 10, 3) and (1, 1,
+     3) with K=6 and at (1, 8, 54) with K=1.
 
 The solves are bound by the host's dispatch and leave the card idle most
 of the time, so beside the hopper batch's cold batch (11b), and beside no
@@ -497,6 +522,33 @@ B_SCENARIOS = 256
 EXAMPLE_T1_SHAPES = ((1, 2), (1, 3), (1, 6), (1, 19), (20, 19), (B_SCENARIOS, 32))
 EXAMPLE_LANES_SHAPES = ((1, 31, 5),)
 EXAMPLE_STREAM_SHAPES = ((1, 11, 54, 1), (1, 11, 54, 22), (1, HORIZON_HOPPER, 26, 8))
+# phase 16: more than one rank on the one card (parallel/mesh.launch, gloo
+# through host memory). 16a: the flagship batch sharded over SHARD_RANKS
+# ranks through mesh=, against phase 3's unsharded batch (the same solved
+# lanes up to MIN_SOLVED margin, the states of lanes solved in both within
+# CPU_ATOL_FLAG); 16b: the pendulum at horizon 44 (n = 131, d = 3) in
+# float64 on linear_solver="spike" over SPIKE_RANKS ranks (chunks of 11
+# stages), B_SPIKE lanes, against riccati on the same batch on the card
+# (the same solved flags and iterations per lane, states within
+# SPIKE_ATOL); 16c: parallel/dryrun over DRYRUN_RANKS ranks in float32
+SHARD_RANKS, SPIKE_RANKS, DRYRUN_RANKS = 2, 4, 2
+B_SPIKE, SPIKE_ATOL = 256, 1e-8
+PARALLEL_KERNELS = {
+    "flagship sharded": T1_KERNELS,
+    "pendulum n=131 spike": ("factor_lanes", "solve_lanes", "solve_fwd_stream", "solve_bwd_stream"),
+    "dryrun batch": T1_KERNELS + ("solve_t1_multi_library",),
+    "dryrun spike": ("factor_lanes", "solve_lanes", "solve_fwd_stream", "solve_bwd_stream"),
+    "dryrun contact": QUAD_STREAM_KERNELS,
+}
+# the shapes phase 16 gives the kernels, which phases 2e and 5 hold and
+# time: 16b's chunk interior (10 stages), its 4 separators and the K = 2d
+# boundary columns on the interior; 16c's spike solve over 2 ranks at
+# horizon 4 (a 2-stage chunk's T=1 interior with an empty O, its 2
+# separators, K = 6) and its drop lanes (one lane, 8 x 54, K=1)
+SPIKE_LANES_SHAPES = (
+    (B_SPIKE, HORIZON_DIFF // SPIKE_RANKS - 1, 3), (B_SPIKE, SPIKE_RANKS, 3), (1, 1, 3), (1, DRYRUN_RANKS, 3),
+)
+SPIKE_STREAM_SHAPES = ((B_SPIKE, HORIZON_DIFF // SPIKE_RANKS - 1, 3, 6), (1, 1, 3, 6), (1, 8, 54, 1))
 GOLDEN_GAIT_V2 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden", "quadruped_gait_v2.npz")
 
 
@@ -838,10 +890,8 @@ def check_lanes(tag, cr, dev, B, T, d, errs, times=None, times64=None):
         check(first_nan(L) == first_nan(Lp) == want, f"factor_lanes {name} {B}x{T}x{d}: first NaN stages differ")
         check(first_nan(M) == first_nan(Mp), f"factor_lanes {name} {B}x{T}x{d}: NaN stages of M differ")
         stage_ok = ~torch.isnan(Lp).flatten(2).any(-1)
-        for kname, got, ref, ok in (
-            ("factor_lanes", L, Lp, stage_ok), ("factor_lanes M", M, Mp, stage_ok[:, :-1]),
-            ("solve_lanes", x, xp, stage_ok.all(-1)),
-        ):
+        pairs = [("factor_lanes", L, Lp, stage_ok), ("factor_lanes M", M, Mp, stage_ok[:, :-1])][: 2 if T > 1 else 1]
+        for kname, got, ref, ok in pairs + [("solve_lanes", x, xp, stage_ok.all(-1))]:
             abs_err = float((got[ok].double() - ref[ok].double()).abs().max())
             rel_err = abs_err / float(ref[ok].double().abs().max())
             errs[(kname, name, B, T, d)] = abs_err
@@ -921,10 +971,8 @@ def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None):
         stage_ok = ~torch.isnan(Lp).flatten(2).any(-1)
         lanes_ok = stage_ok.all(-1)
         check(bool(torch.isnan(x[~lanes_ok]).all()), f"solve_bwd_stream {name} {shape}: a NaN lane came out finite")
-        for kname, got, ref, ok in (
-            ("factor_stream", L, Lp, stage_ok), ("factor_stream M", M, Mp, stage_ok[:, :-1]),
-            ("solve_fwd_stream", u, up, lanes_ok), ("solve_bwd_stream", x, xp, lanes_ok),
-        ):
+        pairs = [("factor_stream", L, Lp, stage_ok), ("factor_stream M", M, Mp, stage_ok[:, :-1])][: 2 if T > 1 else 1]
+        for kname, got, ref, ok in pairs + [("solve_fwd_stream", u, up, lanes_ok), ("solve_bwd_stream", x, xp, lanes_ok)]:
             rel_check(tag, kname, name, shape, got, ref, ok, errs, (kname, name, B, T, d, K))
         print(f"{tag} stream kernels {name} {shape}: NaN lanes {bad_lanes.tolist()} from stage {bad_stage} on, on both paths")
         into = times if name == "float32" else times64
@@ -1624,9 +1672,9 @@ def hopper_solver(options, device):
 
 def check_route(tag, name, launches):
     """The kernels CONTACT_KERNELS (or WIDE_ROUTE_KERNELS, APP_KERNELS,
-    EXAMPLE_KERNELS) names for the path `name` launched, and no other
-    kernel did."""
-    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS, **APP_KERNELS, **EXAMPLE_KERNELS}[name]
+    EXAMPLE_KERNELS, PARALLEL_KERNELS) names for the path `name` launched,
+    and no other kernel did."""
+    want = {**CONTACT_KERNELS, **WIDE_ROUTE_KERNELS, **APP_KERNELS, **EXAMPLE_KERNELS, **PARALLEL_KERNELS}[name]
     print(f"{tag} kernel launches in the {name} run: {launches}")
     check(all(launches[k] > 0 for k in want), f"{name}: a kernel of its route never launched: {launches}")
     off = {k: v for k, v in launches.items() if k not in want and v}
@@ -1807,9 +1855,10 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     MIN_SOLVED_HOPPER lanes solved. Then `settle` is given a function that
     holds the first lanes against their CPU float64 re-solves
     (hopper_cpu_reference("batch")'s result), and waits for whatever ran
-    beside the cold batch; then a timed warm batch with per-layer host
-    timers and a profile of the first lockstep iterations. Returns the
-    cold batch's launches."""
+    beside the cold batch; then the first PROFILE_ITERS_HOPPER lockstep
+    iterations of a batch, once timed with per-layer host timers and once
+    profiled (a whole warm batch, ~190 s, no longer runs: phase 16 took
+    its time). Returns the cold batch's launches."""
     import torch
     from calipso_tpu_torch.solver import kkt
 
@@ -1845,18 +1894,19 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     check(int(solved.sum()) >= MIN_SOLVED_HOPPER, f"only {int(solved.sum())} of {B_HOPPER} hopper lanes solved")
     xc = x[:CPU_LANES_HOPPER].cpu()
     settle(lambda ref: hopper_resolve(tag, "hopper batch", hopper_solver(opts, "cpu"), xc, solved, iters, ref))
-    phase("11b: hopper batch warm batch and profile (the card and the host to itself)")
-    layers = [(bts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
-    with layer_timers(layers) as spent:
-        wall = warm_batches(tag, "hopper", B_HOPPER, bts, lambda: bts.solve(guess=guess), st, reps=1)
-    for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
-        print(
-            f"{tag}   hopper warm batch, host time in {attr}: {sec:.3f} s ({100.0 * sec / wall:.1f}% of the wall) "
-            f"over {calls} calls"
-        )
+    phase(f"11b: hopper batch, its first {PROFILE_ITERS_HOPPER} lockstep iterations timed by layer and profiled")
     popts = hopper_tol_options(Options).replace(max_outer_iterations=1, max_residual_iterations=PROFILE_ITERS_HOPPER)
     pbts = hopper_solver(popts, "cuda").batched()
     pbts.solve(guess=guess)  # its one-time set-up
+    layers = [(pbts.fns, a) for a in QUAD_ORACLES] + [(kkt, a) for a in KKT_LAYERS]
+    with layer_timers(layers) as spent:
+        _, wall = timed(lambda: pbts.solve(guess=guess))
+    print(f"{tag} hopper batch, first {PROFILE_ITERS_HOPPER} lockstep iterations (warm): {wall:.3f} s")
+    for attr, (sec, calls) in sorted(spent.items(), key=lambda kv: -kv[1][0]):
+        print(
+            f"{tag}   hopper batch window, host time in {attr}: {sec:.3f} s ({100.0 * sec / wall:.1f}% of the wall) "
+            f"over {calls} calls"
+        )
     profile(
         tag, f"hopper (first {PROFILE_ITERS_HOPPER} lockstep iterations of a batch)",
         lambda: pbts.solve(guess=guess), host_ops=False,
@@ -2809,8 +2859,8 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
 # the shapes phases 2e and 5 hold and time the kernels at, beside the
 # main paths': (lanes, stream, T=1)
 OTHER_SHAPES = (
-    CONTACT_LANES_SHAPES + EXAMPLE_LANES_SHAPES,
-    CONTACT_STREAM_SHAPES + EXAMPLE_STREAM_SHAPES,
+    CONTACT_LANES_SHAPES + EXAMPLE_LANES_SHAPES + SPIKE_LANES_SHAPES,
+    CONTACT_STREAM_SHAPES + EXAMPLE_STREAM_SHAPES + SPIKE_STREAM_SHAPES,
     WIDE_T1_SHAPES + APP_T1_SHAPES + EXAMPLE_T1_SHAPES,
 )
 
@@ -3298,6 +3348,169 @@ def apps_phase(tag, cr, Options, dev, phase):
     return out
 
 
+def rank_numbers(res, wall, cr, bts, collectives):
+    """What a rank of 16a or 16b sends back: its state, wall and launches,
+    its loop tests (host syncs) and its collectives, each of which is a
+    device-to-host sync as well (gloo stages through host memory)."""
+    return {
+        "state": res.state, "wall": wall, "launches": dict(cr.LAUNCHES), "host_syncs": bts.stats["host_syncs"],
+        "collectives": collectives,
+    }
+
+
+def sharded_flagship_rank(mesh):
+    """16a on one rank: the flagship batch through mesh=, this rank's
+    launches counted from 0 just before."""
+    import torch
+    from calipso_tpu_torch import Options
+    from calipso_tpu_torch.ops import cuda_riccati as cr
+
+    bts = flagship(tol_options(Options), mesh.device)
+    x0s = torch.tensor(flagship_scenarios(), device=mesh.device)
+    zero_launches(cr)
+    collectives = mesh.collectives
+    t0 = time.time()
+    res = bts.solve(parameters=x0s, mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    wall = time.time() - t0
+    return rank_numbers(res, wall, cr, bts, mesh.collectives - collectives)
+
+
+def dryrun_rank(mesh):
+    """16c on one rank: parallel/dryrun's parts in float32, each with this
+    rank's launches counted from 0 just before it and its wall."""
+    import torch
+    from calipso_tpu_torch.ops import cuda_riccati as cr
+    from calipso_tpu_torch.parallel import dryrun
+
+    out, launches, walls = {}, {}, {}
+    for name, part in zip(("batch", "spike", "contact"), dryrun.PARTS):
+        zero_launches(cr)
+        t0 = time.time()
+        out.update(part(mesh, torch.float32))
+        torch.cuda.synchronize(mesh.device)
+        walls[name] = time.time() - t0
+        launches[name] = dict(cr.LAUNCHES)
+    return {"out": out, "launches": launches, "walls": walls}
+
+
+def flagship_and_dryrun_rank(mesh):
+    """16a, then 16c, on one rank of the same group."""
+    return {"16a": sharded_flagship_rank(mesh), "16c": dryrun_rank(mesh)}
+
+
+def spike_scenarios():
+    """16b's initial states (B_SPIKE, 2), float64."""
+    return 0.2 * np.random.default_rng(1).normal(size=(B_SPIKE, 2))
+
+
+def spike_rank(mesh):
+    """16b on one rank: the pendulum at horizon 44 on spike in float64 over
+    the ranks of `mesh`, this rank's launches counted from 0 just before."""
+    import torch
+    from calipso_tpu_torch import Options
+    from calipso_tpu_torch.ops import cuda_riccati as cr
+
+    bts = pendulum_solver(tol_options(Options, linear_solver="spike", spike_mesh=mesh), mesh.device, HORIZON_DIFF).batched()
+    th = torch.tensor(spike_scenarios(), device=mesh.device)
+    zero_launches(cr)
+    collectives = mesh.collectives
+    t0 = time.time()
+    res = bts.solve(parameters=th)
+    torch.cuda.synchronize(mesh.device)
+    wall = time.time() - t0
+    return rank_numbers(res, wall, cr, bts, mesh.collectives - collectives)
+
+
+def same_bits_on_every_rank(name, trees):
+    """Every rank's result tree holds the same bits (NaN where rank 0 has)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    tensors = lambda tree: [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    for rank, tree in enumerate(trees[1:], 1):
+        for a, b in zip(tensors(trees[0]), tensors(tree), strict=True):
+            check(
+                a.shape == b.shape and bool(torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(), b.nan_to_num())),
+                f"{name}: rank {rank}'s result differs from rank 0's",
+            )
+
+
+def rank_report(tag, name, ranks, path_launches):
+    """Each rank's wall, host syncs (loop tests, and the collectives apart)
+    and launches; its route checked."""
+    for rank, r in enumerate(ranks):
+        print(
+            f"{tag} {name} rank {rank}: {r['wall']:.3f} s, host syncs {r['host_syncs']} loop tests "
+            f"+ {r['collectives']} collectives"
+        )
+        check_route(tag, name, r["launches"])
+        path_launches[f"{name} rank {rank}"] = r["launches"]
+
+
+def parallel_phase(tag, cr, Options, dev, phase, flagship_state):
+    """Phase 16: more than one rank on the one card (parallel/mesh.launch,
+    every rank on cuda:0, gloo). Returns {path rank r: launches}."""
+    import torch
+    from calipso_tpu_torch.parallel import dryrun, mesh as pm
+
+    device = str(torch.device(dev.type, dev.index or 0))  # cuda:0
+    paths = {}
+    phase(f"16a: the flagship sharded over {SHARD_RANKS} ranks (mesh=), then 16c: the dry run (float32)")
+    t0 = time.time()
+    ranks = pm.launch(flagship_and_dryrun_rank, SHARD_RANKS, axis="batch", device=device)
+    print(f"{tag} 16a+16c: {SHARD_RANKS} ranks spawned, solved and joined in {time.time() - t0:.1f} s")
+    sharded = [r["16a"] for r in ranks]
+    same_bits_on_every_rank("16a flagship sharded", [r["state"] for r in sharded])
+    rank_report(tag, "flagship sharded", sharded, paths)
+    st, ref = sharded[0]["state"], flagship_state
+    solved, _ = report_solve(f"{tag} flagship sharded over {SHARD_RANKS} ranks", B_FLAG, st)
+    ref_solved = ref.solved.cpu()
+    both = st.solved & ref_solved
+    moved = int((st.solved ^ ref_solved).sum())
+    gap = float((st.p.x[both] - ref.p.x.cpu()[both]).abs().max())
+    print(
+        f"{tag} flagship sharded against phase 3's batch: {int(both.sum())} lanes solved in both, {moved} "
+        f"solved in one only; states {gap:.3e} apart (limit {CPU_ATOL_FLAG:g})"
+    )
+    check(int(solved.sum()) >= MIN_SOLVED_FLAG, f"16a: only {int(solved.sum())} of {B_FLAG} lanes solved")
+    check(moved <= B_FLAG - MIN_SOLVED_FLAG and gap <= CPU_ATOL_FLAG, "16a: the sharded batch is not phase 3's")
+
+    runs = [r["16c"] for r in ranks]
+    outs = [r["out"] for r in runs]
+    same_bits_on_every_rank("16c dry run", [(o["loss"], o["grad"], o["spike_x"], o["riccati_x"]) for o in outs])
+    for o in outs:
+        dryrun.check(o)
+    for rank, r in enumerate(runs):
+        for part, launches in r["launches"].items():
+            check_route(tag, f"dryrun {part}", launches)
+            paths[f"dryrun {part} rank {rank}"] = launches
+        print(f"{tag} 16c rank {rank}: walls {r['walls']}")
+    print(f"{tag} 16c: {dryrun.summary(SHARD_RANKS, outs[0])}")
+
+    phase(f"16b: pendulum horizon {HORIZON_DIFF} on spike over {SPIKE_RANKS} ranks (float64, B={B_SPIKE})")
+    t0 = time.time()
+    ranks = pm.launch(spike_rank, SPIKE_RANKS, axis="horizon", device=device)
+    print(f"{tag} 16b: {SPIKE_RANKS} ranks spawned, solved and joined in {time.time() - t0:.1f} s")
+    same_bits_on_every_rank("16b spike", [r["state"] for r in ranks])
+    rank_report(tag, "pendulum n=131 spike", ranks, paths)
+    st = ranks[0]["state"]
+    report_solve(f"{tag} pendulum n=131 spike", B_SPIKE, st)
+    th = torch.tensor(spike_scenarios(), device=dev)
+    bts = pendulum_solver(tol_options(Options, linear_solver="riccati"), dev, HORIZON_DIFF).batched()
+    ref, wall = timed(lambda: bts.solve(parameters=th))
+    ref = ref.state
+    print(f"{tag} pendulum n=131 riccati, the same batch in this process: {wall:.3f} s, host syncs {bts.stats['host_syncs']}")
+    report_solve(f"{tag} pendulum n=131 riccati", B_SPIKE, ref)
+    solved = ref.solved.cpu()
+    gap = float((st.p.x[solved] - ref.p.x.cpu()[solved]).abs().max())
+    iters_differ = int((st.total_i != ref.total_i.cpu()).sum())
+    print(f"{tag} 16b spike against riccati: lanes whose iterations differ {iters_differ}; states {gap:.3e} apart")
+    check(torch.equal(st.solved, solved), "16b: spike and riccati solved other lanes")
+    check(iters_differ == 0 and gap <= SPIKE_ATOL, "16b: spike is not riccati's solve")
+    return paths
+
+
 def kernel_phases(tag, cr, dev, phase):
     """Phases 2 and 5: every kernel against its plain version, then the
     kernel times. Returns (errs, times, contact times), which the kernels
@@ -3356,13 +3569,19 @@ def kernel_phases(tag, cr, dev, phase):
     return errs, times, contact
 
 
+def flagship_scenarios():
+    """The flagship's initial states, float32 (bench.py: a fresh
+    default_rng(0))."""
+    return (0.2 * np.random.default_rng(0).normal(size=(B_FLAG, 2))).astype(np.float32)
+
+
 def flagship_phase(tag, cr, Options, dev):
-    """Phase 3: the flagship batch on the card; returns its launches."""
+    """Phase 3: the flagship batch on the card; returns its launches and
+    its state."""
     import torch
 
     bts = flagship(tol_options(Options), "cuda")
-    # the benchmark's scenarios (bench.py: a fresh default_rng(0))
-    x0_np = (0.2 * np.random.default_rng(0).normal(size=(B_FLAG, 2))).astype(np.float32)
+    x0_np = flagship_scenarios()
     x0s = torch.tensor(x0_np, device=dev)
     zero_launches(cr)
     t0 = time.time()
@@ -3384,7 +3603,7 @@ def flagship_phase(tag, cr, Options, dev):
     )
     cpu_resolve(tag, "flagship", st, ref, CPU_LANES_FLAG, CPU_ATOL_FLAG)
     warm_batches(tag, "flagship", B_FLAG, bts, lambda: bts.solve(parameters=x0s), st)
-    return launches
+    return launches, st
 
 
 def rocket_phase(tag, cr, rc, Options, dev):
@@ -3682,7 +3901,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
 
     # 3. the flagship on the card (schur backend), counting kernel launches
     phase("3: flagship")
-    launches = flagship_phase(tag, cr, Options, dev)
+    launches, flagship_state = flagship_phase(tag, cr, Options, dev)
 
     # 4. the batched rocket landing on the card (riccati backend)
     phase("4: rocket")
@@ -3718,6 +3937,9 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
 
     # 15. the examples, those earlier phases ran read from their summaries
     path_launches.update(examples_phase(tag, cr, dev, phase, examples))
+
+    # 16. more than one rank on the one card
+    path_launches.update(parallel_phase(tag, cr, Options, dev, phase, flagship_state))
 
     sources = {
         "t1": "calipso_tpu_torch/csrc/riccati_t1.cu",

@@ -145,7 +145,7 @@ def tridiag_batch(rng, B, T, d, non_pd=()):
     "B,T,d",
     [(37, 31, 9), (13, 8, 54), (9, 1, 5), (5, 3, 64), (33, 4, 1), (40, 2, 33),
      (1, 101, 9), (1030, 31, 9), (2, 500, 64), (1024, 21, 26), (37, 21, 12), (1, 21, 26), (1, 21, 12),
-     (1024, 44, 3), (37, 51, 17), (1, 51, 17)],
+     (1024, 44, 3), (37, 51, 17), (1, 51, 17), (256, 10, 3), (256, 4, 3), (1, 1, 3), (1, 2, 3)],
 )
 def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     """The batched rocket's and the contact class's stage blocks (31 x 9,
@@ -154,7 +154,10 @@ def test_lanes_kernels_match_plain(cuda, B, T, d, dtype):
     give them (one lane), the differentiated pendulum batch at horizon 44
     (44 x 3) and the state-triggered rocket's (51 x 17, the first width of
     the register factor's width-32 bucket; one lane, as its single solve
-    gives it), rocket101's (one lane, 101 x 9), a ragged edge past the
+    gives it), the spike backend's over 4 ranks at horizon 44 (a chunk's
+    interior, 10 x 3, and the 4 separators, 4 x 3, B=256) and over 2 ranks
+    at horizon 4 (a 2-stage chunk's interior, T=1 with an empty O, and the
+    2 separators; one lane), rocket101's (one lane, 101 x 9), a ragged edge past the
     rocket's B (1030), and the edges of what the kernels take (T=1, d=1,
     d=64, whose float64 working set needs the raised shared-memory limit,
     d=33 with two rows per thread, and a horizon whose u does not fit in
@@ -282,17 +285,20 @@ def test_factor_t1_register_path_edges(cuda, B, n, shift, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("B,T,d,K", [(1024, 44, 3, 2), (37, 51, 17, 3)])
+@pytest.mark.parametrize("B,T,d,K", [(1024, 44, 3, 2), (37, 51, 17, 3), (256, 10, 3, 6), (1, 1, 3, 6)])
 def test_stream_sweeps_on_the_lanes_factor(cuda, B, T, d, K, dtype):
     """Implicit differentiation's K-column solve on the riccati backend at
     a lanes-route width: factor_lanes' (L, M), then ops/riccati.solve_multi
     on the stream sweeps (the differentiated pendulum batch's 44 x 3 with
-    its 2 parameter columns; 51 x 17 at K=3). Lanes 2 and B-1 are not
-    positive definite from the middle stage on: NaN over all of their X."""
+    its 2 parameter columns; 51 x 17 at K=3), and the spike backend's
+    boundary eliminations, K = 2d columns, on a chunk's interior (10 x 3
+    at B=256; a 2-stage chunk's T=1 interior, one lane, with an empty O
+    and M). Lanes 2 and B-1 (with B > 1) are not positive definite from
+    the middle stage on: NaN over all of their X."""
     from calipso_tpu_torch.ops import riccati
 
     rng = np.random.default_rng(B + T + d + K)
-    bad = [2, B - 1]
+    bad = [2, B - 1] if B > 1 else []
     D, O, _ = tridiag_batch(rng, B, T, d, non_pd=[(lane, T // 2) for lane in bad])
     b = rng.normal(size=(B, T, d, K))
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
@@ -397,7 +403,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     [(128, 8, 54, 1), (128, 8, 54, 22), (13, 8, 54, 1), (9, 1, 5, 3), (5, 3, 64, 40),
      (33, 4, 1, 1), (6, 11, 33, 2), (7, 2, 13, 33),
      (17, 2, 8, 1), (17, 3, 9, 1), (9, 4, 16, 5), (11, 3, 55, 1), (11, 3, 56, 33), (5, 5, 64, 2),
-     (1024, 21, 26, 4), (1024, 11, 33, 1), (1, 21, 26, 4), (1, 11, 33, 1)],
+     (1024, 21, 26, 4), (1024, 11, 33, 1), (1, 21, 26, 4), (1, 11, 33, 1), (1, 8, 54, 1)],
 )
 def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     """The batched quadruped's stage blocks (8 x 54) with one and with 22
@@ -409,7 +415,8 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     panel (d=8), a 1-wide last panel (d=9), a 7-wide one over ragged 4 x 4
     tiles (d=55), whole panels (16, 56, 64); the backward sweep's second
     row a thread (d > 32) and a one-column second chunk (K=33); the hopper's
-    and the box's also as their single solves give them (one lane). Lanes 2
+    and the box's also as their single solves give them (one lane), and the
+    dry run's quadruped drop lane (one lane, 8 x 54). Lanes 2
     and B-1 (those of them that exist, with B > 1) are not positive
     definite from the middle stage on: NaN from that stage on, on both
     paths."""

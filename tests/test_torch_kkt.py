@@ -136,12 +136,12 @@ def test_tiny_pivots_count_per_lane():
 
 
 def test_other_backends_are_refused(iterate):
-    """The backend the port does not have (spike) names its ROADMAP item;
-    riccati and cr need a trajopt problem's stage structure; an unknown
-    name is refused."""
+    """spike without a mesh names Options.spike_mesh (its horizon splits are
+    refused in tests/test_torch_spike.py); riccati and cr need a trajopt
+    problem's stage structure; an unknown name is refused."""
     it = iterate
     args = (it["H"], it["gx"], it["hx"], it["point"].s, it["point"].t, it["rho"], it["eps_p"], it["eps_d"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="spike_mesh"):
         tkkt.factorize(it["tl"], *(_t(a) for a in args), method="spike")
     for method in ("riccati", "cr"):
         with pytest.raises(ValueError, match="stage structure"):

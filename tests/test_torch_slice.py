@@ -316,12 +316,14 @@ def test_single_solve_is_a_batch_of_one(pendulum_pair):
 
 def test_unported_paths_raise(monkeypatch, tmp_path):
     opts = calipso_tpu_torch.Options
-    for bad in (
-        opts(linear_solver="spike"),
-        opts(spike_mesh=object()),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pendulum_solver("torch", 5, bad)
+    # spike is ported (tests/test_torch_spike.py, which also refuses a
+    # horizon that does not split over the ranks): without a mesh it names
+    # spike_mesh, and a spike_mesh that is not a parallel.mesh.Mesh is
+    # refused
+    with pytest.raises(ValueError, match="spike_mesh"):
+        pendulum_solver("torch", 5, opts(linear_solver="spike"))
+    with pytest.raises(TypeError, match="Mesh"):
+        pendulum_solver("torch", 5, opts(spike_mesh=object()))
     # (the cr, ldl and lu backends, refinement_fallback and implicit
     # differentiation are ported: tests/test_torch_cr.py,
     # tests/test_torch_ldl.py and tests/test_torch_differentiate.py; so
@@ -342,9 +344,11 @@ def test_unported_paths_raise(monkeypatch, tmp_path):
     prob = pendulum.swingup_problem(33)
     bts = pendulum_solver("torch", 5, opts()).batched()
     bs = calipso_tpu_torch.BatchedSolver(lambda x: x @ x, None, None, 2, device="cpu")
+    # mesh= is ported (tests/test_torch_parallel.py); what is not a
+    # parallel.mesh.Mesh is refused
     for call in (lambda: bts.solve(parameters=torch.zeros(2, 2), mesh=object()),
                  lambda: bs.solve(torch.zeros(2, 2), mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="Mesh"):
             call()
     # aot_save / aot_load are ported (utils/aot.py: a manifest of the
     # kernel libraries; tests/test_torch_utils.py)
