@@ -1,15 +1,17 @@
-// Batched dense Cholesky factor and L L^T substitution for n <= 128: the
-// T=1 case of the block-tridiagonal Riccati factorization, which is the
-// whole linear algebra of the schur KKT backend.
+// Batched dense Cholesky factor and L L^T substitution for n <= 288 in
+// float32 and n <= 192 in float64: the T=1 case of the block-tridiagonal
+// Riccati factorization, which is the whole linear algebra of the schur
+// KKT backend.
 //
 // Replaces the TPU kernels calipso_tpu/ops/pallas_riccati.py
 // _factor_lanes_t1_kernel (:633; its pallas_call at :704) and
 // _solve_lanes_t1_kernel (:661; :764). The TPU versions put the batch on
 // the 128-lane vector axis and emitted a transposed factor; here a warp
-// (n <= 32) or a thread block (n in 33..128) owns one matrix and reads and
+// (n <= 32) or a thread block (n past 32) owns one matrix and reads and
 // writes the public row-major (B, n, n) layout directly. Wider systems
 // take the library route one layer up (ops/riccati.t1_route), as the
-// reference takes XLA's Cholesky where no Pallas tile fits.
+// reference takes XLA's Cholesky where no Pallas tile fits (its resident
+// tile reaches n = 221 at B = 32 in float32).
 //
 // Bound: the factor reads S's lower triangle and writes L whole (its
 // upper zeros too, which the contract writes), 22.2 MB at the flagship's
@@ -109,6 +111,19 @@
 // sum_j L[j][t] x_j, a thread a column. Two barriers a panel a sweep where
 // the first design took two __syncwarp and a division a step.
 //
+// n past 128 (the wide panel kernels): the same two kernels, instances of
+// 8 warps a block (kWideWarps) whose factor loops over the strips with the
+// most panels it takes as a compile-time bound (kMaxP), so that every warp
+// takes one strip of the widest factor's 8 at p = 0 where 4 warps took two,
+// each repeating the diagonal pivots. The limits are set by shared memory
+// alone: the lower blocks of P panels and the solve's u must fit a
+// block's 227 KB (wide_panels: float32 P = 9, 208.5 KB; float64 P = 6,
+// 184.3 KB), one block an SM. Everything the n <= 128 design keeps stays: the
+// reciprocal pivots and no division, __syncthreads_and of the failure
+// flags (a lane not positive definite comes out NaN over its lower
+// triangle), two barriers a panel, cp.async of panel 0 ahead of the rest,
+// full float32 on the FMA pipes.
+//
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
@@ -116,8 +131,13 @@
 
 namespace {
 
-constexpr int kT1Warps = 4;  // warps a block, of every T=1 kernel
-constexpr int kMaxN = 128;   // the widest system the T=1 kernels take
+constexpr int kT1Warps = 4;  // warps a block, of every T=1 kernel up to n = 128
+constexpr int kMaxN = 128;   // the widest system the register and panel kernels take
+// warps a block of the wide panel kernels (n past 128): 8, one strip of
+// the widest factor's 7 or 8 a warp, where 4 warps took two strips each
+// (PERF.md has the times of both)
+constexpr int kWideWarps = 8;
+constexpr int kMaxWideN = 288;  // the widest system of any dtype (float32; see wide_panels)
 
 // 16 bytes of shared memory at p into r[j..] where `in`, else zeros
 template <int N>
@@ -332,7 +352,7 @@ __device__ __forceinline__ T at(T* A, int r, int c) {
 // panels [p_lo, p_hi) into the lower blocks at A, G bytes a piece, by the
 // block's warps (rows from the panel's first column on); the caller
 // commits the batch
-template <int G, typename T>
+template <int G, int kWarps, typename T>
 __device__ __forceinline__ void copy_panels(T* A, const T* src, int n, int p_lo, int p_hi, int warp, int lane) {
   constexpr int per = G / sizeof(T);    // words a piece
   constexpr int pieces = kWarp / per;   // pieces of a panel's row
@@ -340,7 +360,7 @@ __device__ __forceinline__ void copy_panels(T* A, const T* src, int n, int p_lo,
   const int pc = (lane & (pieces - 1)) * per;
   for (int bj = p_lo; bj < p_hi; ++bj) {
     const int c = bj * kWarp + pc;
-    for (int r = bj * kWarp + warp * rows + lane / pieces; r < n; r += kT1Warps * rows)
+    for (int r = bj * kWarp + warp * rows + lane / pieces; r < n; r += kWarps * rows)
       if (c <= r)
         __pipeline_memcpy_async(blk(A, r >> 5, bj) + (r & 31) * panel_ld<T>() + pc,
                                 src + static_cast<long long>(r) * n + c, G);
@@ -349,23 +369,23 @@ __device__ __forceinline__ void copy_panels(T* A, const T* src, int n, int p_lo,
 
 // copy_panels in pieces of `bytes` (16, 8, or sizeof(T): what n sizeof(T)
 // and src's address allow)
-template <typename T>
+template <int kWarps, typename T>
 __device__ __forceinline__ void copy_panels_of(int bytes, T* A, const T* src, int n, int p_lo, int p_hi, int warp,
                                                int lane) {
   if (bytes == 16)
-    copy_panels<16>(A, src, n, p_lo, p_hi, warp, lane);
+    copy_panels<16, kWarps>(A, src, n, p_lo, p_hi, warp, lane);
   else if (bytes == 8)
-    copy_panels<8>(A, src, n, p_lo, p_hi, warp, lane);
+    copy_panels<8, kWarps>(A, src, n, p_lo, p_hi, warp, lane);
   else
-    copy_panels<sizeof(T)>(A, src, n, p_lo, p_hi, warp, lane);
+    copy_panels<sizeof(T), kWarps>(A, src, n, p_lo, p_hi, warp, lane);
 }
 
 // The rows past n (all in the last block row) of every lower block: the
 // identity's where `unit`, else zeros
-template <typename T>
+template <int kWarps, typename T>
 __device__ __forceinline__ void pad_rows(T* A, int n, bool unit, int warp, int lane) {
   const int P = panels(n);
-  for (int r = n + warp; r < P * kWarp; r += kT1Warps)
+  for (int r = n + warp; r < P * kWarp; r += kWarps)
     for (int bj = 0; bj < P; ++bj)
       blk(A, P - 1, bj)[(r & 31) * panel_ld<T>() + lane] = unit && bj == P - 1 && (r & 31) == lane ? T(1) : T(0);
 }
@@ -388,11 +408,14 @@ __device__ __forceinline__ T dot32(const T* a, const T* v) {
   return (p0 + p1) + (p2 + p3);
 }
 
-// factor_t1 for n in 33..128 (see the file comment). Shared memory:
-// panel_words(n) words. copy_bytes: the piece of the copy in (16, 8 or
-// sizeof(T)); vec_out: L's rows go out in 16-byte pieces.
-template <typename T>
-__global__ void __launch_bounds__(kT1Warps * kWarp, 1)
+// factor_t1 for n in 33..128 (kWarps = 4, kMaxP = 4) and past 128 (the
+// wide instance: kWideWarps, kMaxP = wide_panels<T>()); see the file
+// comment. Shared memory: panel_words(n) words. copy_bytes: the piece of
+// the copy in (16, 8 or sizeof(T)); vec_out: L's rows go out in 16-byte
+// pieces. A warp takes the strips warp, warp + kWarps, ... (one pass where
+// kWarps >= kMaxP - 1), the diagonal pivots again for each.
+template <typename T, int kWarps, int kMaxP>
+__global__ void __launch_bounds__(kWarps * kWarp, 1)
     factor_t1_panel_kernel(const T* __restrict__ Sg, T* __restrict__ Lg, int n, int copy_bytes, int vec_out) {
   constexpr int per = 16 / sizeof(T);
   constexpr int ld = panel_ld<T>();
@@ -403,11 +426,11 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
   const long long nn = static_cast<long long>(n) * n;
   const T* const S = Sg + blockIdx.x * nn;
   T* const L = Lg + blockIdx.x * nn;
-  copy_panels_of(copy_bytes, A, S, n, 0, 1, warp, lane);
+  copy_panels_of<kWarps>(copy_bytes, A, S, n, 0, 1, warp, lane);
   __pipeline_commit();
-  copy_panels_of(copy_bytes, A, S, n, 1, P, warp, lane);
+  copy_panels_of<kWarps>(copy_bytes, A, S, n, 1, P, warp, lane);
   __pipeline_commit();
-  pad_rows(A, n, true, warp, lane);
+  pad_rows<kWarps>(A, n, true, warp, lane);
   __pipeline_wait_prior(1);
   __syncthreads();  // panel 0's columns have landed
 
@@ -418,21 +441,25 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
     T* const drow = blk(A, p, p) + lane * ld;
     T s[kWarp];
     bool ok = true;
-    if (warp < max(strips, 1)) {
-      // the diagonal block's row `lane` (its copied pieces: the entries
-      // above the diagonal never reach one below it) and this warp's
-      // strip's; rows past n are the identity's
-      T* const orow = blk(A, p + 1 + warp, p) + lane * ld;
-      T o[kWarp];
 #pragma unroll
-      for (int j = 0; j < kWarp; j += per) load16(drow + j, s, j, j <= lane);
+    for (int pass = 0; pass < (kMaxP - 2) / kWarps + 1; ++pass) {
+      const int st = warp + pass * kWarps;  // this pass's strip
+      if (st < max(strips, 1)) {
+        // the diagonal block's row `lane` (its copied pieces: the entries
+        // above the diagonal never reach one below it) and the strip's;
+        // rows past n are the identity's
+        T* const orow = blk(A, p + 1 + st, p) + lane * ld;
+        T o[kWarp];
 #pragma unroll
-      for (int j = 0; j < kWarp; j += per) load16(orow + j, o, j, warp < strips);
-      T inv = T(0);  // not read
-      panel_pivots<true>(s, o, kWarp, lane, ok, inv);
-      if (warp < strips) {
+        for (int j = 0; j < kWarp; j += per) load16(drow + j, s, j, j <= lane);
 #pragma unroll
-        for (int j = 0; j < kWarp; j += per) store16(orow + j, o, j);
+        for (int j = 0; j < kWarp; j += per) load16(orow + j, o, j, st < strips);
+        T inv = T(0);  // not read
+        panel_pivots<true>(s, o, kWarp, lane, ok, inv);
+        if (st < strips) {
+#pragma unroll
+          for (int j = 0; j < kWarp; j += per) store16(orow + j, o, j);
+        }
       }
     }
     if (p == 0) __pipeline_wait_prior(0);  // every column, before the first update
@@ -448,7 +475,7 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
     // in half blocks (32 rows, columns h*16 ..): unit u is half u & 1 of
     // lower block u >> 1, counted by block rows
     const int units = strips * (strips + 1);
-    for (int u = warp; u < units; u += kT1Warps) {
+    for (int u = warp; u < units; u += kWarps) {
       int k = u >> 1, row = 0;
       while (k > row) k -= ++row;
       const int bi = p + 1 + row, bj = p + 1 + k, c0 = (u & 1) * 16 + tx;
@@ -487,7 +514,7 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
   // L a row a warp: zeros above the diagonal, NaN below it where S is not
   // positive definite
   const T nan = quiet_nan<T>();
-  for (int r = warp; r < n; r += kT1Warps) {
+  for (int r = warp; r < n; r += kWarps) {
     T* const dst = L + static_cast<long long>(r) * n;
     if (vec_out) {
       for (int c = lane * per; c < n; c += kWarp * per) {
@@ -502,10 +529,11 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
   }
 }
 
-// solve_t1 for n in 33..128 (see the file comment). Shared memory:
-// panel_words(n) words of L, then u (32 P words).
-template <typename T>
-__global__ void __launch_bounds__(kT1Warps * kWarp, 1)
+// solve_t1 for n in 33..128 (kWarps = 4) and past 128 (kWideWarps); see
+// the file comment. Shared memory: panel_words(n) words of L, then u (32 P
+// words).
+template <typename T, int kWarps>
+__global__ void __launch_bounds__(kWarps * kWarp, 1)
     solve_t1_panel_kernel(const T* __restrict__ Lg, const T* __restrict__ bg, T* __restrict__ xg, int n,
                           int copy_bytes) {
   constexpr int per = 16 / sizeof(T);
@@ -516,13 +544,13 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int P = panels(n), N = P * kWarp;
   const long long nn = static_cast<long long>(n) * n;
-  copy_panels_of(copy_bytes, A, Lg + blockIdx.x * nn, n, 0, 1, warp, lane);
+  copy_panels_of<kWarps>(copy_bytes, A, Lg + blockIdx.x * nn, n, 0, 1, warp, lane);
   __pipeline_commit();
-  copy_panels_of(copy_bytes, A, Lg + blockIdx.x * nn, n, 1, P, warp, lane);
+  copy_panels_of<kWarps>(copy_bytes, A, Lg + blockIdx.x * nn, n, 1, P, warp, lane);
   __pipeline_commit();
-  pad_rows(A, n, false, warp, lane);
+  pad_rows<kWarps>(A, n, false, warp, lane);
   const T* const b = bg + static_cast<long long>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < N; i += kT1Warps * kWarp) u[i] = i < n ? b[i] : T(0);
+  for (int i = threadIdx.x; i < N; i += kWarps * kWarp) u[i] = i < n ? b[i] : T(0);
   __pipeline_wait_prior(1);
   __syncthreads();  // panel 0's columns and b have landed
 
@@ -550,7 +578,7 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
     }
     if (p == 0) __pipeline_wait_prior(0);
     __syncthreads();  // u of the panel (and, from panel 0 on, every column of L)
-    for (int t = threadIdx.x; c0 + kWarp + t < N; t += kT1Warps * kWarp) {
+    for (int t = threadIdx.x; c0 + kWarp + t < N; t += kWarps * kWarp) {
       const int r = c0 + kWarp + t;
       u[r] -= dot32(blk(A, r >> 5, p) + (r & 31) * ld, u + c0);
     }
@@ -577,7 +605,7 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
       u[c0 + lane] = r;
     }
     __syncthreads();  // x of the panel
-    for (int t = threadIdx.x; t < c0; t += kT1Warps * kWarp) {
+    for (int t = threadIdx.x; t < c0; t += kWarps * kWarp) {
       const T* const col = blk(A, p, t >> 5) + (t & 31);
       T p0 = T(0), p1 = T(0), p2 = T(0), p3 = T(0);
 #pragma unroll
@@ -594,14 +622,38 @@ __global__ void __launch_bounds__(kT1Warps * kWarp, 1)
     __syncthreads();  // the columns left of the panel are updated
   }
   T* const x = xg + static_cast<long long>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += kT1Warps * kWarp) x[i] = u[i];
+  for (int i = threadIdx.x; i < n; i += kWarps * kWarp) x[i] = u[i];
 }
 
-// How a T=1 kernel launches at n: its warps a block, shared memory a
-// block, its resident blocks an SM, and the device's SMs.
+// The most panels of the wide panel kernels: the most P whose lower
+// blocks and the solve's right-hand side (the larger of the two kernels'
+// shares) fit a block's 227 KB (kMaxSmem): float32 P = 9, n <= 288 (45
+// blocks of 32 x 36 words, 207,360 B, and u 1,152 B; P = 10 takes 254,720
+// B); float64 P = 6, n <= 192 (21 blocks of 32 x 34 words, 182,784 B, and
+// u 1,536 B; P = 7 takes 245,504 B).
+template <typename T>
+__host__ __device__ constexpr int wide_panels() {
+  int P = 1;
+  while (sizeof(T) * (static_cast<size_t>((P + 1) * (P + 2) / 2) * kWarp * panel_ld<T>() + (P + 1) * kWarp) <= kMaxSmem)
+    ++P;
+  return P;
+}
+
+// The widest system the T=1 kernels take (ops/cuda_riccati.MAX_N)
+template <typename T>
+constexpr int max_n() {
+  return wide_panels<T>() * kWarp;
+}
+static_assert(max_n<float>() == kMaxWideN && max_n<double>() <= kMaxWideN, "kMaxWideN");
+
+// How a T=1 kernel launches at n: the kernel (the register kernel up to n =
+// 32, the panel kernel up to 128, the wide panel kernel past it), its warps
+// a block, shared memory a block, its resident blocks an SM, and the
+// device's SMs.
+enum T1Kind { kReg, kPanel, kWide };
 struct T1Plan {
-  bool reg;  // the register kernel (n <= 32), else the panel kernel
-  int slot_words, blocks_per_sm, sms;
+  T1Kind kind;
+  int warps, slot_words, blocks_per_sm, sms;
   size_t smem;
 };
 
@@ -623,16 +675,16 @@ constexpr size_t panel_smem(int n, bool vec) {
   return sizeof(T) * (static_cast<size_t>(panel_words<T>(n)) + (vec ? panels(n) * kWarp : 0));
 }
 
-// The residency of `kernel` at n and its shared memory `smem` on the
-// current device, asked once a device and n (a cache per kernel, kTag):
-// the launch reads it every call. The kernel's shared-memory limit is
-// raised on the way to `max_smem`, what its widest n takes, where that is
-// more than 48 KB, so that no later n lowers it below what an earlier one
-// was launched with.
+// The residency of `kernel` at n, with `warps` warps a block and its
+// shared memory `smem`, on the current device, asked once a device and n
+// (a cache per kernel, kTag): the launch reads it every call. The
+// kernel's shared-memory limit is raised on the way to `max_smem`, what
+// its widest n takes, where that is more than 48 KB, so that no later n
+// lowers it below what an earlier one was launched with.
 template <int kTag, typename K>
-cudaError_t residency(K kernel, int n, size_t smem, size_t max_smem, int* blocks_per_sm, int* sms) {
+cudaError_t residency(K kernel, int n, int warps, size_t smem, size_t max_smem, int* blocks_per_sm, int* sms) {
   constexpr int kMaxDevices = 64;
-  static std::atomic<int> cached[kMaxDevices][kMaxN + 1][2];  // blocks an SM, SMs; 0: not asked
+  static std::atomic<int> cached[kMaxDevices][kMaxWideN + 1][2];  // blocks an SM, SMs; 0: not asked
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -645,7 +697,7 @@ cudaError_t residency(K kernel, int n, size_t smem, size_t max_smem, int* blocks
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(max_smem));
     if (err != cudaSuccess) return err;
   }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kT1Warps * kWarp, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, warps * kWarp, smem);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   if (*blocks_per_sm < 1) return cudaErrorInvalidConfiguration;  // the launch would be refused
@@ -656,26 +708,35 @@ cudaError_t residency(K kernel, int n, size_t smem, size_t max_smem, int* blocks
   return cudaSuccess;
 }
 
-// The plan of the register kernel `reg` up to n = 32, else of the panel
-// kernel `panel` (the solve's with its right-hand side: `vec`)
-template <int kTag, typename T, typename K, typename W>
-cudaError_t plan_t1(K reg, W panel, bool vec, int n, T1Plan* p) {
-  p->reg = n <= kWarp;
-  if (p->reg) {
+// The plan of the register kernel `reg` up to n = 32, of the panel kernel
+// `panel` up to kMaxN and of the wide panel kernel `wide` past it (the
+// solve's with its right-hand side: `vec`)
+template <int kTag, typename T, typename K, typename W, typename V>
+cudaError_t plan_t1(K reg, W panel, V wide, bool vec, int n, T1Plan* p) {
+  p->slot_words = 0;
+  if (n <= kWarp) {
+    p->kind = kReg;
+    p->warps = kT1Warps;
     p->slot_words = reg_slot_words<T>(n);
     p->smem = reg_smem<T>(n);
-    return residency<kTag>(reg, n, p->smem, reg_smem<T>(kWarp), &p->blocks_per_sm, &p->sms);
+    return residency<kTag>(reg, n, p->warps, p->smem, reg_smem<T>(kWarp), &p->blocks_per_sm, &p->sms);
   }
-  p->slot_words = 0;
   p->smem = panel_smem<T>(n, vec);
-  return residency<kTag + 1>(panel, n, p->smem, panel_smem<T>(kMaxN, vec), &p->blocks_per_sm, &p->sms);
+  if (n <= kMaxN) {
+    p->kind = kPanel;
+    p->warps = kT1Warps;
+    return residency<kTag + 1>(panel, n, p->warps, p->smem, panel_smem<T>(kMaxN, vec), &p->blocks_per_sm, &p->sms);
+  }
+  p->kind = kWide;
+  p->warps = kWideWarps;
+  return residency<kTag + 2>(wide, n, p->warps, p->smem, panel_smem<T>(max_n<T>(), vec), &p->blocks_per_sm, &p->sms);
 }
 
 // Blocks of a launch by plan p: every warp resident at once, each walking
 // its systems, for the register kernels; a block a system for the panel
 // kernels (a block that ends frees its SM's share for the next)
 int t1_grid(const T1Plan& p, int B) {
-  if (!p.reg) return B;
+  if (p.kind != kReg) return B;
   const long long blocks = (B + kT1Warps - 1) / kT1Warps;
   const long long resident = static_cast<long long>(p.blocks_per_sm) * p.sms;
   return static_cast<int>(resident < blocks ? resident : blocks);
@@ -683,12 +744,14 @@ int t1_grid(const T1Plan& p, int B) {
 
 template <typename T>
 cudaError_t plan_factor_t1(int n, T1Plan* p) {
-  return plan_t1<0, T>(factor_t1_reg_kernel<T, kWarp>, factor_t1_panel_kernel<T>, false, n, p);
+  return plan_t1<0, T>(factor_t1_reg_kernel<T, kWarp>, factor_t1_panel_kernel<T, kT1Warps, panels(kMaxN)>,
+                       factor_t1_panel_kernel<T, kWideWarps, wide_panels<T>()>, false, n, p);
 }
 
 template <typename T>
 cudaError_t plan_solve_t1(int n, T1Plan* p) {
-  return plan_t1<2, T>(solve_t1_reg_kernel<T, kWarp>, solve_t1_panel_kernel<T>, true, n, p);
+  return plan_t1<3, T>(solve_t1_reg_kernel<T, kWarp>, solve_t1_panel_kernel<T, kT1Warps>,
+                       solve_t1_panel_kernel<T, kWideWarps>, true, n, p);
 }
 
 bool aligned_rows(size_t word, int n, const void* p) { return (word * n) % 16 == 0 && aligned16(p); }
@@ -704,7 +767,7 @@ int copy_bytes(int n, const void* p) {
 
 template <typename T>
 int factor_t1(const void* S, void* L, int B, int n, void* stream) {
-  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > max_n<T>()) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
   T1Plan p;
   cudaError_t err = plan_factor_t1<T>(n, &p);
@@ -712,19 +775,25 @@ int factor_t1(const void* S, void* L, int B, int n, void* stream) {
   const T* Sp = static_cast<const T*>(S);
   T* Lp = static_cast<T*>(L);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.reg) {
+  const int grid = t1_grid(p, B), threads = p.warps * kWarp;
+  if (p.kind == kReg) {
     const int vec = aligned_rows(sizeof(T), n, S) && aligned16(L);
-    factor_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Sp, Lp, B, n, p.slot_words, vec);
+    factor_t1_reg_kernel<T, kWarp><<<grid, threads, p.smem, st>>>(Sp, Lp, B, n, p.slot_words, vec);
+  } else if (p.kind == kPanel) {
+    const int vec = aligned_rows(sizeof(T), n, L);
+    factor_t1_panel_kernel<T, kT1Warps, panels(kMaxN)><<<grid, threads, p.smem, st>>>(Sp, Lp, n, copy_bytes<T>(n, S),
+                                                                                       vec);
   } else {
     const int vec = aligned_rows(sizeof(T), n, L);
-    factor_t1_panel_kernel<T><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Sp, Lp, n, copy_bytes<T>(n, S), vec);
+    factor_t1_panel_kernel<T, kWideWarps, wide_panels<T>()><<<grid, threads, p.smem, st>>>(
+        Sp, Lp, n, copy_bytes<T>(n, S), vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int solve_t1(const void* L, const void* b, void* x, int B, int n, void* stream) {
-  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > max_n<T>()) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return static_cast<int>(cudaSuccess);
   T1Plan p;
   cudaError_t err = plan_solve_t1<T>(n, &p);
@@ -733,11 +802,14 @@ int solve_t1(const void* L, const void* b, void* x, int B, int n, void* stream) 
   const T* bp = static_cast<const T*>(b);
   T* xp = static_cast<T*>(x);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p.reg) {
+  const int grid = t1_grid(p, B), threads = p.warps * kWarp;
+  if (p.kind == kReg) {
     const int vec = aligned_rows(sizeof(T), n, L);
-    solve_t1_reg_kernel<T, kWarp><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Lp, bp, xp, B, n, p.slot_words, vec);
+    solve_t1_reg_kernel<T, kWarp><<<grid, threads, p.smem, st>>>(Lp, bp, xp, B, n, p.slot_words, vec);
+  } else if (p.kind == kPanel) {
+    solve_t1_panel_kernel<T, kT1Warps><<<grid, threads, p.smem, st>>>(Lp, bp, xp, n, copy_bytes<T>(n, L));
   } else {
-    solve_t1_panel_kernel<T><<<t1_grid(p, B), kT1Warps * kWarp, p.smem, st>>>(Lp, bp, xp, n, copy_bytes<T>(n, L));
+    solve_t1_panel_kernel<T, kWideWarps><<<grid, threads, p.smem, st>>>(Lp, bp, xp, n, copy_bytes<T>(n, L));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -745,21 +817,21 @@ int solve_t1(const void* L, const void* b, void* x, int B, int n, void* stream) 
 // (warps a block, resident blocks an SM) of a plan
 int t1_layout(cudaError_t err, const T1Plan& p, int* warps, int* blocks_per_sm) {
   if (err != cudaSuccess) return static_cast<int>(err);
-  *warps = kT1Warps;
+  *warps = p.warps;
   *blocks_per_sm = p.blocks_per_sm;
   return static_cast<int>(cudaSuccess);
 }
 
 template <typename T>
 int factor_t1_layout(int n, int* warps, int* blocks_per_sm) {
-  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > max_n<T>()) return static_cast<int>(cudaErrorInvalidValue);
   T1Plan p;
   return t1_layout(plan_factor_t1<T>(n, &p), p, warps, blocks_per_sm);
 }
 
 template <typename T>
 int solve_t1_layout(int n, int* warps, int* blocks_per_sm) {
-  if (n < 1 || n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > max_n<T>()) return static_cast<int>(cudaErrorInvalidValue);
   T1Plan p;
   return t1_layout(plan_solve_t1<T>(n, &p), p, warps, blocks_per_sm);
 }

@@ -44,9 +44,16 @@ the CPU, and no solver path calls it.
 All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
 register kernels share their device code (`csrc/riccati_reg.cuh`). The
 stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
-and their solve takes K right-hand sides per lane. The kernels take n <=
-`MAX_N` and d <= `MAX_D`; wider systems take the library and scan routes
-of `ops/riccati`, chosen there from the shape.
+and their solve takes K right-hand sides per lane. The T=1 kernels take n
+<= `MAX_N[dtype]` (288 in float32, 192 in float64: past n = 128 a wide
+instance of the panel kernels, 8 warps a block), the stream kernels d <=
+`MAX_D[dtype]` (169 and 120: past d = 64 wide instances, the factor on 16
+warps without its stage-ahead copy where that does not fit, the sweeps
+with ceil(d/32) rows a thread and M read from device memory where two
+stages do not fit), the lanes kernels and the fused solves d <=
+`LANES_MAX_D` = 64; wider systems take the library and scan routes of
+`ops/riccati`, chosen there from the shape and dtype, and `solve_batched`
+past d = 64 takes the stream kernels, then the scan.
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -86,8 +93,20 @@ LAUNCHES = {
     # the schur backend's K-column solve (two triangular solves, any n)
     "solve_t1_multi_library": 0,
 }
-MAX_N = 128  # T=1 kernels
-MAX_D = 64  # block-tridiagonal kernels (lanes and stream)
+# The widest systems the kernels take, per dtype, set by shared memory
+# alone (a block's 227 KB on an H100):
+# - T=1 (csrc/riccati_t1.cu, wide_panels): the lower 32 x 32 blocks of P
+#   panels at a row stride of 32 words + 16 B, and the solve's u, P(P+1)/2
+#   32 (32 + 16/w) w + 32 P w bytes for a word of w bytes: float32 P = 9,
+#   n <= 288 (208,512 B; P = 10 takes 254,720 B), float64 P = 6, n <= 192
+#   (184,320 B; P = 7 takes 245,504 B).
+# - block-tridiagonal, the stream kernels (csrc/riccati_stream.cu,
+#   wide_max_d): the factor's stacked panel [S_t ; O_t], 2d (d+1) words:
+#   float32 d <= 169 (229,840 B), float64 d <= 120 (232,320 B). The lanes
+#   kernels and the fused solve take d <= LANES_MAX_D.
+MAX_N = {torch.float32: 288, torch.float64: 192}
+MAX_D = {torch.float32: 169, torch.float64: 120}
+LANES_MAX_D = 64  # factor_lanes, solve_lanes, the fused solves (csrc/riccati_lanes.cu, riccati_fused.cu: kMaxD)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -194,28 +213,35 @@ def _check(name, t, dtype, shape):
     _check_device(name, t)
 
 
-def _dtype_ok(t, kernels):
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"the {kernels} kernels take float32 or float64, got {t.dtype}")
+def _dtype_ok(dtype, kernels):
+    if dtype not in _SUFFIX:
+        raise TypeError(f"the {kernels} kernels take float32 or float64, got {dtype}")
+
+
+def _n_ok(n, dtype):
+    _dtype_ok(dtype, "T=1")
+    if not 1 <= n <= MAX_N[dtype]:
+        raise ValueError(f"the T=1 kernels take 1 <= n <= {MAX_N[dtype]} in {dtype}, got n={n}")
 
 
 def _dims(S):
     if S.dim() != 3 or S.shape[1] != S.shape[2]:
         raise ValueError(f"expected a (B, n, n) batch, got {tuple(S.shape)}")
     B, n = S.shape[0], S.shape[1]
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the T=1 kernels take 1 <= n <= {MAX_N}, got n={n}")
-    _dtype_ok(S, "T=1")
+    _n_ok(n, S.dtype)
     return B, n
 
 
-def _lanes_dims(L):
+def _lanes_dims(L, kernels="lanes"):
+    """(B, T, d) of a (B, T, d, d) batch that the `kernels` ("lanes": the
+    lanes kernels and the fused solves, "stream"; None: any width) take."""
     if L.dim() != 4 or L.shape[2] != L.shape[3] or L.shape[1] < 1:
         raise ValueError(f"expected a (B, T, d, d) batch with T >= 1, got {tuple(L.shape)}")
     B, T, d = L.shape[0], L.shape[1], L.shape[2]
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"the block-tridiagonal kernels take 1 <= d <= {MAX_D}, got d={d}")
-    _dtype_ok(L, "block-tridiagonal")
+    _dtype_ok(L.dtype, "block-tridiagonal")
+    widest = {"lanes": LANES_MAX_D, "stream": MAX_D[L.dtype], None: d}[kernels]
+    if not 1 <= d <= widest:
+        raise ValueError(f"the {kernels} kernels take 1 <= d <= {widest} in {L.dtype}, got d={d}")
     return B, T, d
 
 
@@ -269,10 +295,7 @@ def _t1_layout(name, dtype, n):
 
     from calipso_tpu_torch.ops import _build
 
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the T=1 kernels take 1 <= n <= {MAX_N}, got n={n}")
-    if dtype not in _SUFFIX:
-        raise TypeError(f"the T=1 kernels take float32 or float64, got {dtype}")
+    _n_ok(n, dtype)
     fn = getattr(_build.load("riccati_t1"), f"calipso_{name}_layout_{_SUFFIX[dtype]}")
     warps, blocks = ctypes.c_int(), ctypes.c_int()
     err = fn(n, ctypes.byref(warps), ctypes.byref(blocks))
@@ -297,7 +320,7 @@ def _tridiag_factor(name, stem, plain, D, O):
     """Launch a block-tridiagonal factor kernel (CPU tensors: `plain`)."""
     if D.device.type == "cpu" and O.device.type == "cpu":
         return plain(D, O)
-    B, T, d = _lanes_dims(D)
+    B, T, d = _lanes_dims(D, "stream" if stem == "riccati_stream" else "lanes")
     _check("D", D, D.dtype, (B, T, d, d))
     _check("O", O, D.dtype, (B, T - 1, d, d))
     if D.device != O.device:
@@ -346,7 +369,7 @@ def _sweep(name, plain, L, M, b):
     tensors: `plain`)."""
     if L.device.type == "cpu" and M.device.type == "cpu" and b.device.type == "cpu":
         return plain(L, M, b)
-    B, T, d = _lanes_dims(L)
+    B, T, d = _lanes_dims(L, "stream")
     if b.dim() != 4:
         raise ValueError(f"the right-hand sides must be (B, T, d, K), got {tuple(b.shape)}")
     K = b.shape[-1]
@@ -396,8 +419,8 @@ def solve_batched_plain(D, O, b):
     return solve_lanes_plain(L, M, b)
 
 
-def _batched_args(D, O, b):
-    B, T, d = _lanes_dims(D)
+def _batched_args(D, O, b, kernels="lanes"):
+    B, T, d = _lanes_dims(D, kernels)
     args = (("D", D, (B, T, d, d)), ("O", O, (B, T - 1, d, d)), ("b", b, (B, T, d)))
     for name, t, shape in args:
         _check_type(name, t, D.dtype, shape)
@@ -480,9 +503,11 @@ def batch_first(x):
     tensor: the plain version)."""
     if x.device.type == "cpu":
         return batch_first_plain(x)
-    if x.dim() != 3 or not 1 <= x.shape[1] <= MAX_D or x.shape[0] < 1:
-        raise ValueError(f"expected a batch-last (T, d, B) x with T >= 1 and 1 <= d <= {MAX_D}, got {tuple(x.shape)}")
-    _dtype_ok(x, "block-tridiagonal")
+    if x.dim() != 3 or not 1 <= x.shape[1] <= LANES_MAX_D or x.shape[0] < 1:
+        raise ValueError(
+            f"expected a batch-last (T, d, B) x with T >= 1 and 1 <= d <= {LANES_MAX_D}, got {tuple(x.shape)}"
+        )
+    _dtype_ok(x.dtype, "block-tridiagonal")
     _check_device("x", x)
     T, d, B = x.shape
     return _batch_first(x, B, T, d)
@@ -512,6 +537,18 @@ def solve_batched_lanes(D, O, b):
 
 def solve_batched(D, O, b):
     """Batched block-tridiagonal solve, D (B, T, d, d), O (B, T-1, d, d),
-    b (B, T, d) -> x (B, T, d): the plain version for CPU tensors, the
-    fused kernel for CUDA tensors (the reference's choice off the CPU)."""
-    return solve_batched_fused(D, O, b)
+    b (B, T, d) -> x (B, T, d): the plain version for CPU tensors; for
+    CUDA tensors the fused kernel up to d = LANES_MAX_D (the reference's
+    choice off the CPU, whose fused Pallas kernel takes any width), past
+    it `factor_stream` then `solve_stream` up to MAX_D, and past that
+    ops/riccati's scan, counted as `factor_scan` and `solve_scan`."""
+    if _on_cpu(D, O, b) or D.shape[-1] <= LANES_MAX_D or D.dtype not in MAX_D:
+        return solve_batched_fused(D, O, b)
+    _, _, d = _batched_args(D, O, b, None)
+    if d <= MAX_D[D.dtype]:
+        L, M = factor_stream(D, O)
+        return solve_stream(L, M, b)
+    from calipso_tpu_torch.ops import riccati
+
+    L, M = riccati.factor_scan(D, O)
+    return riccati.solve_scan(L, M, b)

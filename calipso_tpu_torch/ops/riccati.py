@@ -11,34 +11,37 @@ the counterpart of `calipso_tpu/ops/riccati.py`.
   `solve_multi` b (B, T, d, K). Ragged stage widths are padded to d with
   identity diagonal blocks, which decouple exactly.
 
-The route is chosen from the shape alone, before anything launches:
+The route is chosen from the shape and dtype, before anything launches:
 
-- `t1_route(n)`: "kernel" (`factor_t1`/`solve_t1`) up to
-  `cuda_riccati.MAX_N` = 128, "library" past it: `chol_library` and
-  `chol_solve_library`, the port of the reference's XLA branch
-  (`jnp.linalg.cholesky` and two triangular solves, which it takes
-  wherever `_use_pallas` gives no resident tile).
-- `route(d)`: "lanes" (one warp per lane, `factor_lanes`/`solve_lanes`)
-  up to 32, "stream" (one thread block per lane,
-  `factor_stream`/`solve_stream`) from 33 to `cuda_riccati.MAX_D` = 64,
-  and "scan" past it: `factor_scan`/`solve_scan`, the port of the
-  reference's scan, a loop over the T stages of batched library calls.
-  On an H100 the lanes route's factor keeps a stage in registers up to
-  d=32, and there the lanes route is the faster at both batches measured
-  (B=128, T=8 and B=1024, T=31, d=9 to 32); past 32 its factor stages in
-  shared memory and the stream route wins (d=33 at B=128). The reference
-  splits the same two regimes (resident d=9, streamed d=54) by TPU VMEM.
-  `solve_multi` takes the stream solve, the one that serves K columns
-  from one factor, up to d=64; both kernel routes write the same (L, M).
+- `t1_route(n, dtype)`: "kernel" (`factor_t1`/`solve_t1`) up to
+  `cuda_riccati.MAX_N[dtype]` (288 in float32, 192 in float64), "library"
+  past it: `chol_library` and `chol_solve_library`, the port of the
+  reference's XLA branch (`jnp.linalg.cholesky` and two triangular
+  solves, which it takes wherever `_use_pallas` gives no resident tile).
+- `route(d, dtype, T)`: "lanes" (one warp per lane, `factor_lanes`/
+  `solve_lanes`) up to 32, "stream" (one thread block per lane,
+  `factor_stream`/`solve_stream`) from 33 to `cuda_riccati.MAX_D[dtype]`
+  (169 in float32, 120 in float64), and "scan" past it: `factor_scan`/
+  `solve_scan`, the port of the reference's scan, a loop over the T
+  stages of batched library calls; but a one-stage horizon (T = 1) past
+  MAX_D is one dense system, "t1": the T=1 kernels up to MAX_N (M is
+  empty; `solve_multi` launches `solve_t1` a column), as the reference
+  takes its resident kernel there. On an H100 the lanes route's factor
+  keeps a stage in registers up to d=32, and there the lanes route is the
+  faster at both batches measured (B=128, T=8 and B=1024, T=31, d=9 to
+  32); past 32 its factor stages in shared memory and the stream route
+  wins (d=33 at B=128). The reference splits the same two regimes
+  (resident d=9, streamed d=54) by TPU VMEM. `solve_multi` takes the
+  stream solve, the one that serves K columns from one factor, up to
+  MAX_D; both kernel routes write the same (L, M).
 
-The library and scan routes are the reference's own route at those
-widths only where its `_use_pallas` gives none: in float64, for batches
-under 32 lanes, or past its VMEM fit. For float32 batches of 32 lanes or
-more it still has Pallas kernels at some widths past the port's: the
-T=1 resident kernel for n up to ~221 (B=32; n=129 for B up to ~94, B
-under 128), the stream kernels for d up to ~82 (B a multiple of 128) or
-~165 (B=32). There the port runs library calls where the reference runs
-a hand-written kernel; no solver path of the port's checks reaches them.
+A dtype without kernels takes the library and scan routes. The limits
+cover every shape where the reference's `_use_pallas` gives a float32
+route (its resident T=1 tile reaches n = 221 at B = 32, its stream
+kernels d = 165 at B = 32; tests/test_torch_wide_routes.py checks the
+cover): past them the library and scan routes are the reference's own
+route at those widths, as they are in float64 and for batches under 32
+lanes, where `_use_pallas` gives none.
 
 On the kernel routes a CUDA tensor goes to the hand-written kernel and a
 CPU tensor to its plain PyTorch version (`ops/cuda_riccati.py`); the
@@ -61,18 +64,19 @@ from calipso_tpu_torch.ops import cuda_riccati
 STREAM_MIN_D = 33
 
 
-def t1_route(n):
-    """"kernel" or "library": the T=1 route for width n (the library
-    route past MAX_N, whatever the batch and dtype: see module doc)."""
-    return "kernel" if n <= cuda_riccati.MAX_N else "library"
+def t1_route(n, dtype):
+    """"kernel" or "library": the T=1 route for width n in `dtype` (the
+    library route past MAX_N[dtype], whatever the batch: see module doc)."""
+    return "kernel" if n <= cuda_riccati.MAX_N.get(dtype, 0) else "library"
 
 
-def route(d):
-    """"lanes", "stream" or "scan": the block-tridiagonal route for stage
-    width d (the scan past MAX_D, whatever the batch and dtype: see
-    module doc)."""
-    if d > cuda_riccati.MAX_D:
-        return "scan"
+def route(d, dtype, T):
+    """"lanes", "stream", "t1" or "scan": the block-tridiagonal route for
+    stage width d in `dtype` over T stages (past MAX_D[dtype] the scan,
+    whatever the batch, but a one-stage horizon, which is one dense
+    system, on the T=1 kernels up to MAX_N[dtype]: see module doc)."""
+    if d > cuda_riccati.MAX_D.get(dtype, 0):
+        return "t1" if T == 1 and t1_route(d, dtype) == "kernel" else "scan"
     return "stream" if d >= STREAM_MIN_D else "lanes"
 
 
@@ -138,14 +142,14 @@ def solve_scan(L, M, b):
 
 def chol(S):
     """Batched lower Cholesky factor of S (B, n, n)."""
-    if t1_route(S.shape[-1]) == "library":
+    if t1_route(S.shape[-1], S.dtype) == "library":
         return chol_library(S)
     return cuda_riccati.factor_t1(S)
 
 
 def chol_solve(L, b):
     """Solve L L^T x = b for each lane: L (B, n, n), b (B, n) -> (B, n)."""
-    if t1_route(L.shape[-1]) == "library":
+    if t1_route(L.shape[-1], L.dtype) == "library":
         return chol_solve_library(L, b)
     return cuda_riccati.solve_t1(L, b)
 
@@ -153,9 +157,11 @@ def chol_solve(L, b):
 def factor(D, O):
     """Batched block-tridiagonal Cholesky: (D, O) -> (L, M)."""
     D, O = D.contiguous(), O.contiguous()
-    r = route(D.shape[-1])
+    r = route(D.shape[-1], D.dtype, D.shape[1])
     if r == "scan":
         return factor_scan(D, O)
+    if r == "t1":
+        return cuda_riccati.factor_t1(D[:, 0].contiguous())[:, None], torch.empty_like(O)
     if r == "stream":
         return cuda_riccati.factor_stream(D, O)
     return cuda_riccati.factor_lanes(D, O)
@@ -164,9 +170,11 @@ def factor(D, O):
 def solve(L, M, b):
     """Solve S x = b for each lane with the factor (L, M) of `factor`."""
     L, M, b = L.contiguous(), M.contiguous(), b.contiguous()
-    r = route(L.shape[-1])
+    r = route(L.shape[-1], L.dtype, L.shape[1])
     if r == "scan":
         return solve_scan(L, M, b)
+    if r == "t1":
+        return cuda_riccati.solve_t1(L[:, 0].contiguous(), b[:, 0].contiguous())[:, None]
     if r == "stream":
         return cuda_riccati.solve_stream(L, M, b)
     return cuda_riccati.solve_lanes(L, M, b)
@@ -175,6 +183,11 @@ def solve(L, M, b):
 def solve_multi(L, M, B):
     """Solve S X = B for K right-hand sides per lane, B (B, T, d, K)."""
     L, M, B = L.contiguous(), M.contiguous(), B.contiguous()
-    if route(L.shape[-1]) == "scan":
+    r = route(L.shape[-1], L.dtype, L.shape[1])
+    if r == "scan":
         return solve_scan(L, M, B)
+    if r == "t1":  # a launch a column
+        L0 = L[:, 0].contiguous()
+        cols = [cuda_riccati.solve_t1(L0, B[:, 0, :, k].contiguous()) for k in range(B.shape[-1])]
+        return torch.stack(cols, dim=-1)[:, None] if cols else torch.empty_like(B)
     return cuda_riccati.solve_stream(L, M, B)

@@ -66,10 +66,10 @@ def _environment(device):
     return env
 
 
-def routes(fns, options, num_parameters):
+def routes(fns, options, num_parameters, dtype):
     """{"linear_solver": ..., plus each route it takes}: what
-    `solver/kkt.py` and `ops/riccati.py` dispatch to for this problem,
-    and the kernel sources (`csrc/<stem>.cu`) behind them."""
+    `solver/kkt.py` and `ops/riccati.py` dispatch to for this problem in
+    `dtype`, and the kernel sources (`csrc/<stem>.cu`) behind them."""
     from calipso_tpu_torch.ops import riccati as rc
     from calipso_tpu_torch.solver import kkt
 
@@ -77,17 +77,19 @@ def routes(fns, options, num_parameters):
     out = {"linear_solver": method}
     stems = set()
     if method in ("schur", "lu"):  # lu's inertia ladder runs on the schur factor
-        out["t1"] = rc.t1_route(fns.dims.variables)
+        out["t1"] = rc.t1_route(fns.dims.variables, dtype)
         if out["t1"] == "kernel":
             stems.add("riccati_t1")
     elif method in ("riccati", "cr"):
         structure = fns.stage_structure
         if method == "riccati":
-            out["block"] = rc.route(structure.dmax)
-            stems.update({"lanes": ("riccati_lanes",), "stream": ("riccati_stream",)}.get(out["block"], ()))
+            out["block"] = rc.route(structure.dmax, dtype, structure.horizon)
+            stems.update(
+                {"lanes": ("riccati_lanes",), "stream": ("riccati_stream",), "t1": ("riccati_t1",)}.get(out["block"], ())
+            )
         if method == "riccati" and (kkt._has_border(structure) or (options.differentiate and num_parameters > 0)):
             # K right-hand sides at once: ops/riccati.solve_multi
-            out["multi"] = "scan" if out["block"] == "scan" else "stream"
+            out["multi"] = out["block"] if out["block"] in ("scan", "t1") else "stream"
             if out["multi"] == "stream":
                 stems.add("riccati_stream")
     out["kernel_sources"] = sorted(stems)
@@ -104,7 +106,7 @@ def manifest(batched, batch_size, num_parameters, dtype):
     fns = batched.fns
     p = fns.dims.parameters if num_parameters is None else int(num_parameters)
     options = resolve_options(batched.options, fns, device)
-    r = routes(fns, options, p)
+    r = routes(fns, options, p, dtype)
     structure = getattr(fns, "stage_structure", None)
     libraries = {}
     if device.type == "cuda":

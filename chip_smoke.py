@@ -121,13 +121,24 @@ Phases (each fails loudly; none catches its own failure):
      path at n = 33, 64, 65, 96, 110 (the bunny hop's) and 128, each at
      B=1024 and at the single solves' B=1, with a lane (at B=1 a system
      alone) whose only bad pivot is its last one, in the last panel;
-  12. past the kernels' widths, float64 on the card (run after phase 10):
-     the pendulum swing-up at horizon 44 (n = 131) on schur with the
-     serial line search, through ops/riccati's T=1 library route and no
-     T=1 kernel, held to the same solve on the CPU (solved, iterations
-     within +-15%, states within 1e-3); and ops/riccati.factor, solve and
-     solve_multi at (B, T, d) = (4, 5, 65) on the scan route, one lane
-     not positive definite, held to the same calls on the CPU;
+  12. past the narrow kernels' widths (n = 128, d = 64; run after phase
+     10), each step with the launch counts set to 0 just before it and
+     read just after: (a) the pendulum swing-up at horizon 44 (n = 131)
+     on schur in float64 with the serial line search, on the wide T=1
+     kernels and no library call, held to the same solve on the CPU
+     (solved, iterations within +-15%, states within 1e-3); (b) float32
+     schur batches of the flagship's pendulum at the reference's widest
+     resident T=1 tiles, horizon 74 (n = 221) at B = 32 and horizon 52 (n
+     = 155) at B = 64: the T=1 kernels and no library call, at least B-2
+     solved, a CPU float64 re-solve of 4 lanes with the same solved flags
+     and states within 1e-3; (c) ops/riccati.factor, solve, solve_multi
+     (K=2) and the public solve_batched on the wide stream kernels, float32
+     at (128, 8, 82), (64, 8, 116) and (32, 8, 165) and float32 and
+     float64 at (4, 5, 65), one lane not positive definite, held to their
+     plain versions; (d) the same calls at (4, 5) one past each dtype's
+     MAX_D (d = 170, 121) on the scan route, held to the CPU. Phases 2e
+     and 5 hold and time the kernels at these shapes (the stream kernels
+     at K=1; the T=1 pair at (1, 131), (32, 221) and (64, 155));
   13. implicit differentiation (run after phase 12), each path with the
      launch counts set to 0 just before it and read just after: (a) the
      flagship batch (B=8192, float32) with differentiate=True and its
@@ -236,10 +247,11 @@ Partial runs print no such result:
         # (copied into another checkout, times that one's kernels)
     python3 chip_smoke.py --t1-times             # phase 1, then the
         # T=1 kernels checked and timed at n = 33, 64, 65, 96, 110, 128 and
-        # B = 1024, 1, float32 and float64, host-launched and replayed,
-        # beside plain, cholesky_ex / cholesky_solve and the bound, with
-        # their layout (copied into a `git archive` of another commit, times
-        # that one's kernels: run parent, change, change, parent)
+        # B = 1024, 1, float32 and float64, and at phase 12's (1, 131),
+        # (32, 221) and (64, 155), host-launched and replayed, beside
+        # plain, cholesky_ex / cholesky_solve and the bound, with their
+        # layout (copied into a `git archive` of another commit, times that
+        # one's kernels: run parent, change, change, parent)
     python3 chip_smoke.py --batched-times        # phase 1, then the two
         # fused solves (and the lanes wrapper's kernel and layout moves) at
         # (1024, 31, 9) and (128, 8, 54), float32 and float64, and at the
@@ -425,12 +437,31 @@ WIDE_T1_SHAPES = tuple((B, n) for n in (33, 64, 65, 96, 110, 128) for B in (B_CO
 # the T=1 pair at the cart-pole tuning's width (phase 14: B=256, n=19)
 B_TUNE = 256
 APP_T1_SHAPES = ((B_TUNE, 19),)
-# past the kernels' widths (ops/riccati.t1_route, route): the pendulum
-# swing-up at horizon 44 (n = 131) on schur, and the block-tridiagonal
-# functions at d = 65, both in float64 on the card (phase 12)
+# phase 12: past the narrow kernels' widths (n = 128, d = 64), where the
+# reference still runs a Pallas kernel in float32 (its _use_pallas; the
+# cover is tests/test_torch_wide_routes.py): (a) the pendulum swing-up at
+# horizon 44 (n = 131) on schur in float64, one solve, on the wide T=1
+# kernels; (b) float32 schur batches at the reference's widest resident
+# T=1 tiles, horizon 74 (n = 221) at B = 32 and horizon 52 (n = 155) at B
+# = 64, at least B - WIDE_SOLVED_MARGIN solved and a CPU float64 re-solve
+# of CPU_LANES_RESOLVE lanes within WIDE_CPU_ATOL; (c) ops/riccati's
+# factor, solve, solve_multi (K = 2) and the public solve_batched on the
+# stream kernels past d = 64, at the reference's widest float32 stream
+# shapes (B a multiple of 128, 64 and 32) and one float64 shape; (d) the
+# scan one past each dtype's MAX_D, at (SCAN_B, SCAN_T)
 HORIZON_WIDE = 44
-SCAN_SHAPE = (4, 5, 65)
-WIDE_ROUTE_KERNELS = {"pendulum n=131": ("factor_t1_library", "solve_t1_library")}
+WIDE_SCHUR_BATCHES = ((74, 32), (52, 64))  # (horizon, B)
+WIDE_SOLVED_MARGIN, WIDE_CPU_ATOL = 2, 1e-3
+WIDE_STREAM_SHAPES = (
+    ((128, 8, 82), ("float32",)), ((64, 8, 116), ("float32",)), ((32, 8, 165), ("float32",)),
+    ((4, 5, 65), ("float32", "float64")),
+)
+SCAN_B, SCAN_T = 4, 5
+WIDE_ROUTE_KERNELS = {
+    "pendulum n=131": ("factor_t1", "solve_t1"),
+    "pendulum n=221 batch": ("factor_t1", "solve_t1"),
+    "pendulum n=155 batch": ("factor_t1", "solve_t1"),
+}
 # phases 13, 14 and 11d's additions: the kernels (and library routes) each
 # path must launch, and no other. Implicit differentiation's K-column
 # solve takes the stream sweeps on riccati and two triangular solves on
@@ -945,18 +976,20 @@ def rel_check(tag, kname, name, shape, got, ref, ok, errs, key):
     check(rel_err <= RTOL[name], f"{kname} {name} {shape}: relative error {rel_err:.3e}")
 
 
-def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None):
+def check_stream(tag, cr, dev, B, T, d, K, errs, times=None, times64=None, dtypes=("float32", "float64")):
     """factor_stream, solve_fwd_stream and solve_bwd_stream against their
     plain versions at (B, T, d) with K right-hand sides, float32 and
-    float64; each sweep is given the same inputs on both paths (the plain
-    factor, then the plain forward sweep's u). Into `times` and `times64`,
-    when given, the float32 and the float64 kernel, plain and bound
-    times."""
+    float64 (those of them in `dtypes`); each sweep is given the same
+    inputs on both paths (the plain factor, then the plain forward sweep's
+    u). Into `times` and `times64`, when given, the float32 and the float64
+    kernel, plain and bound times."""
     import torch
 
     D64, O64, b64, bad_stage, bad_lanes = tridiag_inputs(B, T, d, K)
     shape = f"B={B} T={T} d={d} K={K}"
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        if name not in dtypes:
+            continue
         D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64))
         L, M = cr.factor_stream(D, O)
         Lp, Mp = cr.factor_stream_plain(D, O)
@@ -1080,7 +1113,8 @@ def graph_cases(routes=GRAPH_ROUTES):
 
 
 def graph_times(tag, cr, dev, routes=GRAPH_ROUTES, cases=None):
-    """The kernels of `cases` (graph_cases(routes) unless given), timed as
+    """The kernels of `cases` (graph_cases(routes) unless given; a case
+    (route, shape, arrays, dtypes) only in `dtypes`), timed as
     one CUDA graph of 50 calls (graph_ms) beside the same 50 calls from
     the host (cuda_ms), float32 and float64: where the two differ, the
     host sets cuda_ms. Returns {(kernel, dtype name, shape): (graph ms,
@@ -1090,7 +1124,9 @@ def graph_times(tag, cr, dev, routes=GRAPH_ROUTES, cases=None):
     cases = graph_cases(routes) if cases is None else cases
     out = {}
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
-        for route, shape, arrays in cases:
+        for route, shape, arrays, *only in cases:
+            if only and name not in only[0]:
+                continue
             if route == "T=1":
                 S, b = (torch.tensor(a, dtype=dtype, device=dev) for a in arrays)
                 L = cr.factor_t1(S)
@@ -1289,7 +1325,7 @@ def batched_timed_at(tag, cr, dev, B, T, d, times=None, times64=None):
             ("solve_batched_lanes", lambda: cr.solve_batched_lanes(D, O, b)),
         ]
         if name == "float32":
-            if route(d) == "stream":
+            if route(d, torch.float32, T) == "stream":
                 split_name, split = "factor_stream + solve_stream", lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
             else:
                 split_name, split = "factor_lanes + solve_lanes", lambda: cr.solve_lanes(*cr.factor_lanes(D, O), b)
@@ -2731,11 +2767,19 @@ def sass_loops(tag, stem="riccati_fused", kernel="solve_batched_reg_kernel"):
 # batch-last; each in float32 and float64)
 REGISTER_KERNELS = {
     "factor_lanes_reg_kernel": 6, "solve_t1_reg_kernel": 2, "factor_t1_reg_kernel": 2,
-    "solve_batched_reg_kernel": 24, "factor_t1_panel_kernel": 2, "solve_t1_panel_kernel": 2,
+    "solve_batched_reg_kernel": 24, "factor_t1_panel_kernel": 4, "solve_t1_panel_kernel": 4,
+    # the wide sweeps: ceil(d / 32) rows a thread, 3..6 in float32, 3..4 in
+    # float64; the wide stream factor, its 8 x 8 panel in registers
+    "solve_fwd_stream_wide_kernel": 6, "solve_bwd_stream_wide_kernel": 6, "factor_stream_wide_kernel": 2,
 }
 # an older checkout's register kernel without a later template parameter,
-# and its instantiations there (the batch-first fused solve alone)
-OLDER_REGISTER_KERNELS = {"solve_batched_reg_kernel": ("kBatchLast", 12)}
+# and its instantiations there (the batch-first fused solve alone; the
+# T=1 panel kernels up to n = 128 alone)
+OLDER_REGISTER_KERNELS = {
+    "solve_batched_reg_kernel": ("kBatchLast", 12),
+    "factor_t1_panel_kernel": ("kMaxP", 2),
+    "solve_t1_panel_kernel": ("kWideWarps", 2),
+}
 
 
 def register_kernels_fit(tag, log, sources):
@@ -2797,15 +2841,18 @@ def t1_inputs(n, B=B_FLAG):
     return S64, rng.normal(size=(B, n))
 
 
-def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
+def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32, dtypes=("float32", "float64")):
     """factor_t1 and solve_t1 against their plain versions at (B, n), the
-    flagship's shape unless given, in float32 and float64, with the lanes
-    non_pd_lanes(B) not positive definite (NaN on both paths); into
-    `times` and `times64` the kernel, plain, library and bound times."""
+    flagship's shape unless given, in float32 and float64 (those of them
+    in `dtypes`), with the lanes non_pd_lanes(B) not positive definite
+    (NaN on both paths); into `times` and `times64` the kernel, plain,
+    library and bound times."""
     import torch
 
     S64, b64 = t1_inputs(n, B)
     for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        if name not in dtypes:
+            continue
         S = torch.tensor(S64, dtype=dtype, device=dev)
         b = torch.tensor(b64, dtype=dtype, device=dev)
         L, Lp = cr.factor_t1(S), cr.factor_t1_plain(S)
@@ -2857,11 +2904,18 @@ def check_t1(tag, cr, dev, errs, times, times64, B=B_FLAG, n=32):
 
 
 # the shapes phases 2e and 5 hold and time the kernels at, beside the
-# main paths': (lanes, stream, T=1)
+# main paths': (lanes, stream, T=1), and phase 12's past the narrow
+# kernels' widths, each with the dtypes it is timed in
 OTHER_SHAPES = (
     CONTACT_LANES_SHAPES + EXAMPLE_LANES_SHAPES + SPIKE_LANES_SHAPES,
     CONTACT_STREAM_SHAPES + EXAMPLE_STREAM_SHAPES + SPIKE_STREAM_SHAPES,
     WIDE_T1_SHAPES + APP_T1_SHAPES + EXAMPLE_T1_SHAPES,
+)
+BOTH = ("float32", "float64")
+WIDE_KERNEL_SHAPES = (
+    tuple(((B, T, d, 1), only) for (B, T, d), only in WIDE_STREAM_SHAPES),
+    (((1, 2 * HORIZON_WIDE + HORIZON_WIDE - 1), BOTH),)
+    + tuple(((B, 3 * H - 1), ("float32",)) for H, B in WIDE_SCHUR_BATCHES),
 )
 
 
@@ -2886,12 +2940,21 @@ def contact_kernel_checks(tag, cr, dev, errs):
         times, times64 = {}, {}
         check_t1(tag, cr, dev, errs, times, times64, B, n)
         out[f"B={B} n={n}"] = times, times64
+    wide_stream, wide_t1 = WIDE_KERNEL_SHAPES
+    for (B, T, d, K), only in wide_stream:
+        times, times64 = {}, {}
+        check_stream(tag, cr, dev, B, T, d, K, errs, times, times64, dtypes=only)
+        out[f"B={B} T={T} d={d} K={K}"] = times, times64
+    for (B, n), only in wide_t1:
+        times, times64 = {}, {}
+        check_t1(tag, cr, dev, errs, times, times64, B, n, dtypes=only)
+        out[f"B={B} n={n}"] = times, times64
     return out
 
 
 def print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by):
     print(
-        f"{tag} {kname} {name} {shape} (contact, phase 11d, 13, 14, 15 or wide T=1 path): kernel {ms:.4f} ms host-launched, "
+        f"{tag} {kname} {name} {shape} (contact, phase 11d, 12, 13, 14, 15 or wide T=1 path): kernel {ms:.4f} ms host-launched, "
         f"{gms:.4f} ms replayed, plain {plain_ms:.4f} ms, library "
         + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
         + f", bound {bms * 1e3:.2f} us ({by}), {100.0 * bms / gms:.1f}% of the bound replayed"
@@ -2907,12 +2970,16 @@ def contact_kernel_times(tag, cr, dev, ctimes):
     its bound, float32 and float64. Returns {(kernel, dtype name, shape):
     (ms, graph ms, plain ms, library ms or None, (bound ms, bound by))}."""
     lanes, stream, t1 = OTHER_SHAPES
+    wide_stream, wide_t1 = WIDE_KERNEL_SHAPES
     cases = [("lanes", f"B={B} T={T} d={d}", tridiag_inputs(B, T, d, 1)) for B, T, d in lanes]
     cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K)) for B, T, d, K in stream]
     cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in t1]
+    cases += [("stream", f"B={B} T={T} d={d} K={K}", tridiag_inputs(B, T, d, K), only) for (B, T, d, K), only in wide_stream]
+    cases += [("T=1", f"B={B} n={n}", t1_inputs(n, B), only) for (B, n), only in wide_t1]
     graphs = graph_times(tag, cr, dev, cases=cases)
     library = {f"B={B} T={T} d={d}": library_times(cr, dev, B, T, d) for B, T, d in lanes}
-    library.update({f"B={B} T={T} d={d} K={K}": library_times(cr, dev, B, T, d, K) for B, T, d, K in stream})
+    stream_all = list(stream) + [shape for shape, _ in wide_stream]
+    library.update({f"B={B} T={T} d={d} K={K}": library_times(cr, dev, B, T, d, K) for B, T, d, K in stream_all})
     out = {}
     for shape, pair in ctimes.items():
         for name, into in zip(("float32", "float64"), pair):
@@ -2927,11 +2994,13 @@ def contact_kernel_times(tag, cr, dev, ctimes):
 
 def t1_times(tag, cr, dev):
     """--t1-times: the T=1 pair against its plain version and timed at
-    WIDE_T1_SHAPES (phase 2e's and phase 5's T=1 part alone)."""
-    graphs = graph_times(tag, cr, dev, cases=[("T=1", f"B={B} n={n}", t1_inputs(n, B)) for B, n in WIDE_T1_SHAPES])
-    for B, n in WIDE_T1_SHAPES:
+    WIDE_T1_SHAPES and at phase 12's wide shapes (phase 2e's and phase 5's
+    T=1 part alone)."""
+    shapes = [((B, n), BOTH) for B, n in WIDE_T1_SHAPES] + list(WIDE_KERNEL_SHAPES[1])
+    graphs = graph_times(tag, cr, dev, cases=[("T=1", f"B={B} n={n}", t1_inputs(n, B), only) for (B, n), only in shapes])
+    for (B, n), only in shapes:
         times, times64 = {}, {}
-        check_t1(tag, cr, dev, {}, times, times64, B, n)
+        check_t1(tag, cr, dev, {}, times, times64, B, n, dtypes=only)
         for name, into in (("float32", times), ("float64", times64)):
             for kname, (ms, plain_ms, lib_ms, (bms, by)) in into.items():
                 gms = graphs[(kname, name, f"B={B} n={n}")][0]
@@ -2939,15 +3008,20 @@ def t1_times(tag, cr, dev):
 
 
 def wide_routes_phase(tag, cr, rc, Options, dev):
-    """Phase 12: past the kernels' widths, float64 on the card. The
-    pendulum swing-up at horizon 44 (n = 131 > cuda_riccati.MAX_N) on
-    schur, the serial line search, from its state guess: ops/riccati's T=1
-    library route and no T=1 kernel, held to the same solve on the CPU
-    (the same solved flag, iterations within GOLDEN_BAND, states within
-    1e-3). Then ops/riccati.factor, solve and solve_multi (K=2) at
-    SCAN_SHAPE (d = 65 > MAX_D) on the scan route, lane 1 not positive
-    definite from stage 2 on, held to the same calls on the CPU. Returns
-    the pendulum's launches."""
+    """Phase 12: past the narrow kernels' widths (n = 128, d = 64). (a) The
+    pendulum swing-up at horizon 44 (n = 131) on schur in float64, the
+    serial line search, from its state guess: the wide T=1 kernels and no
+    library call, held to the same solve on the CPU (the same solved flag,
+    iterations within GOLDEN_BAND, states within 1e-3). (b) float32 schur
+    batches at WIDE_SCHUR_BATCHES (the flagship's options and parameter):
+    the T=1 kernels and no library call, at least B - WIDE_SOLVED_MARGIN
+    solved, a CPU float64 re-solve of CPU_LANES_RESOLVE lanes with the same
+    solved flags and states within WIDE_CPU_ATOL. (c) ops/riccati's
+    factor, solve, solve_multi (K=2) and cuda_riccati.solve_batched at
+    WIDE_STREAM_SHAPES on the stream kernels, held to their plain
+    versions. (d) The same calls one past each dtype's MAX_D on the scan
+    route, held to the same calls on the CPU. Returns {path: launches} of
+    (a) and (b)."""
     import torch
     from calipso_tpu_torch import TrajOptSolver
     from calipso_tpu_torch.models import pendulum
@@ -2959,7 +3033,7 @@ def wide_routes_phase(tag, cr, rc, Options, dev):
             equality=prob["equality"], options=Options(linear_solver="schur", line_search_mode="serial"), device=device,
         )
         ts.initialize_states(prob["state_guess"])
-        check(rc.t1_route(ts.num_variables) == "library", f"n={ts.num_variables} takes the T=1 kernels")
+        check(rc.t1_route(ts.num_variables, torch.float64) == "kernel", f"n={ts.num_variables} takes the library route")
         t0 = time.time()
         r = ts.solve()
         if device == "cuda":
@@ -2969,13 +3043,13 @@ def wide_routes_phase(tag, cr, rc, Options, dev):
     ts_cpu, r_cpu, wall_cpu = solve("cpu")
     zero_launches(cr)
     ts, r, wall = solve("cuda")
-    launches = dict(cr.LAUNCHES)
+    out = {"pendulum_n131": dict(cr.LAUNCHES)}
     n = ts.num_variables
     print(
         f"{tag} pendulum n={n} (schur, float64): card solved {bool(r.solved)} in {int(r.iterations)} iterations, "
         f"{wall:.2f} s; CPU solved {bool(r_cpu.solved)} in {int(r_cpu.iterations)}, {wall_cpu:.2f} s"
     )
-    check_route(tag, "pendulum n=131", launches)
+    check_route(tag, "pendulum n=131", out["pendulum_n131"])
     check(r.variables.dtype == torch.float64 and bool(r.solved) == bool(r_cpu.solved) is True, "pendulum n=131: not solved")
     band = GOLDEN_BAND * int(r_cpu.iterations)
     check(abs(int(r.iterations) - int(r_cpu.iterations)) <= band, "pendulum n=131: iterations out of the band")
@@ -2984,34 +3058,107 @@ def wide_routes_phase(tag, cr, rc, Options, dev):
     print(f"{tag} pendulum n={n}: states {gap:.3e} from the CPU solve's (limit 1e-3)")
     check(gap <= 1e-3, "pendulum n=131: states off the CPU solve's")
 
-    B, T, d = SCAN_SHAPE
-    rng = np.random.default_rng(d)
+    for horizon, B in WIDE_SCHUR_BATCHES:
+        out.update(wide_schur_batch(tag, cr, rc, Options, dev, horizon, B))
+    for (B, T, d), only in WIDE_STREAM_SHAPES:
+        for name in only:
+            wide_block_calls(tag, cr, rc, dev, B, T, d, name, "stream")
+    for name in ("float32", "float64"):
+        wide_block_calls(tag, cr, rc, dev, SCAN_B, SCAN_T, cr.MAX_D[getattr(torch, name)] + 1, name, "scan")
+    return out
+
+
+def wide_schur_batch(tag, cr, rc, Options, dev, horizon, B):
+    """Phase 12b: the flagship's pendulum at `horizon` (n = 3 horizon - 1)
+    as a float32 schur batch of B lanes on the card (the flagship's
+    options, its initial states 0.2 N(0, 1) from default_rng(horizon) as
+    the parameter), counts zeroed just before: the T=1 kernels and no
+    library call, at least B - WIDE_SOLVED_MARGIN lanes solved, and a CPU
+    float64 re-solve of the first CPU_LANES_RESOLVE lanes with the same
+    solved flags and states within WIDE_CPU_ATOL. Returns {path: launches}."""
+    import torch
+    from calipso_tpu_torch import TrajOptSolver
+    from calipso_tpu_torch.models import pendulum
+
+    def batched(device):
+        prob = pendulum.swingup_problem(horizon, parametric_initial_state=True)
+        ts = TrajOptSolver(
+            prob["objective"], prob["dynamics"], prob["num_states"], prob["num_actions"],
+            equality=prob["equality"], parameters=prob["parameters"],
+            options=tol_options(Options, linear_solver="schur"), device=device,
+        )
+        ts.initialize_states(prob["state_guess"])
+        return ts, ts.batched()
+
+    x0_np = 0.2 * np.random.default_rng(horizon).normal(size=(B, 2))
+    ts, bts = batched(dev)
+    n = ts.num_variables
+    name = f"pendulum n={n} batch"
+    check(rc.t1_route(n, torch.float32) == "kernel", f"{name}: n={n} takes the library route in float32")
+    zero_launches(cr)
+    t0 = time.time()
+    res = bts.solve(parameters=torch.tensor(x0_np, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(cr.LAUNCHES)
+    st = res.state
+    print(f"{tag} {name} (schur, float32, B={B}): cold batch {wall:.3f} s")
+    check_route(tag, name, launches)
+    check(st.p.x.dtype == torch.float32 and bool(torch.isfinite(st.p.x[st.solved]).all()), f"{name}: non-finite solution")
+    solved, _ = report_solve(f"{tag} {name}", B, st)
+    check(int(solved.sum()) >= B - WIDE_SOLVED_MARGIN, f"{name}: only {int(solved.sum())} of {B} lanes solved")
+    _, cpu_bts = batched("cpu")
+    ref = cpu_bts.solve(parameters=torch.tensor(x0_np[:CPU_LANES_RESOLVE]))
+    cpu_resolve(tag, name, st, ref, CPU_LANES_RESOLVE, WIDE_CPU_ATOL)
+    return {f"pendulum_n{n}_batch": launches}
+
+
+def wide_block_calls(tag, cr, rc, dev, B, T, d, name, route):
+    """Phase 12c and 12d: ops/riccati.factor, solve, solve_multi (K=2) and
+    cuda_riccati.solve_batched at (B, T, d) in `name` on `route` ("stream":
+    the stream kernels, held to their plain versions on the card; "scan":
+    the scan, held to the same calls on the CPU), the launch counts zeroed
+    just before: the route's kernels (or library calls) and no other. Lane
+    1 is not positive definite from stage 2 on: NaN from there on, on both
+    paths, and over all of its x."""
+    import torch
+
+    dtype = getattr(torch, name)
+    check(rc.route(d, dtype, T) == route, f"d={d} {name} takes the {rc.route(d, dtype, T)} route, not the {route}")
+    rng = np.random.default_rng(B + T + d)
     A = rng.normal(size=(B, T, d, d))
     D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
     D64[1, 2] *= -1.0
     O64, b64, bk64 = 0.3 * rng.normal(size=(B, T - 1, d, d)), rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 2))
-    check(rc.route(d) == "scan", f"d={d} takes the {rc.route(d)} route")
-    out, scan = {}, None
-    for where in ("cuda", "cpu"):
-        D, O, b, bk = (torch.tensor(a, dtype=torch.float64, device=where) for a in (D64, O64, b64, bk64))
-        zero_launches(cr)
-        L, M = rc.factor(D, O)
-        out[where] = (L, M, rc.solve(L, M, b), rc.solve_multi(L, M, bk))
-        if where == "cuda":
-            torch.cuda.synchronize()
-            scan = {k: v for k, v in cr.LAUNCHES.items() if v}
-    print(f"{tag} scan route B={B} T={T} d={d} (float64): launches {scan}")
-    check(scan == {"factor_scan": 1, "solve_scan": 2}, f"scan route: launches {scan}")
-    for label, got, want in zip(("L", "M", "x", "X"), out["cuda"], out["cpu"]):
-        got = got.cpu()
-        check(torch.equal(torch.isnan(got), torch.isnan(want)), f"scan route {label}: NaN entries differ from the CPU's")
-        ok = ~torch.isnan(want)
-        rel = float((got[ok] - want[ok]).abs().max() / want[ok].abs().max())
-        print(f"{tag} scan route {label}: max_rel_err {rel:.3e} against the CPU (limit {RTOL['float64']:g})")
-        check(rel <= RTOL["float64"], f"scan route {label}: relative error {rel:.3e}")
-    check(bool(torch.isnan(out["cuda"][2][1]).all()) and bool(torch.isfinite(out["cuda"][2][[0, 2, 3]]).all()),
-          "scan route: lane 1's x is not NaN, or another lane's is")
-    return launches
+    D, O, b, bk = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64, bk64))
+    zero_launches(cr)
+    L, M = rc.factor(D, O)
+    got = (L, M, rc.solve(L, M, b), rc.solve_multi(L, M, bk), cr.solve_batched(D, O, b))
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in cr.LAUNCHES.items() if v}
+    shape = f"B={B} T={T} d={d} ({name})"
+    print(f"{tag} {route} route {shape}: launches {launches}")
+    if route == "stream":
+        want = {"factor_stream": 2, "solve_fwd_stream": 3, "solve_bwd_stream": 3}
+        Lp, Mp = cr.factor_stream_plain(D, O)
+        ref = (Lp, Mp, cr.solve_lanes_plain(Lp, Mp, b),
+               cr.solve_bwd_stream_plain(Lp, Mp, cr.solve_fwd_stream_plain(Lp, Mp, bk)), cr.solve_batched_plain(D, O, b))
+    else:
+        want = {"factor_scan": 2, "solve_scan": 3}
+        Dc, Oc, bc, bkc = (a.cpu() for a in (D, O, b, bk))
+        Lc, Mc = rc.factor(Dc, Oc)
+        ref = (Lc, Mc, rc.solve(Lc, Mc, bc), rc.solve_multi(Lc, Mc, bkc), cr.solve_batched(Dc, Oc, bc))
+    check(launches == want, f"{route} route {shape}: launches {launches}, want {want}")
+    for label, g, w in zip(("L", "M", "x", "X", "solve_batched x"), got, ref):
+        g, w = g.cpu(), w.cpu()
+        check(torch.equal(torch.isnan(g), torch.isnan(w)), f"{route} route {shape} {label}: NaN entries differ")
+        ok = ~torch.isnan(w)
+        rel = float((g[ok].double() - w[ok].double()).abs().max() / w[ok].double().abs().max())
+        print(f"{tag} {route} route {shape} {label}: max_rel_err {rel:.3e} against {'plain' if route == 'stream' else 'the CPU'} (limit {RTOL[name]:g})")
+        check(rel <= RTOL[name], f"{route} route {shape} {label}: relative error {rel:.3e}")
+    for x in (got[2], got[4]):
+        check(bool(torch.isnan(x[1]).all()) and bool(torch.isfinite(x[[0] + list(range(2, B))]).all()),
+              f"{route} route {shape}: lane 1's x is not NaN, or another lane's is")
 
 
 def pendulum_solver(options, device, horizon):
@@ -3919,7 +4066,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
     fallback_fires_phase(tag, cr, Options, dev)
     # 12. the routes past the kernels' widths
-    phase("12: schur past n=128 (pendulum, horizon 44) and the scan past d=64, float64")
+    phase("12: past n=128 and d=64: schur at n=131 (float64), 221 and 155 (float32 batches), the stream kernels and the scan")
     path_launches_wide = wide_routes_phase(tag, cr, rc, Options, dev)
 
     # 13. implicit differentiation; 14. MPC and auto-tuning
@@ -3932,7 +4079,7 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     # 11. the contact models on the card; 7. the quadruped gait golden and
     # the CPU float64 re-solves, beside the hopper batch's cold batch
     path_launches = contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start, examples)
-    path_launches["pendulum_n131"] = path_launches_wide
+    path_launches.update(path_launches_wide)
     path_launches.update(app_launches)
 
     # 15. the examples, those earlier phases ran read from their summaries
@@ -4011,8 +4158,8 @@ def main():
     ap.add_argument(
         "--t1-times", action="store_true",
         help="only build, then check and time the T=1 kernels at n = 33, 64, 65, 96, 110 and 128, B = 1024 and 1, "
-        "float32 and float64, host-launched and replayed from a CUDA graph, beside their plain versions and "
-        "cholesky_ex / cholesky_solve",
+        "float32 and float64, and at phase 12's wide shapes, host-launched and replayed from a CUDA graph, beside "
+        "their plain versions and cholesky_ex / cholesky_solve",
     )
     ap.add_argument(
         "--batched-times", action="store_true",

@@ -128,6 +128,48 @@ def test_panel_factor_fails_in_the_last_panel(cuda, B, n, dtype):
         assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
 
 
+WIDE_T1 = [(n, torch.float32) for n in (129, 160, 192, 221, 256, 288)] + [
+    (n, torch.float64) for n in (129, 160, 192)
+]
+
+
+@pytest.mark.parametrize("n,dtype", WIDE_T1)
+def test_wide_panel_kernels_match_plain(cuda, n, dtype):
+    """The wide panel kernels (n past 128, up to MAX_N: 288 in float32,
+    192 in float64): n = 221 and 155 are the reference's widest resident
+    T=1 tiles (B = 32 and 64), 160 and 192 full last panels, 129 a 1-wide
+    one. Lanes 3 and 20 are not positive definite, and lane 36's only bad
+    pivot is its last, in the last panel: NaN over the lower triangle of
+    each, zeros above, NaN over its x, on both paths; the rest match the
+    plain version. Then one system alone, as an unbatched solve gives it."""
+    rng = np.random.default_rng(n)
+    B = 37
+    S64 = spd_batch(rng, B, n, non_pd=(3, 20))
+    S64[B - 1, n - 1, n - 1] = -5.0
+    S = torch.tensor(S64, dtype=dtype, device=cuda)
+    b = torch.tensor(rng.normal(size=(B, n)), dtype=dtype, device=cuda)
+    before = dict(cuda_riccati.LAUNCHES)
+    L = cuda_riccati.factor_t1(S)
+    x = cuda_riccati.solve_t1(L, b)
+    torch.cuda.synchronize()
+    assert cuda_riccati.LAUNCHES["factor_t1"] == before["factor_t1"] + 1
+    assert cuda_riccati.LAUNCHES["solve_t1"] == before["solve_t1"] + 1
+    Lp = cuda_riccati.factor_t1_plain(S)
+    bad = [i in (3, 20, B - 1) for i in range(B)]
+    assert nan_lanes(L.cpu().numpy()).tolist() == nan_lanes(Lp.cpu().numpy()).tolist() == bad
+    lower = torch.ones(n, n, dtype=torch.bool, device=cuda).tril()
+    assert bool(torch.isnan(L[-1][lower]).all()) and torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    assert bool(torch.isnan(x[-1]).all())
+    ok = torch.tensor([not f for f in bad], device=cuda)
+    assert _rel_err(L, Lp, ok) <= RTOL[dtype]
+    assert _rel_err(x, cuda_riccati.solve_t1_plain(Lp, b), ok) <= RTOL[dtype]
+    L1 = cuda_riccati.factor_t1(S[:1].contiguous())
+    x1 = cuda_riccati.solve_t1(L1, b[:1].contiguous())
+    one = torch.ones(1, dtype=torch.bool, device=cuda)
+    assert _rel_err(L1, Lp[:1], one) <= RTOL[dtype]
+    assert _rel_err(x1, cuda_riccati.solve_t1_plain(Lp[:1], b[:1]), one) <= RTOL[dtype]
+
+
 def tridiag_batch(rng, B, T, d, non_pd=()):
     """Block-tridiagonal SPD batches: D (B, T, d, d) blocks A A' + d I,
     O (B, T-1, d, d) couplings 0.3 N(0, 1); for each (lane, stage) in
@@ -302,7 +344,7 @@ def test_stream_sweeps_on_the_lanes_factor(cuda, B, T, d, K, dtype):
     D, O, _ = tridiag_batch(rng, B, T, d, non_pd=[(lane, T // 2) for lane in bad])
     b = rng.normal(size=(B, T, d, K))
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O, b))
-    assert riccati.route(d) == "lanes"
+    assert riccati.route(d, dtype, T) == "lanes"
     before = dict(cuda_riccati.LAUNCHES)
     L, M = riccati.factor(D, O)
     X = riccati.solve_multi(L, M, b)
@@ -344,18 +386,21 @@ def test_schur_multi_column_solve_on_the_card(cuda, B, n, K, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_routes_past_the_kernels_widths_solve_on_the_card(cuda, dtype):
-    """ops/riccati past the kernels' widths: chol and chol_solve at n=129
-    take the library route, factor, solve and solve_multi at d=65 the
-    scan, on the card, counted under their own keys with no kernel
-    launched, and match the same calls on the CPU; a lane not positive
-    definite is NaN on both."""
+    """ops/riccati past the kernels' widths: chol and chol_solve one past
+    MAX_N[dtype] (n = 289 in float32, 193 in float64) take the library
+    route, factor, solve and solve_multi one past MAX_D[dtype] (d = 170,
+    121) the scan, on the card, counted under their own keys with no
+    kernel launched, and match the same calls on the CPU; a lane not
+    positive definite is NaN on both."""
     from calipso_tpu_torch.ops import riccati
 
+    n, d = cuda_riccati.MAX_N[dtype] + 1, cuda_riccati.MAX_D[dtype] + 1
+    assert riccati.t1_route(n, dtype) == "library" and riccati.route(d, dtype, 4) == "scan"
     rng = np.random.default_rng(129)
-    S = spd_batch(rng, 3, 129, non_pd=(1,))
-    b = rng.normal(size=(3, 129))
-    D, O, bt = tridiag_batch(rng, 3, 4, 65, non_pd=((2, 2),))
-    bk = rng.normal(size=(3, 4, 65, 2))
+    S = spd_batch(rng, 3, n, non_pd=(1,))
+    b = rng.normal(size=(3, n))
+    D, O, bt = tridiag_batch(rng, 3, 4, d, non_pd=((2, 2),))
+    bk = rng.normal(size=(3, 4, d, 2))
     before = dict(cuda_riccati.LAUNCHES)
     out = {}
     for where in ("cuda", "cpu"):
@@ -374,12 +419,44 @@ def test_routes_past_the_kernels_widths_solve_on_the_card(cuda, dtype):
     assert bool(torch.isnan(out["cuda"][0][1]).any()) and bool(torch.isnan(out["cuda"][4][2]).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_one_stage_past_max_d_on_the_t1_kernels(cuda, dtype):
+    """ops/riccati at T = 1 one past MAX_D[dtype] (d = 170, 121): one dense
+    system, on the T=1 kernels (`solve_multi` a launch a column), counted
+    as theirs, with no scan; factor, solve and solve_multi (K=2) match
+    their plain versions, and lane 1, not positive definite, is NaN over
+    its lower triangle and its x."""
+    from calipso_tpu_torch.ops import riccati
+
+    d = cuda_riccati.MAX_D[dtype] + 1
+    assert riccati.route(d, dtype, 1) == "t1"
+    rng = np.random.default_rng(d)
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, 3, 1, d, non_pd=((1, 0),)))
+    bk = torch.tensor(rng.normal(size=(3, 1, d, 2)), dtype=dtype, device=cuda)
+    before = dict(cuda_riccati.LAUNCHES)
+    L, M = riccati.factor(D, O)
+    x, X = riccati.solve(L, M, b), riccati.solve_multi(L, M, bk)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]}
+    assert moved == {"factor_t1": 1, "solve_t1": 3}
+    Lp = cuda_riccati.factor_t1_plain(D[:, 0])
+    ok = torch.tensor([True, False, True], device=cuda)
+    assert nan_lanes(L[:, 0].cpu().numpy()).tolist() == [False, True, False]
+    assert _rel_err(L[:, 0], Lp, ok) <= RTOL[dtype]
+    assert _rel_err(x[:, 0], cuda_riccati.solve_t1_plain(Lp, b[:, 0]), ok) <= RTOL[dtype]
+    for k in range(2):
+        assert _rel_err(X[:, 0, :, k], cuda_riccati.solve_t1_plain(Lp, bk[:, 0, :, k]), ok) <= RTOL[dtype]
+    assert bool(torch.isnan(x[1]).all()) and bool(torch.isnan(X[1]).all())
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     S = torch.eye(4, device=cuda).expand(3, 4, 4)
     with pytest.raises(ValueError, match="contiguous"):
         cuda_riccati.factor_t1(S)
-    with pytest.raises(ValueError, match="n <= 128"):
-        cuda_riccati.factor_t1(torch.eye(129, device=cuda)[None].contiguous())
+    with pytest.raises(ValueError, match="n <= 288"):
+        cuda_riccati.factor_t1(torch.eye(289, device=cuda)[None].contiguous())
+    with pytest.raises(ValueError, match="n <= 192"):
+        cuda_riccati.factor_t1(torch.eye(193, device=cuda, dtype=torch.float64)[None].contiguous())
     with pytest.raises(TypeError):
         cuda_riccati.factor_t1(torch.eye(4, device=cuda, dtype=torch.float16)[None].contiguous())
     L = torch.eye(4, device=cuda)[None].repeat(3, 1, 1)
@@ -420,6 +497,33 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
     and B-1 (those of them that exist, with B > 1) are not positive
     definite from the middle stage on: NaN from that stage on, on both
     paths."""
+    _stream_matches_plain(cuda, B, T, d, K, dtype)
+
+
+WIDE_STREAM = [
+    (s, torch.float32)
+    for s in ((128, 8, 82, 1), (64, 8, 116, 2), (32, 8, 165, 1), (32, 8, 165, 22), (7, 3, 65, 2), (5, 4, 128, 22),
+              (9, 1, 120, 3), (4, 5, 121, 33), (3, 3, 168, 2), (3, 3, 169, 1))
+] + [(s, torch.float64) for s in ((4, 5, 65, 2), (5, 4, 84, 1), (5, 4, 85, 22), (3, 3, 116, 2), (3, 3, 120, 1))]
+
+
+@pytest.mark.parametrize("shape,dtype", WIDE_STREAM)
+def test_wide_stream_kernels_match_plain(cuda, shape, dtype):
+    """The stream trio past d = 64, up to MAX_D (169 in float32, 120 in
+    float64): the reference's widest stream shapes in float32, (128, 8,
+    82), (64, 8, 116) and (32, 8, 165) (B a multiple of 128, 64 and 32);
+    the factor's staged plan at its edge (float32 d = 120, float64 84) and
+    the unstaged one past it (121, 85) up to the limits; the sweeps'
+    rows a thread from 3 (d = 65) to 6 (d = 165..169), staged and, where
+    two stages do not fit (K = 22 at d = 128; d past ~117), with M read
+    from device memory; K = 33 over two 16-column chunks. Lanes not
+    positive definite from the middle stage on, as
+    test_stream_kernels_match_plain."""
+    B, T, d, K = shape
+    _stream_matches_plain(cuda, B, T, d, K, dtype)
+
+
+def _stream_matches_plain(cuda, B, T, d, K, dtype):
     rng = np.random.default_rng(T * 100 + d + K)
     bad_stage = T // 2
     bad = sorted({lane for lane in (2, B - 1) if lane < B}) if B > 1 else []
@@ -529,6 +633,33 @@ def test_batched_lanes_single_lane(cuda, T, d, dtype):
     assert bool(torch.isnan(cuda_riccati.solve_batched_lanes(D, O, b)).all())
 
 
+@pytest.mark.parametrize(
+    "B,T,d,dtype,route",
+    [(6, 5, 65, torch.float32, "stream"), (6, 5, 128, torch.float32, "stream"), (6, 5, 165, torch.float32, "stream"),
+     (6, 5, 65, torch.float64, "stream"), (3, 4, 170, torch.float32, "scan"), (3, 4, 128, torch.float64, "scan")],
+)
+def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype, route):
+    """The public solve_batched past the fused kernel's d = 64, where the
+    reference's fused Pallas kernel still answers: factor_stream then
+    solve_stream up to MAX_D, the scan past it, each counted under its
+    own keys; x matches the plain version, and lane 2, not positive
+    definite from stage 2 on, is NaN over all of its x on both paths."""
+    rng = np.random.default_rng(B + T + d)
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d, non_pd=((2, 2),)))
+    before = dict(cuda_riccati.LAUNCHES)
+    x = cuda_riccati.solve_batched(D, O, b)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]}
+    if route == "stream":
+        assert moved == {"factor_stream": 1, "solve_fwd_stream": 1, "solve_bwd_stream": 1}
+    else:
+        assert moved == {"factor_scan": 1, "solve_scan": 1}
+    xp = cuda_riccati.solve_batched_plain(D, O, b)
+    assert torch.equal(torch.isnan(x), torch.isnan(xp)) and bool(torch.isnan(x[2]).all())
+    ok = torch.tensor([i != 2 for i in range(B)], device=cuda)
+    assert _rel_err(x, xp, ok) <= RTOL[dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("B,T,d", [(37, 31, 9), (13, 8, 54), (1, 3, 64), (40, 1, 33), (1030, 2, 1)])
 def test_transpose_matches_plain(cuda, B, T, d, dtype):
@@ -563,15 +694,24 @@ def test_batched_solve_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             fn(D, O, b.cpu())
         x = fn(D, O, b)
         assert torch.allclose(x, b)  # S is the identity
+        with pytest.raises(ValueError, match="d <= 64"):  # past it solve_batched takes the stream kernels
+            fn(torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda),
+               torch.ones(1, 2, 65, device=cuda))
 
 
 def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     D = torch.eye(4, device=cuda).repeat(3, 2, 1, 1)
     with pytest.raises(ValueError, match="shape"):
         cuda_riccati.factor_stream(D, torch.zeros(3, 2, 4, 4, device=cuda))
-    with pytest.raises(ValueError, match="d <= 64"):
+    with pytest.raises(ValueError, match="d <= 169"):
         cuda_riccati.factor_stream(
-            torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda)
+            torch.eye(170, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 170, 170, device=cuda)
+        )
+    with pytest.raises(ValueError, match="d <= 120"):
+        cuda_riccati.solve_stream(
+            torch.eye(121, device=cuda, dtype=torch.float64).repeat(1, 2, 1, 1),
+            torch.zeros(1, 1, 121, 121, device=cuda, dtype=torch.float64),
+            torch.ones(1, 2, 121, device=cuda, dtype=torch.float64),
         )
     with pytest.raises(TypeError):
         cuda_riccati.factor_stream(D.half(), torch.zeros(3, 1, 4, 4, device=cuda).half())

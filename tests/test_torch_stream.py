@@ -93,9 +93,11 @@ def test_solve_multi_matches_jax(d):
 
 
 def test_route_by_stage_width_and_cpu_plain():
-    """route() decides by d alone, at 33; on CPU tensors both routes take
+    """route() decides by d alone up to 64, at 33; on CPU tensors both routes take
     their plain versions and count no launch."""
-    assert [riccati.route(d) for d in (1, 9, 31, 32, 33, 54, 64)] == ["lanes"] * 4 + ["stream"] * 3
+    assert [riccati.route(d, dt, 2) for d in (1, 9, 31, 32, 33, 54, 64) for dt in (torch.float32, torch.float64)] == (
+        ["lanes"] * 8 + ["stream"] * 6
+    )
     D, O, b = (torch.tensor(a) for a in _tridiag_batch(np.random.default_rng(5), 2, 3, 33))
     before = dict(cuda_riccati.LAUNCHES)
     L, M = riccati.factor(D, O)

@@ -233,12 +233,12 @@ def test_aot_routes_follow_the_backends():
     """The routes (and kernel sources) the manifest records, per backend:
     riccati at the rocket's d=9 (lanes), with a differentiated border
     problem's K columns on the stream sweeps; cr and ldl no kernel; schur
-    past n=128 the library route."""
+    at n=131 the T=1 kernels, past n=192 in float64 the library route."""
     from calipso_tpu_torch.solver.solve import resolve_options
 
-    def routes(ts, **kw):
+    def routes(ts, dtype=torch.float64, **kw):
         fns = ts.solver.fns
-        return aot.routes(fns, resolve_options(ts.solver.options.replace(**kw), fns), fns.dims.parameters)
+        return aot.routes(fns, resolve_options(ts.solver.options.replace(**kw), fns), fns.dims.parameters, dtype)
 
     ts = pendulum_solver("torch", 11, calipso_tpu_torch.Options(linear_solver="riccati"))
     assert routes(ts) == {"linear_solver": "riccati", "block": "lanes", "kernel_sources": ["riccati_lanes"]}
@@ -249,7 +249,11 @@ def test_aot_routes_follow_the_backends():
     assert routes(ts, linear_solver="cr") == {"linear_solver": "cr", "kernel_sources": []}
     assert routes(ts, linear_solver="ldl") == {"linear_solver": "ldl", "kernel_sources": []}
     wide = pendulum_solver("torch", 44, calipso_tpu_torch.Options(linear_solver="schur"))
-    assert routes(wide) == {"linear_solver": "schur", "t1": "library", "kernel_sources": []}
+    assert routes(wide) == {"linear_solver": "schur", "t1": "kernel", "kernel_sources": ["riccati_t1"]}
+    wider = pendulum_solver("torch", 65, calipso_tpu_torch.Options(linear_solver="schur"))
+    assert wider.num_variables == 194
+    assert routes(wider) == {"linear_solver": "schur", "t1": "library", "kernel_sources": []}
+    assert routes(wider, torch.float32) == {"linear_solver": "schur", "t1": "kernel", "kernel_sources": ["riccati_t1"]}
 
 
 def test_batched_solver_aot_round_trip(tmp_path):

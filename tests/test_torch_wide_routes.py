@@ -1,11 +1,14 @@
 """The port's routes past the kernels' widths against the JAX package on
-the CPU in float64: the T=1 library route past n = 128 (`chol_library`,
+the CPU in float64: the T=1 library route past n = 192 (`chol_library`,
 `chol_solve_library`) against `jnp.linalg.cholesky` and the reference's
-`chol_solve_cv`, the block-tridiagonal scan past d = 64 (`factor_scan`,
+`chol_solve_cv`, the block-tridiagonal scan past d = 120 (`factor_scan`,
 `solve_scan`) against the reference's `factor`, `solve` and
-`solve_multi`, the functions that name the routes at their limits, and a
-schur solve past 128 variables (the pendulum swing-up at horizon 44, n =
-131) in both packages."""
+`solve_multi`, the functions that name the routes at their per-dtype
+limits, a check that they give a kernel route wherever the reference's
+`_use_pallas` gives a float32 Pallas route, the public `solve_batched`
+past the fused kernel's d = 64, and a schur solve past the narrow panel
+kernels' 128 variables (the pendulum swing-up at horizon 44, n = 131) in
+both packages."""
 
 import jax
 import jax.numpy as jnp
@@ -28,27 +31,99 @@ def _rel_close(got, want):
     assert np.abs(got - want).max() <= RTOL * np.abs(want).max()
 
 
-@pytest.mark.parametrize(
-    "n,want", [(1, "kernel"), (32, "kernel"), (128, "kernel"), (129, "library"), (286, "library")]
-)
-def test_t1_route_at_its_limit(n, want):
-    assert riccati.t1_route(n) == want
+F32, F64 = torch.float32, torch.float64
 
 
 @pytest.mark.parametrize(
-    "d,want", [(9, "lanes"), (32, "lanes"), (33, "stream"), (54, "stream"), (64, "stream"), (65, "scan"), (80, "scan")]
+    "n,dtype,want",
+    [(1, F64, "kernel"), (32, F64, "kernel"), (128, F64, "kernel"), (129, F64, "kernel"), (192, F64, "kernel"),
+     (193, F64, "library"), (286, F64, "library"), (221, F32, "kernel"), (288, F32, "kernel"), (289, F32, "library"),
+     (8, torch.float16, "library")],
 )
-def test_block_route_at_its_limits(d, want):
-    assert riccati.route(d) == want
+def test_t1_route_at_its_limit(n, dtype, want):
+    assert riccati.t1_route(n, dtype) == want
+
+
+@pytest.mark.parametrize(
+    "d,dtype,want",
+    [(9, F64, "lanes"), (32, F64, "lanes"), (33, F64, "stream"), (54, F64, "stream"), (64, F64, "stream"),
+     (65, F64, "stream"), (120, F64, "stream"), (121, F64, "scan"), (165, F32, "stream"), (169, F32, "stream"),
+     (170, F32, "scan"), (9, torch.float16, "scan")],
+)
+def test_block_route_at_its_limits(d, dtype, want):
+    assert riccati.route(d, dtype, 2) == want
+
+
+@pytest.mark.parametrize(
+    "d,dtype,want",
+    [(54, F32, "stream"), (169, F32, "stream"), (170, F32, "t1"), (288, F32, "t1"), (289, F32, "scan"),
+     (121, F64, "t1"), (192, F64, "t1"), (193, F64, "scan")],
+)
+def test_one_stage_route_at_its_limits(d, dtype, want):
+    """A one-stage horizon past MAX_D is one dense system: the T=1 kernels
+    up to MAX_N, the scan past it."""
+    assert riccati.route(d, dtype, 1) == want
+
+
+def test_one_stage_past_max_d_matches_jax():
+    """(3, 1, 121) in float64, one past the stream kernels: factor, solve
+    and solve_multi (K=2) on the T=1 route (here the T=1 kernels' plain
+    versions) against the reference's `factor`, `solve` and `solve_multi`;
+    lane 1 is not positive definite, NaN over its lower triangle and its
+    x."""
+    B, T, d = 3, 1, cuda_riccati.MAX_D[torch.float64] + 1
+    assert riccati.route(d, torch.float64, T) == "t1"
+    rng = np.random.default_rng(d)
+    D, O = _tridiag(rng, B, T, d, bad=((1, 0),))
+    b, bk = rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 2))
+    Lt, Mt = riccati.factor(torch.tensor(D), torch.tensor(O))
+    assert Mt.shape == (B, 0, d, d)
+    xt = riccati.solve(Lt, Mt, torch.tensor(b)).numpy()
+    Xt = riccati.solve_multi(Lt, Mt, torch.tensor(bk)).numpy()
+    Lt = Lt.numpy()
+    low = np.tril(np.ones((d, d), bool))
+    assert np.isnan(Lt[1, 0][low]).all() and (Lt[1, 0][~low] == 0).all()
+    assert np.isnan(xt[1]).all() and np.isnan(Xt[1]).all()
+    ok = [0, 2]
+    Lr, Mr = (np.asarray(a) for a in jax.vmap(jrc.factor)(jnp.asarray(D[ok]), jnp.asarray(O[ok])))
+    _rel_close(Lt[ok], Lr)
+    _rel_close(xt[ok], jax.vmap(jrc.solve)(jnp.asarray(Lr), jnp.asarray(Mr), jnp.asarray(b[ok])))
+    _rel_close(Xt[ok], jax.vmap(jrc.solve_multi)(jnp.asarray(Lr), jnp.asarray(Mr), jnp.asarray(bk[ok])))
+
+
+def test_routes_cover_the_reference_pallas_region():
+    """Wherever the reference's `_use_pallas(B, T, d, float32, on_tpu=True)`
+    gives a route (for T = 1, a resident one, the only one its T=1 dense
+    path takes), the port's float32 route is a kernel route: the T=1
+    kernels for T = 1 (n up to 221 at B = 32), the lanes or stream kernels
+    for T > 1 (d up to 165 at B = 32), and for the riccati backend's
+    one-stage horizons (the reference's `factor_cv` at T = 1, resident to
+    d = 221) the lanes, stream or T=1 kernels. Only the routing functions
+    run."""
+    f32 = np.dtype(np.float32)
+    seen = {"t1": 0, "block": 0}
+    for B in (32, 33, 48, 64, 94, 96, 127, 128, 256, 1024, 8192):
+        for T in (1, 2, 8, 31):
+            for d in range(1, 401):
+                got = jrc._use_pallas(B, T, d, f32, on_tpu=True)
+                if T == 1 and got and got[0] == "resident":
+                    assert riccati.t1_route(d, F32) == "kernel", (B, T, d, got)
+                    assert riccati.route(d, F32, T) in ("lanes", "stream", "t1"), (B, T, d, got)
+                    seen["t1"] = max(seen["t1"], d)
+                elif T > 1 and got:
+                    assert riccati.route(d, F32, T) in ("lanes", "stream"), (B, T, d, got)
+                    seen["block"] = max(seen["block"], d)
+    assert seen == {"t1": 221, "block": 165}
 
 
 def test_t1_library_route_matches_jax():
-    """(3, 129): lane 1 is not positive definite, NaN over its lower
-    triangle and zeros above; jnp.linalg.cholesky gives it no finite
-    factor either. The other lanes' factor and solve match the
-    reference's XLA branch (`chol_cv`, `chol_solve_cv` under vmap, which
-    take it at this size)."""
-    B, n = 3, 129
+    """(3, 193), one past the float64 kernels: lane 1 is not positive
+    definite, NaN over its lower triangle and zeros above;
+    jnp.linalg.cholesky gives it no finite factor either. The other lanes'
+    factor and solve match the reference's XLA branch (`chol_cv`,
+    `chol_solve_cv` under vmap, which take it at this size)."""
+    B, n = 3, cuda_riccati.MAX_N[torch.float64] + 1
+    assert riccati.t1_route(n, torch.float64) == "library"
     rng = np.random.default_rng(129)
     S = spd_batch(rng, B, n, non_pd=(1,))
     b = rng.normal(size=(B, n))
@@ -83,11 +158,13 @@ def _tridiag(rng, B, T, d, bad=()):
 
 
 def test_scan_route_matches_jax():
-    """(3, 5, 65): lane 2's stage 3 is not positive definite, so its L is
-    NaN over the lower triangle from stage 3 on and its M from M_3 on (the
-    reference's scan: not finite from the same stage on). The other
-    lanes' factor, solve and solve_multi (K=3) match the reference's."""
-    B, T, d, BAD, T_BAD = 3, 5, 65, 2, 3
+    """(3, 5, 121), one past the float64 stream kernels: lane 2's stage 3
+    is not positive definite, so its L is NaN over the lower triangle from
+    stage 3 on and its M from M_3 on (the reference's scan: not finite
+    from the same stage on). The other lanes' factor, solve and
+    solve_multi (K=3) match the reference's."""
+    B, T, d, BAD, T_BAD = 3, 5, cuda_riccati.MAX_D[torch.float64] + 1, 2, 3
+    assert riccati.route(d, torch.float64, T) == "scan"
     rng = np.random.default_rng(65)
     D, O = _tridiag(rng, B, T, d, bad=((BAD, T_BAD),))
     b, bk = rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 3))
@@ -128,13 +205,35 @@ def test_scan_route_at_one_stage_is_the_t1_route(n):
     assert torch.equal(riccati.solve_scan(L, M, b)[:, 0], riccati.chol_solve_library(L[:, 0], b[:, 0]))
 
 
+@pytest.mark.parametrize("d", [65, 165])
+def test_solve_batched_past_the_fused_width_matches_jax(d):
+    """The public `solve_batched` past the fused kernel's d = 64 (on the
+    card the stream kernels, then the scan): on CPU tensors its plain
+    version, against the reference's `solve_batched(..., use_pallas=False)`
+    (its scan factor and solve under vmap) at (3, 3, d) in float64; lane
+    1, not positive definite from stage 1 on, is NaN over all of its x
+    on both."""
+    from calipso_tpu.ops import pallas_riccati as jpr
+
+    B, T = 3, 3
+    rng = np.random.default_rng(d)
+    D, O = _tridiag(rng, B, T, d, bad=((1, 1),))
+    b = rng.normal(size=(B, T, d))
+    x = cuda_riccati.solve_batched(*(torch.tensor(a) for a in (D, O, b))).numpy()
+    xr = np.asarray(jpr.solve_batched(*(jnp.asarray(a) for a in (D, O, b)), use_pallas=False))
+    assert np.isnan(x[1]).all() and not np.isfinite(xr[1]).all()
+    ok = [0, 2]
+    _rel_close(x[ok], xr[ok])
+
+
 def test_schur_solve_past_the_kernel_width_matches_jax():
-    """The pendulum swing-up at horizon 44 (n = 2·44 + 43 = 131 variables)
-    on schur with the serial line search, in float64 from the problem's
-    state guess and zero actions: the port's T=1 factor and solve take
-    the library route, and the solve takes the reference's steps (the
-    same solved flag and iterations, the solution within the goldens'
-    atol)."""
+    """The pendulum swing-up at horizon 44 (n = 2·44 + 43 = 131 variables,
+    past the narrow panel kernels' 128) on schur with the serial line
+    search, in float64 from the problem's state guess and zero actions:
+    the port's T=1 factor and solve take the kernel route (on the card,
+    the wide panel kernels; here their plain versions), and the solve
+    takes the reference's steps (the same solved flag and iterations, the
+    solution within the goldens' atol)."""
     from calipso_tpu import TrajOptSolver as JaxTrajOpt
     from calipso_tpu.models import pendulum as jpendulum
     from calipso_tpu_torch import TrajOptSolver
@@ -154,7 +253,7 @@ def test_schur_solve_past_the_kernel_width_matches_jax():
             equality=prob["equality"], options=opts, **extra,
         )
         assert ts.num_variables == 131
-        assert riccati.t1_route(ts.num_variables) == "library"
+        assert riccati.t1_route(ts.num_variables, torch.float64) == "kernel"
         ts.initialize_states(prob["state_guess"])
         out.append(ts.solve())
     rj, rt = out
