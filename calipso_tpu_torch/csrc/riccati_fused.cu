@@ -14,7 +14,8 @@
 // (B, T, d) and give x (B, T, d). A stage whose S_t is not positive definite (a pivot <= 0 or
 // not finite) ends the lane: every entry of its x is written as NaN (what
 // the plain version gives by propagation through both sweeps). The other
-// lanes are untouched. 1 <= d <= 64, T >= 1.
+// lanes are untouched. Any d >= 1 and T >= 1 with T d (d + 1) < 2^31
+// (shape_ok).
 //
 // Bound (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s float32; D read as its lower
 // triangles): at the batched rocket's shape (B=1024, T=31, d=9, float32)
@@ -86,14 +87,24 @@
 // loop; the failure test is warp-uniform. A block holds up to 4 warps,
 // fewer where the batch would leave SMs idle.
 //
-// d in 33..64 (the quadruped's d = 54) keeps the first design
-// (solve_batched_fused_wide_kernel): one thread block a lane, the
-// horizon's L and M in shared memory where they fit ((2T - 1) d (d+1)
-// words plus two vectors, 178 KB at the quadruped's T=8, d=54; else the
-// workspace), the work of a stage spread over the block with one
-// __syncthreads() per pivot, M_t and u_t out of one substitution.
-// Batch-last, its reads and writes take the same address map, each
-// element its own sector, which consecutive lanes' blocks share in L2.
+// Past d = 32 (the quadruped's d = 54, and any width past it:
+// solve_batched_fused_wide_kernel) one thread block owns one lane, with
+// one __syncthreads() per pivot, M_t and u_t out of one substitution. The
+// factor lives in one of three tiers (wide_tier), the first whose shared
+// memory fits a block's opt-in limit (232,448 B on an H100): the
+// horizon's L and M in shared memory ((2T - 1) d (d+1) words plus two
+// vectors, 178 KB at the quadruped's T=8, d=54 in float32); else L and M
+// in the workspace and the stage being factored, S_t, in shared memory
+// ((d+1)(d+2) words: float32 to d = 239, float64 to d = 168), kept into the
+// workspace once factored; else all of it in the workspace, read and
+// written through L1 and L2 (at (16, 8, 256) in float32 the workspace is
+// 63 MB). Batch-last, its reads and writes take the same address map,
+// each element its own sector, which consecutive lanes' blocks share in L2.
+// Past d = 64 the bound is the operations' (36 us at (32, 8, 165) in
+// float32), but a lane's pivots are a chain of dependent steps, a barrier
+// each, on one SM: 23.3 ms there on an H100, where factor_stream and
+// solve_stream take 3.1 ms (ops/cuda_riccati.solve_batched takes those
+// between d = 64 and their limit).
 //
 // The lanes wrapper's layout moves (batch-first into batch-last, x back)
 // are transpose_kernel's: 32 x 32 tiles through shared memory, one launch
@@ -110,7 +121,7 @@
 namespace {
 
 constexpr int kMaxThreads = 256;  // d > 32: threads per block
-constexpr int kMaxD = 64;
+constexpr long long kMaxIndex = 0x7fffffffLL;  // T d (d + 1) at most this (shape_ok)
 constexpr int kMaxFusedWarps = 4;  // d <= 32: at most this many warps a block
 // d <= 32: the horizon's factor stays on chip where this many warps
 // can hold theirs in a block's shared memory (two blocks of 4 an SM: the
@@ -316,19 +327,28 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
   }
 }
 
-// The fused solve for d in 33..64 (the first design): one block per lane,
-// on batch-first or, where kBatchLast, batch-last arrays (O then holds
-// O_t'). Lf[t] (t < T) holds S_t, factored in place into L_t; Mf[t] (t <
-// T-1) holds O_t row-major, i.e. column c of O_t' in row c, turned in
-// place into M_t with column c in row c (the carry the next stage's Schur
-// update reads); each d rows of ld = d + 1. Both live in shared memory
-// when `work` is null, else in the lane's part of `work`. Shared memory
-// always holds v (the carry: u_{t-1} forward, x_{t+1} backward) and r
-// (the stage's right-hand side); u_t waits in x.
+// The fused solve past d = 32: one block per lane, on batch-first or,
+// where kBatchLast, batch-last arrays (O then holds O_t'). Lf[t] (t < T)
+// keeps L_t; Mf[t] (t < T-1) holds O_t row-major, i.e. column c of O_t' in
+// row c, turned in place into M_t with column c in row c (the carry the
+// next stage's Schur update reads); each d rows of ld = d + 1. Shared
+// memory always holds v (the carry: u_{t-1} forward, x_{t+1} backward) and
+// r (the stage's right-hand side); u_t waits in x. Three tiers
+// (wide_tier): the whole horizon's Lf and Mf in shared memory (`work`
+// null); else Lf and Mf in the lane's part of `work`, and S_t factored in
+// shared memory (kept into Lf[t] once factored) where `stage_on_chip`,
+// else in place in Lf[t]. The work of a stage is spread over the block
+// without integer division: the Schur update S_t = D_t - M_{t-1}' M_{t-1}
+// and each pivot's trailing update a row a warp, a column a thread; the
+// substitution [M_t u_t] = L_t^{-1} [O_t' r] a column a warp, a row a
+// thread, each column's pivots apart from the others' (a __syncwarp a
+// pivot); one __syncthreads() a pivot of the factor and of the backward
+// sweep. An element's operations come in the same order in every tier.
 template <typename T, bool kBatchLast>
 __global__ void __launch_bounds__(kMaxThreads)
     solve_batched_fused_wide_kernel(const T* __restrict__ D, const T* __restrict__ O,
-                                    const T* __restrict__ bv, T* x, T* work, int B, int T_, int d) {
+                                    const T* __restrict__ bv, T* x, T* work, int B, int T_, int d,
+                                    int stage_on_chip) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = d + 1;
   const int blk = d * ld;
@@ -339,8 +359,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   T* const Lf = work == nullptr ? r + ld : work + lane * nblk * blk;
   T* const Mf = Lf + static_cast<long long>(T_) * blk;
   const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, q = tid & (kWarp - 1), nw = nt >> 5;
   const long long dd = static_cast<long long>(d) * d;
-  const int nn = d * d;
   const long long sB = kBatchLast ? B : 1;  // words between a lane's consecutive elements
   const T* Dl = D + lane_offset<kBatchLast>(lane, T_ * dd);
   const T* Ol = O + lane_offset<kBatchLast>(lane, (T_ - 1) * dd);
@@ -349,22 +369,35 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   bool ok = true;
   for (int t = 0; t < T_ && ok; ++t) {
-    T* S = Lf + static_cast<long long>(t) * blk;
-    T* R = Mf + static_cast<long long>(t) * blk;
+    T* const Lt = Lf + static_cast<long long>(t) * blk;
+    T* const S = stage_on_chip ? r + ld : Lt;  // where S_t is factored
+    T* const R = Mf + static_cast<long long>(t) * blk;
     const T* C = Mf + static_cast<long long>(t - 1) * blk;  // M_{t-1}, read for t > 0
     const bool coupled = t < T_ - 1;
 
-    // S_t = D_t - M_{t-1}' M_{t-1} (lower triangle), O_t into R (element e
-    // of O_t' is O_t's (j, i)), and r = b_t - M_{t-1}' u_{t-1}
-    for (int e = tid; e < nn; e += nt) {
-      const int i = e / d, j = e % d;
-      if (j <= i) {
-        T s = Dl[(t * dd + e) * sB];
-        if (t > 0)
-          for (int k = 0; k < d; ++k) s -= C[i * ld + k] * C[j * ld + k];
-        S[i * ld + j] = s;
+    // S_t = D_t - M_{t-1}' M_{t-1} (lower triangle), O_t into R (element
+    // (i, j) of O_t' is O_t's (j, i)), and r = b_t - M_{t-1}' u_{t-1}. With
+    // M_{t-1} in shared memory a thread takes an entry, its sum in order of
+    // k; in the workspace a warp takes an entry, its threads k, so that
+    // their reads of the two rows of C are coalesced, then a reduction
+    for (int i = warp; i < d; i += nw) {
+      for (int j = q; j < d; j += kWarp) {
+        const long long e = t * dd + static_cast<long long>(i) * d + j;
+        if (j <= i && (t == 0 || work == nullptr)) {
+          T s = Dl[e * sB];
+          if (t > 0)
+            for (int k = 0; k < d; ++k) s -= C[i * ld + k] * C[j * ld + k];
+          S[i * ld + j] = s;
+        }
+        if (coupled) R[kBatchLast ? j * ld + i : i * ld + j] = Ol[e * sB];
       }
-      if (coupled) R[kBatchLast ? j * ld + i : i * ld + j] = Ol[(t * dd + e) * sB];
+      if (t == 0 || work == nullptr) continue;
+      for (int j = 0; j <= i; ++j) {
+        T p = T(0);
+        for (int k = q; k < d; k += kWarp) p += C[i * ld + k] * C[j * ld + k];
+        for (int o = kWarp / 2; o > 0; o >>= 1) p += __shfl_xor_sync(kFull, p, o);
+        if (q == (j & (kWarp - 1))) S[i * ld + j] = Dl[(t * dd + static_cast<long long>(i) * d + j) * sB] - p;
+      }
     }
     for (int i = tid; i < d; i += nt) {
       T s = bl[(t * d + i) * sB];
@@ -374,9 +407,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     __syncthreads();
 
-    // right-looking Cholesky of the lower triangle, in place; every thread
-    // reads the same pivot after a barrier, so the failure test (and the
-    // break) is uniform over the block
+    // right-looking Cholesky of the lower triangle, in place, column k
+    // scaled one pivot late; every thread reads the same pivot after a
+    // barrier, so the failure test (and the break) is uniform over the block
     T prev = T(0);
     for (int k = 0; k < d; ++k) {
       const T pkk = S[k * ld + k];
@@ -390,10 +423,9 @@ __global__ void __launch_bounds__(kMaxThreads)
           S[i * ld + k - 1] = i == k - 1 ? lp : S[i * ld + k - 1] / lp;
       }
       const T inv = T(1) / pkk;
-      const int w = d - k - 1;
-      for (int e = tid; e < w * w; e += nt) {
-        const int i = k + 1 + e / w, j = k + 1 + e % w;
-        if (j <= i) S[i * ld + j] -= S[i * ld + k] * S[j * ld + k] * inv;
+      for (int i = k + 1 + warp; i < d; i += nw) {
+        const T sik = S[i * ld + k];
+        for (int j = k + 1 + q; j <= i; j += kWarp) S[i * ld + j] -= sik * S[j * ld + k] * inv;
       }
       prev = pkk;
       __syncthreads();
@@ -402,26 +434,25 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (tid == 0) S[(d - 1) * ld + d - 1] = sqrt(prev);
     __syncthreads();
 
-    // [M_t u_t] = L_t^{-1} [O_t' r] by (column, row) element, r the last
-    // column: pivot j updates the rows below it with the unscaled row j
-    // and scales row j - 1
+    // keep L_t where S_t was factored on its own (both only read S here)
+    if (stage_on_chip)
+      for (int i = warp; i < d; i += nw)
+        for (int j = q; j <= i; j += kWarp) Lt[i * ld + j] = S[i * ld + j];
+    // [M_t u_t] = L_t^{-1} [O_t' r], column c of them by warp c mod nw, r
+    // the last column: pivot j updates the rows below it with the unscaled
+    // entry j and scales entry j - 1
     const int ncol = coupled ? d + 1 : 1;
-    const int nr = ncol * d;
-    for (int j = 0; j < d; ++j) {
-      const T inv = T(1) / S[j * ld + j];
-      for (int e = tid; e < nr; e += nt) {
-        const int c = e / d, i = e % d;
-        T* col = c == ncol - 1 ? r : R + c * ld;
-        if (i > j)
-          col[i] -= S[i * ld + j] * col[j] * inv;
-        else if (i == j - 1)
-          col[i] /= S[i * ld + i];
+    for (int c = warp; c < ncol; c += nw) {
+      T* const col = c == ncol - 1 ? r : R + c * ld;
+      for (int j = 0; j < d; ++j) {
+        const T inv = T(1) / S[j * ld + j];
+        const T cj = col[j];
+        for (int i = j + 1 + q; i < d; i += kWarp) col[i] -= S[i * ld + j] * cj * inv;
+        if (q == 0 && j > 0) col[j - 1] /= S[(j - 1) * ld + j - 1];
+        __syncwarp();
       }
-      __syncthreads();
-    }
-    for (int c = tid; c < ncol; c += nt) {
-      T* col = c == ncol - 1 ? r : R + c * ld;
-      col[d - 1] /= S[(d - 1) * ld + d - 1];
+      if (q == 0) col[d - 1] /= S[(d - 1) * ld + d - 1];
+      __syncwarp();
     }
     __syncthreads();
     for (int i = tid; i < d; i += nt) {
@@ -433,7 +464,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   if (!ok) {
     const T nan = quiet_nan<T>();
-    for (int e = tid; e < T_ * d; e += nt) xl[e * sB] = nan;
+    for (int e = tid; e < T_ * d; e += nt) xl[static_cast<long long>(e) * sB] = nan;
     return;  // uniform over the block: no barrier follows
   }
 
@@ -547,7 +578,12 @@ bool transpose_fits(long long R, long long C) {
   return R <= kMax && C <= kMax && (R + kTile - 1) / kTile * ((C + kTile - 1) / kTile) <= kMax / 4;
 }
 
-bool shape_ok(int B, int T_, int d) { return B >= 0 && T_ >= 1 && d >= 1 && d <= kMaxD; }
+// Any d >= 1 and T >= 1 whose T d (d + 1) stays in an int: the largest
+// index the kernels and the transposes compute in int (t d + i, i ld + j,
+// a row of T d^2 words); the workspace's words a lane are counted in 64 bits
+bool shape_ok(int B, int T_, int d) {
+  return B >= 0 && T_ >= 1 && d >= 1 && static_cast<long long>(T_) * d * (d + 1) <= kMaxIndex;
+}
 
 // The way in: D (B, T d^2) into Dl (T d^2, B), O (B, (T-1) d^2) into Ol,
 // each block transposed, b (B, T d) into bl (T d, B); one launch
@@ -571,12 +607,31 @@ int batch_first(const void* xl, void* x, int B, int T_, int d, void* stream) {
   return launch_transposes(j, j, j, stream);
 }
 
-// Shared memory of solve_batched_fused_wide_kernel with the horizon
-// resident, in bytes.
+// Shared memory of solve_batched_fused_wide_kernel in bytes, by tier: 1,
+// the horizon resident (v, r and (2T - 1) blocks of d (d + 1) words); 2,
+// the stage alone (v, r and S_t: (d + 1)(d + 2) words); 3, v and r
 template <typename T>
-size_t resident_smem(int T_, int d) {
+size_t wide_smem(int tier, int T_, int d) {
   const size_t ld = static_cast<size_t>(d) + 1;
-  return sizeof(T) * (2 * ld + (2 * static_cast<size_t>(T_) - 1) * d * ld);
+  const size_t blocks = tier == 1 ? 2 * static_cast<size_t>(T_) - 1 : (tier == 2 ? 1 : 0);
+  return sizeof(T) * (2 * ld + blocks * d * ld);
+}
+
+// The first tier of solve_batched_fused_wide_kernel whose shared memory
+// fits `optin` bytes: float32 stages fit on chip to d = 239, float64 to
+// d = 168 (232,448 B on an H100); tier 3 always fits
+template <typename T>
+int wide_tier(int T_, int d, size_t optin) {
+  return wide_smem<T>(1, T_, d) <= optin ? 1 : (wide_smem<T>(2, T_, d) <= optin ? 2 : 3);
+}
+
+// The current device's opt-in shared memory a block, in bytes
+cudaError_t smem_optin(size_t* bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  *bytes = static_cast<size_t>(optin);
+  return err;
 }
 
 // The register kernel's width for d <= 32
@@ -598,22 +653,19 @@ size_t fused_reg_words(int kMax, int T_, int d, bool on_chip) {
 
 // Words of device-memory workspace a lane needs: 0 when the horizon's
 // factor stays in the current device's shared memory (for d <= 32 where
-// kOnChipWarps warps' shares fit in a block's limit; for the first design
-// where a block's does), else (2T - 1) d (d|1) for d <= 32 and (2T - 1) d
-// (d + 1) past it.
+// kOnChipWarps warps' shares fit in a block's limit; past it where the
+// wide kernel's tier 1 does), else (2T - 1) d (d|1) for d <= 32 and (2T -
+// 1) d (d + 1) past it, in 64 bits (past d = 32 it can pass 2^31)
 template <typename T>
-int fused_workspace(int T_, int d) {
-  if (!shape_ok(0, T_, d)) return -static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return -static_cast<int>(err);
+long long fused_workspace(int T_, int d) {
+  if (!shape_ok(0, T_, d)) return -static_cast<long long>(cudaErrorInvalidValue);
+  size_t optin = 0;
+  const cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  const long long blocks = (2LL * T_ - 1) * d;
   if (d <= kWarp)
-    return kOnChipWarps * sizeof(T) * fused_reg_words<T>(reg_width(d), T_, d, true) <= static_cast<size_t>(optin)
-               ? 0 : (2 * T_ - 1) * d * (d | 1);
-  if (resident_smem<T>(T_, d) <= static_cast<size_t>(optin)) return 0;
-  return (2 * T_ - 1) * d * (d + 1);
+    return kOnChipWarps * sizeof(T) * fused_reg_words<T>(reg_width(d), T_, d, true) <= optin ? 0 : blocks * (d | 1);
+  return wide_tier<T>(T_, d, optin) == 1 ? 0 : blocks * (d + 1);
 }
 
 // solve_batched_reg_kernel<T, kMax, ., kBatchLast>, on chip where `work`
@@ -657,17 +709,20 @@ int solve_batched_fused(const void* D, const void* O, const void* b, void* x, vo
   if (d <= 12) return static_cast<int>(launch_fused_reg<T, 12, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
   if (d <= 16) return static_cast<int>(launch_fused_reg<T, 16, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
   if (d <= kWarp) return static_cast<int>(launch_fused_reg<T, kWarp, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
-  const size_t smem =
-      work == nullptr ? resident_smem<T>(T_, d) : sizeof(T) * 2 * (static_cast<size_t>(d) + 1);
+  // tier 1 where the caller gave no workspace, else 2 where the stage fits
+  size_t optin = 0;
+  cudaError_t err = smem_optin(&optin);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tier = work == nullptr ? 1 : (wide_tier<T>(T_, d, optin) == 3 ? 3 : 2);
+  const size_t smem = wide_smem<T>(tier, T_, d);
   if (smem > kDefaultSmem) {
-    cudaError_t err = cudaFuncSetAttribute(solve_batched_fused_wide_kernel<T, kBatchLast>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+    err = cudaFuncSetAttribute(solve_batched_fused_wide_kernel<T, kBatchLast>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int threads = (d * d + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  solve_batched_fused_wide_kernel<T, kBatchLast><<<B, threads, smem, st>>>(Dp, Op, bp, xp, wp, B, T_, d);
+  solve_batched_fused_wide_kernel<T, kBatchLast><<<B, threads, smem, st>>>(Dp, Op, bp, xp, wp, B, T_, d, tier == 2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -675,11 +730,11 @@ int solve_batched_fused(const void* D, const void* O, const void* b, void* x, vo
 
 extern "C" {
 
-int calipso_solve_batched_fused_workspace_f32(int T, int d) {
+long long calipso_solve_batched_fused_workspace_f32(int T, int d) {
   return fused_workspace<float>(T, d);
 }
 
-int calipso_solve_batched_fused_workspace_f64(int T, int d) {
+long long calipso_solve_batched_fused_workspace_f64(int T, int d) {
   return fused_workspace<double>(T, d);
 }
 

@@ -31,8 +31,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # source stem -> {C entry point: argument types}; every entry point
 # returns a CUDA error code (int), except the fused solve's workspace
-# query (words per lane, or a negated CUDA error code); the layout queries
-# of factor_t1 and solve_t1 write through their two pointers
+# query (words per lane, or a negated CUDA error code, a 64-bit int:
+# RESTYPES); the layout queries of factor_t1 and solve_t1 write through
+# their two pointers
 SIGNATURES = {
     "riccati_t1": {
         **{f"calipso_factor_t1_{dt}": [_P, _P, _I, _I, _P] for dt in ("f32", "f64")},
@@ -62,6 +63,7 @@ SIGNATURES = {
         **{f"calipso_batch_first_{dt}": [_P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
     },
 }
+RESTYPES = {f"calipso_solve_batched_fused_workspace_{dt}": ctypes.c_longlong for dt in ("f32", "f64")}
 SOURCES = tuple(PACKAGE_DIR / "csrc" / f"{stem}.cu" for stem in SIGNATURES)
 
 _libs = {}
@@ -123,12 +125,14 @@ def build() -> dict:
 
 def load(stem: str):
     """The kernel library built from `csrc/<stem>.cu`, loaded once per
-    process (the first call builds every source)."""
+    process (where it is not built yet, every source without a library
+    is built first)."""
     if stem not in _libs:
-        lib = ctypes.CDLL(str(build()[stem]))
+        path = library_path(PACKAGE_DIR / "csrc" / f"{stem}.cu")
+        lib = ctypes.CDLL(str(path if path.exists() else build()[stem]))
         for name, argtypes in SIGNATURES[stem].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _I
+            fn.restype = RESTYPES.get(name, _I)
         _libs[stem] = lib
     return _libs[stem]

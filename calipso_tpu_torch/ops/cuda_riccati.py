@@ -35,12 +35,15 @@ in one kernel template that takes the batch-first (B, T, d, d) arrays of
 the first or the batch-last (T, d, d, B) copies the second makes -- up to
 d = 32 a warp a lane, `factor_lanes`' register stage with the forward
 sweep folded in and L_t, M_t and u_t kept for the backward sweep, past
-that a thread block a lane; the horizon's factor stays in shared memory
-where it fits; the batch-last copies and x's way back are `batch_last`
-and `batch_first`, one launch each of a tiled transpose kernel, the
-layout moves the reference leaves to XLA); `solve_batched`, the public
-entry point, takes the first on CUDA tensors, as the reference does off
-the CPU, and no solver path calls it.
+that a thread block a lane at any width, the horizon's factor in shared
+memory where it fits, else in a device-memory workspace with the stage
+being factored in shared memory where that fits; the batch-last copies
+and x's way back are `batch_last` and `batch_first`, one launch each of a
+tiled transpose kernel, the layout moves the reference leaves to XLA);
+`solve_batched`, the public entry point, takes the first on CUDA tensors,
+as the reference does off the CPU, but between d = 64 and `MAX_D` the
+stream kernels, which the card measured faster there; no solver path
+calls it.
 All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
 register kernels share their device code (`csrc/riccati_reg.cuh`). The
 stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
@@ -50,10 +53,10 @@ instance of the panel kernels, 8 warps a block), the stream kernels d <=
 `MAX_D[dtype]` (169 and 120: past d = 64 wide instances, the factor on 16
 warps without its stage-ahead copy where that does not fit, the sweeps
 with ceil(d/32) rows a thread and M read from device memory where two
-stages do not fit), the lanes kernels and the fused solves d <=
-`LANES_MAX_D` = 64; wider systems take the library and scan routes of
-`ops/riccati`, chosen there from the shape and dtype, and `solve_batched`
-past d = 64 takes the stream kernels, then the scan.
+stages do not fit), the lanes kernels d <= `LANES_MAX_D` = 64; wider
+systems take the library and scan routes of `ops/riccati`, chosen there
+from the shape and dtype. The fused solves take any d whose T d (d + 1)
+fits their int indices (`FUSED_MAX_INDEX`).
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -103,10 +106,14 @@ LAUNCHES = {
 # - block-tridiagonal, the stream kernels (csrc/riccati_stream.cu,
 #   wide_max_d): the factor's stacked panel [S_t ; O_t], 2d (d+1) words:
 #   float32 d <= 169 (229,840 B), float64 d <= 120 (232,320 B). The lanes
-#   kernels and the fused solve take d <= LANES_MAX_D.
+#   kernels take d <= LANES_MAX_D.
+# The fused solves (csrc/riccati_fused.cu) have no width limit: past d =
+# 32 the factor moves from shared memory to a device-memory workspace as
+# the width grows. Their int indices bound T d (d + 1) (shape_ok there).
 MAX_N = {torch.float32: 288, torch.float64: 192}
 MAX_D = {torch.float32: 169, torch.float64: 120}
-LANES_MAX_D = 64  # factor_lanes, solve_lanes, the fused solves (csrc/riccati_lanes.cu, riccati_fused.cu: kMaxD)
+LANES_MAX_D = 64  # factor_lanes, solve_lanes (csrc/riccati_lanes.cu)
+FUSED_MAX_INDEX = 2**31 - 1  # T d (d + 1) of the fused solves and their transposes
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 
@@ -232,14 +239,24 @@ def _dims(S):
     return B, n
 
 
+def _fused_fits(T, d):
+    if d < 1 or T * d * (d + 1) > FUSED_MAX_INDEX:
+        raise ValueError(
+            f"the fused solves take d >= 1 and T d (d + 1) <= {FUSED_MAX_INDEX} (their int indices), got T={T}, d={d}"
+        )
+
+
 def _lanes_dims(L, kernels="lanes"):
-    """(B, T, d) of a (B, T, d, d) batch that the `kernels` ("lanes": the
-    lanes kernels and the fused solves, "stream"; None: any width) take."""
+    """(B, T, d) of a (B, T, d, d) batch that the `kernels` ("lanes",
+    "stream", or "fused": the fused solves) take."""
     if L.dim() != 4 or L.shape[2] != L.shape[3] or L.shape[1] < 1:
         raise ValueError(f"expected a (B, T, d, d) batch with T >= 1, got {tuple(L.shape)}")
     B, T, d = L.shape[0], L.shape[1], L.shape[2]
     _dtype_ok(L.dtype, "block-tridiagonal")
-    widest = {"lanes": LANES_MAX_D, "stream": MAX_D[L.dtype], None: d}[kernels]
+    if kernels == "fused":
+        _fused_fits(T, d)
+        return B, T, d
+    widest = {"lanes": LANES_MAX_D, "stream": MAX_D[L.dtype]}[kernels]
     if not 1 <= d <= widest:
         raise ValueError(f"the {kernels} kernels take 1 <= d <= {widest} in {L.dtype}, got d={d}")
     return B, T, d
@@ -419,7 +436,7 @@ def solve_batched_plain(D, O, b):
     return solve_lanes_plain(L, M, b)
 
 
-def _batched_args(D, O, b, kernels="lanes"):
+def _batched_args(D, O, b, kernels="fused"):
     B, T, d = _lanes_dims(D, kernels)
     args = (("D", D, (B, T, d, d)), ("O", O, (B, T - 1, d, d)), ("b", b, (B, T, d)))
     for name, t, shape in args:
@@ -454,10 +471,10 @@ def _solve_fused(name, D, O, b, x, B, T, d):
 
 
 def solve_batched_fused(D, O, b):
-    """x (B, T, d) of `solve_batched_plain` in one kernel, one warp per
-    lane up to d = 32 and one thread block per lane past it; L and M stay
-    in shared memory where the horizon fits, else in a workspace this
-    wrapper allocates (the kernel says which)."""
+    """x (B, T, d) of `solve_batched_plain` in one kernel at any width,
+    one warp per lane up to d = 32 and one thread block per lane past it;
+    L and M stay in shared memory where the horizon fits, else in a
+    workspace this wrapper allocates (the kernel says which)."""
     if _on_cpu(D, O, b):
         return solve_batched_plain(D, O, b)
     B, T, d = _batched_args(D, O, b)
@@ -503,10 +520,9 @@ def batch_first(x):
     tensor: the plain version)."""
     if x.device.type == "cpu":
         return batch_first_plain(x)
-    if x.dim() != 3 or not 1 <= x.shape[1] <= LANES_MAX_D or x.shape[0] < 1:
-        raise ValueError(
-            f"expected a batch-last (T, d, B) x with T >= 1 and 1 <= d <= {LANES_MAX_D}, got {tuple(x.shape)}"
-        )
+    if x.dim() != 3 or x.shape[0] < 1:
+        raise ValueError(f"expected a batch-last (T, d, B) x with T >= 1, got {tuple(x.shape)}")
+    _fused_fits(x.shape[0], x.shape[1])
     _dtype_ok(x.dtype, "block-tridiagonal")
     _check_device("x", x)
     T, d, B = x.shape
@@ -535,20 +551,26 @@ def solve_batched_lanes(D, O, b):
     return _batch_first(xl, B, T, d)
 
 
+# solve_batched's route for LANES_MAX_D < d <= MAX_D, where both the fused
+# kernel and the stream kernels take the system: the one the card measured
+# faster. Float32, replayed from a CUDA graph on an NVIDIA H100 80GB HBM3 at
+# 700 W (chip_smoke.py phase 12e), fused kernel against factor_stream +
+# solve_stream: (4, 5, 65) 1.1306 against 0.4276 ms (float64 1.6484 against
+# 0.5446), (128, 8, 82) 4.2185 against 0.8247, (64, 8, 116) 11.9818
+# against 1.2611, (32, 8, 165) 23.3458 against 3.1433: the stream kernels
+STREAM_IN_BETWEEN = True
+
+
 def solve_batched(D, O, b):
     """Batched block-tridiagonal solve, D (B, T, d, d), O (B, T-1, d, d),
     b (B, T, d) -> x (B, T, d): the plain version for CPU tensors; for
-    CUDA tensors the fused kernel up to d = LANES_MAX_D (the reference's
-    choice off the CPU, whose fused Pallas kernel takes any width), past
-    it `factor_stream` then `solve_stream` up to MAX_D, and past that
-    ops/riccati's scan, counted as `factor_scan` and `solve_scan`."""
-    if _on_cpu(D, O, b) or D.shape[-1] <= LANES_MAX_D or D.dtype not in MAX_D:
+    CUDA tensors the fused kernel (the reference's choice off the CPU,
+    whose fused Pallas kernel takes any width) up to d = LANES_MAX_D and
+    past MAX_D, and between them `factor_stream` then `solve_stream`
+    (STREAM_IN_BETWEEN: faster there). No width takes the scan."""
+    wide = LANES_MAX_D < D.shape[-1] <= MAX_D.get(D.dtype, 0)
+    if _on_cpu(D, O, b) or not (STREAM_IN_BETWEEN and wide):
         return solve_batched_fused(D, O, b)
-    _, _, d = _batched_args(D, O, b, None)
-    if d <= MAX_D[D.dtype]:
-        L, M = factor_stream(D, O)
-        return solve_stream(L, M, b)
-    from calipso_tpu_torch.ops import riccati
-
-    L, M = riccati.factor_scan(D, O)
-    return riccati.solve_scan(L, M, b)
+    _batched_args(D, O, b)
+    L, M = factor_stream(D, O)
+    return solve_stream(L, M, b)

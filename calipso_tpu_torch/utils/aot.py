@@ -23,8 +23,13 @@ the cache is a JSON manifest that names those libraries:
 The reference's key misses its environment toggles; this one holds every
 input that changes what runs. On the CPU the routes are the kernels'
 plain versions, so the manifest names no library and is still checked on
-load. The reference's keyed `cached_batched` serves only `bench.py`; its
-counterpart waits for the port's bench (ROADMAP Queue 1 item 8).
+load.
+
+`cached_batched` is the keyed variant, as the reference's is: the
+caller's fingerprint (the problem and its shapes), `source_hash()` and
+the environment key a manifest file under `$XDG_CACHE_HOME/calipso_tpu_torch/aot`;
+a hit loads its libraries and skips the build, a miss writes it.
+`CALIPSO_AOT_CACHE=0` turns it off.
 """
 
 from __future__ import annotations
@@ -150,6 +155,38 @@ def save(batched, path, batch_size, num_parameters, dtype):
         json.dump(m, f, indent=1, sort_keys=True)
     os.replace(tmp, path)
     return path
+
+
+def cache_path(tag: str, fingerprint: str, device) -> Path:
+    """The manifest file of `cached_batched`, keyed by sha1 over the
+    fingerprint, `source_hash()` and the environment on `device` (so a
+    changed `CALIPSO_*` variable misses, which the reference's key does
+    not)."""
+    base = Path(os.path.expanduser(os.environ.get("XDG_CACHE_HOME", "~/.cache"))) / "calipso_tpu_torch" / "aot"
+    base.mkdir(parents=True, exist_ok=True)
+    key = json.dumps([fingerprint, source_hash(), _environment(torch.device(device))], sort_keys=True)
+    return base / f"{tag}-{hashlib.sha1(key.encode()).hexdigest()[:16]}.json"
+
+
+def cached_batched(batched, tag: str, fingerprint: str, batch_size, num_parameters=None, dtype=None):
+    """`calipso_tpu/utils/aot.py:cached_batched` for a batched solver of
+    the port: `(batched.solve, was_cached)`. A manifest at the key's path
+    that this process accepts (`aot_load`) is a hit: its libraries are
+    loaded and nothing is built. Anything else is a miss: `aot_save` at
+    (batch_size, num_parameters, dtype) writes it anew, atomically.
+    `CALIPSO_AOT_CACHE=0` gives `(batched.solve, False)` and touches no
+    file."""
+    if os.environ.get("CALIPSO_AOT_CACHE", "1") != "1":
+        return batched.solve, False
+    path = cache_path(tag, fingerprint, batched.device)
+    if path.exists():
+        try:
+            batched.aot_load(str(path), dtype)
+            return batched.solve, True
+        except ValueError:
+            pass  # stale (a library gone, another torch): written anew below
+    batched.aot_save(str(path), batch_size, num_parameters, dtype)
+    return batched.solve, False
 
 
 def load(batched, path, dtype):

@@ -132,11 +132,19 @@ Phases (each fails loudly; none catches its own failure):
      = 155) at B = 64: the T=1 kernels and no library call, at least B-2
      solved, a CPU float64 re-solve of 4 lanes with the same solved flags
      and states within 1e-3; (c) ops/riccati.factor, solve, solve_multi
-     (K=2) and the public solve_batched on the wide stream kernels, float32
-     at (128, 8, 82), (64, 8, 116) and (32, 8, 165) and float32 and
-     float64 at (4, 5, 65), one lane not positive definite, held to their
-     plain versions; (d) the same calls at (4, 5) one past each dtype's
-     MAX_D (d = 170, 121) on the scan route, held to the CPU. Phases 2e
+     (K=2) on the wide stream kernels and the public solve_batched (the
+     stream kernels too: measured faster there), float32 at (128, 8, 82),
+     (64, 8, 116) and (32, 8, 165) and float32 and float64 at (4, 5, 65),
+     one lane not positive definite, held to their plain versions; (d)
+     the same calls at (4, 5) one past each dtype's MAX_D (d = 170, 121),
+     ops/riccati's on the scan route, solve_batched on the fused kernel,
+     held to the CPU; (e) solve_batched_fused, solve_batched_lanes and
+     solve_batched at every shape of (c) and (d) and where the fused
+     kernel's factor lives in device memory alone ((16, 8, 256) float32,
+     (16, 8, 192) float64), each call's launches its own and no scan, x
+     against the plain version (the same NaN lane), then timed replayed
+     from a CUDA graph beside the stream kernels, the plain version,
+     torch.linalg.solve on the dense matrices and the bound. Phases 2e
      and 5 hold and time the kernels at these shapes (the stream kernels
      at K=1; the T=1 pair at (1, 131), (32, 221) and (64, 155));
   13. implicit differentiation (run after phase 12), each path with the
@@ -457,6 +465,15 @@ WIDE_STREAM_SHAPES = (
     ((4, 5, 65), ("float32", "float64")),
 )
 SCAN_B, SCAN_T = 4, 5
+# phase 12e: the fused solves (TPU kernels 8 and 9) and the public
+# solve_batched past d = 64, at every shape of 12c, one past each dtype's
+# MAX_D at (SCAN_B, SCAN_T), and where the fused kernel's factor lives in
+# device memory alone, stage and all (float32 past d = 239, float64 past
+# 168: its workspaces 63 MB and 71 MB)
+WIDE_FUSED_SHAPES = WIDE_STREAM_SHAPES + (
+    ((SCAN_B, SCAN_T, 170), ("float32",)), ((SCAN_B, SCAN_T, 121), ("float64",)),
+    ((16, 8, 256), ("float32",)), ((16, 8, 192), ("float64",)),
+)
 WIDE_ROUTE_KERNELS = {
     "pendulum n=131": ("factor_t1", "solve_t1"),
     "pendulum n=221 batch": ("factor_t1", "solve_t1"),
@@ -3019,9 +3036,9 @@ def wide_routes_phase(tag, cr, rc, Options, dev):
     solved flags and states within WIDE_CPU_ATOL. (c) ops/riccati's
     factor, solve, solve_multi (K=2) and cuda_riccati.solve_batched at
     WIDE_STREAM_SHAPES on the stream kernels, held to their plain
-    versions. (d) The same calls one past each dtype's MAX_D on the scan
-    route, held to the same calls on the CPU. Returns {path: launches} of
-    (a) and (b)."""
+    versions. (d) The same calls one past each dtype's MAX_D (ops/riccati's
+    on the scan route, solve_batched on the fused kernel), held to the
+    same calls on the CPU. Returns {path: launches} of (a) and (b)."""
     import torch
     from calipso_tpu_torch import TrajOptSolver
     from calipso_tpu_torch.models import pendulum
@@ -3113,24 +3130,42 @@ def wide_schur_batch(tag, cr, rc, Options, dev, horizon, B):
     return {f"pendulum_n{n}_batch": launches}
 
 
+def wide_inputs(B, T, d):
+    """Phase 12's block-tridiagonal inputs at (B, T, d), float64 numpy: D
+    positive definite but lane 1's, not positive definite from stage 2 on
+    (T >= 3), O, b (B, T, d) and bk (B, T, d, 2)."""
+    rng = np.random.default_rng(B + T + d)
+    A = rng.normal(size=(B, T, d, d))
+    D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
+    D64[1, 2] *= -1.0
+    return D64, 0.3 * rng.normal(size=(B, T - 1, d, d)), rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 2))
+
+
+def solve_batched_launches(cr, d, name):
+    """The launches of one cuda_riccati.solve_batched call at width d in
+    `name`: the fused kernel, or the stream kernels where its route takes
+    them."""
+    import torch
+
+    if cr.STREAM_IN_BETWEEN and cr.LANES_MAX_D < d <= cr.MAX_D[getattr(torch, name)]:
+        return {"factor_stream": 1, "solve_fwd_stream": 1, "solve_bwd_stream": 1}
+    return {"solve_batched_fused": 1}
+
+
 def wide_block_calls(tag, cr, rc, dev, B, T, d, name, route):
     """Phase 12c and 12d: ops/riccati.factor, solve, solve_multi (K=2) and
     cuda_riccati.solve_batched at (B, T, d) in `name` on `route` ("stream":
     the stream kernels, held to their plain versions on the card; "scan":
     the scan, held to the same calls on the CPU), the launch counts zeroed
-    just before: the route's kernels (or library calls) and no other. Lane
-    1 is not positive definite from stage 2 on: NaN from there on, on both
-    paths, and over all of its x."""
+    just before: the route's kernels (or library calls) and
+    solve_batched's (solve_batched_launches), no other. Lane 1 is not
+    positive definite from stage 2 on: NaN from there on, on both paths,
+    and over all of its x."""
     import torch
 
     dtype = getattr(torch, name)
     check(rc.route(d, dtype, T) == route, f"d={d} {name} takes the {rc.route(d, dtype, T)} route, not the {route}")
-    rng = np.random.default_rng(B + T + d)
-    A = rng.normal(size=(B, T, d, d))
-    D64 = A @ np.swapaxes(A, -1, -2) + d * np.eye(d)
-    D64[1, 2] *= -1.0
-    O64, b64, bk64 = 0.3 * rng.normal(size=(B, T - 1, d, d)), rng.normal(size=(B, T, d)), rng.normal(size=(B, T, d, 2))
-    D, O, b, bk = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64, bk64))
+    D, O, b, bk = (torch.tensor(a, dtype=dtype, device=dev) for a in wide_inputs(B, T, d))
     zero_launches(cr)
     L, M = rc.factor(D, O)
     got = (L, M, rc.solve(L, M, b), rc.solve_multi(L, M, bk), cr.solve_batched(D, O, b))
@@ -3139,15 +3174,17 @@ def wide_block_calls(tag, cr, rc, dev, B, T, d, name, route):
     shape = f"B={B} T={T} d={d} ({name})"
     print(f"{tag} {route} route {shape}: launches {launches}")
     if route == "stream":
-        want = {"factor_stream": 2, "solve_fwd_stream": 3, "solve_bwd_stream": 3}
+        want = {"factor_stream": 1, "solve_fwd_stream": 2, "solve_bwd_stream": 2}
         Lp, Mp = cr.factor_stream_plain(D, O)
         ref = (Lp, Mp, cr.solve_lanes_plain(Lp, Mp, b),
                cr.solve_bwd_stream_plain(Lp, Mp, cr.solve_fwd_stream_plain(Lp, Mp, bk)), cr.solve_batched_plain(D, O, b))
     else:
-        want = {"factor_scan": 2, "solve_scan": 3}
+        want = {"factor_scan": 1, "solve_scan": 2}
         Dc, Oc, bc, bkc = (a.cpu() for a in (D, O, b, bk))
         Lc, Mc = rc.factor(Dc, Oc)
         ref = (Lc, Mc, rc.solve(Lc, Mc, bc), rc.solve_multi(Lc, Mc, bkc), cr.solve_batched(Dc, Oc, bc))
+    for k, v in solve_batched_launches(cr, d, name).items():
+        want[k] = want.get(k, 0) + v
     check(launches == want, f"{route} route {shape}: launches {launches}, want {want}")
     for label, g, w in zip(("L", "M", "x", "X", "solve_batched x"), got, ref):
         g, w = g.cpu(), w.cpu()
@@ -3159,6 +3196,79 @@ def wide_block_calls(tag, cr, rc, dev, B, T, d, name, route):
     for x in (got[2], got[4]):
         check(bool(torch.isnan(x[1]).all()) and bool(torch.isfinite(x[[0] + list(range(2, B))]).all()),
               f"{route} route {shape}: lane 1's x is not NaN, or another lane's is")
+
+
+def adaptive_reps(fn, budget_ms=60.0, most=20):
+    """How many calls of fn() fill about budget_ms (one timed call after a
+    warm-up), at least 2 and at most `most`."""
+    return max(2, min(most, int(budget_ms / max(cuda_ms(fn, 1), 1e-3))))
+
+
+def wide_fused_phase(tag, cr, dev, shapes=WIDE_FUSED_SHAPES):
+    """Phase 12e: solve_batched_fused, solve_batched_lanes and the public
+    solve_batched at each of `shapes` past d = 64 and dtype, each call's
+    launch counts zeroed just before: its own kernel and no other
+    (solve_batched: solve_batched_launches; no scan anywhere), x against
+    solve_batched_plain within RTOL with lane 1 (not positive definite from
+    stage 2 on) NaN over all of its x on every path. Then, every lane
+    positive definite, each replayed from a CUDA graph and host-launched,
+    beside the stream kernels' factor + solve where they take the width
+    (the route solve_batched may take), the plain version,
+    torch.linalg.solve on the dense (B, Td, Td) matrices and
+    batched_bound. Returns {(kernel, dtype name, shape): (ms, graph ms,
+    plain ms, library ms, (bound ms, bound by))} of the two fused solves."""
+    import torch
+
+    out = {}
+    for (B, T, d), only in shapes:
+        D64, O64, b64, _ = wide_inputs(B, T, d)
+        shape = f"B={B} T={T} d={d}"
+        for name in only:
+            dtype = getattr(torch, name)
+            D, O, b = (torch.tensor(a, dtype=dtype, device=dev) for a in (D64, O64, b64))
+            xp = cr.solve_batched_plain(D, O, b)
+            ok = ~torch.isnan(xp).flatten(1).any(1)
+            check(torch.nonzero(~ok)[:, 0].tolist() == [1], f"plain {name} {shape}: NaN lanes")
+            launches = {}
+            for kname, want in (
+                ("solve_batched_fused", {"solve_batched_fused": 1}),
+                ("solve_batched_lanes", {"transpose": 2, "solve_batched_lanes": 1}),
+                ("solve_batched", solve_batched_launches(cr, d, name)),
+            ):
+                zero_launches(cr)
+                x = getattr(cr, kname)(D, O, b)
+                torch.cuda.synchronize()
+                launches[kname] = moved = {k: v for k, v in cr.LAUNCHES.items() if v}
+                check(moved == want, f"{kname} {name} {shape}: launches {moved}, want {want}")
+                check(
+                    bool(torch.isnan(x[~ok]).all()) and bool(torch.isfinite(x[ok]).all()),
+                    f"{kname} {name} {shape}: the NaN lanes differ from the plain version's",
+                )
+                rel_check(tag, kname, name, shape, x, xp, ok, {}, None)
+            print(f"{tag} fused solves past d = 64 {name} {shape}: launches {launches}; no scan")
+
+            D[1, 2] *= -1.0  # every lane positive definite for the times
+            fns = {k: (lambda k=k: getattr(cr, k)(D, O, b)) for k in ("solve_batched_fused", "solve_batched_lanes", "solve_batched")}
+            if d <= cr.MAX_D[dtype]:
+                fns["factor_stream + solve_stream"] = lambda: cr.solve_stream(*cr.factor_stream(D, O), b)
+            S, bv = dense_tridiag(D, O), b.reshape(B, T * d, 1)
+            lib_ms = cuda_ms(lambda: torch.linalg.solve(S, bv), adaptive_reps(lambda: torch.linalg.solve(S, bv)))
+            plain_ms = cuda_ms(lambda: cr.solve_batched_plain(D, O, b), 3)
+            bms, by = batched_bound(B, T, d, name)
+            times = {}
+            for kname, fn in fns.items():
+                reps = adaptive_reps(fn)
+                times[kname] = cuda_ms(fn, reps), graph_ms(fn, reps)
+            parts = "; ".join(f"{k} {ms:.4f} ms host-launched, {gms:.4f} ms replayed" for k, (ms, gms) in times.items())
+            print(
+                f"{tag} fused solves past d = 64 {name} {shape}: {parts}; plain {plain_ms:.4f} ms, "
+                f"torch.linalg.solve (dense) {lib_ms:.4f} ms, bound {bms * 1e3:.2f} us ({by})"
+            )
+            for kname in BATCHED_KERNELS:
+                ms, gms = times[kname]
+                out[(kname, name, shape)] = ms, gms, plain_ms, lib_ms, (bms, by)
+                print_shape_times(tag, kname, name, shape, ms, gms, plain_ms, lib_ms, bms, by)
+    return out
 
 
 def pendulum_solver(options, device, horizon):
@@ -4066,8 +4176,10 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
     phase("10: refinement_fallback firing (every 4th lane's schur factor broken)")
     fallback_fires_phase(tag, cr, Options, dev)
     # 12. the routes past the kernels' widths
-    phase("12: past n=128 and d=64: schur at n=131 (float64), 221 and 155 (float32 batches), the stream kernels and the scan")
+    phase("12: past n=128 and d=64: schur at n=131 (float64), 221 and 155 (float32 batches), the stream kernels, the scan and solve_batched")
     path_launches_wide = wide_routes_phase(tag, cr, rc, Options, dev)
+    phase("12e: the fused solves and solve_batched past d = 64, to d = 256 in float32 and 192 in float64")
+    contact_times.update(wide_fused_phase(tag, cr, dev))
 
     # 13. implicit differentiation; 14. MPC and auto-tuning
     app_launches = differentiation_phase(tag, cr, Options, dev, phase)

@@ -636,14 +636,18 @@ def test_batched_lanes_single_lane(cuda, T, d, dtype):
 @pytest.mark.parametrize(
     "B,T,d,dtype,route",
     [(6, 5, 65, torch.float32, "stream"), (6, 5, 128, torch.float32, "stream"), (6, 5, 165, torch.float32, "stream"),
-     (6, 5, 65, torch.float64, "stream"), (3, 4, 170, torch.float32, "scan"), (3, 4, 128, torch.float64, "scan")],
+     (6, 5, 65, torch.float64, "stream"), (3, 4, 170, torch.float32, "fused"), (3, 4, 128, torch.float64, "fused"),
+     (3, 4, 256, torch.float32, "fused"), (3, 4, 192, torch.float64, "fused")],
 )
 def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype, route):
-    """The public solve_batched past the fused kernel's d = 64, where the
-    reference's fused Pallas kernel still answers: factor_stream then
-    solve_stream up to MAX_D, the scan past it, each counted under its
-    own keys; x matches the plain version, and lane 2, not positive
-    definite from stage 2 on, is NaN over all of its x on both paths."""
+    """The public solve_batched past d = 64, where the reference's fused
+    Pallas kernel still answers: factor_stream then solve_stream up to
+    MAX_D (STREAM_IN_BETWEEN: the card measured them faster there), the
+    fused kernel past it (its factor in the workspace, the stage on chip
+    to d = 239 / 168, past that in the workspace too), each counted under
+    its own keys and never the scan; x matches the plain version, and
+    lane 2, not positive definite from stage 2 on, is NaN over all of its
+    x on both paths."""
     rng = np.random.default_rng(B + T + d)
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d, non_pd=((2, 2),)))
     before = dict(cuda_riccati.LAUNCHES)
@@ -653,11 +657,46 @@ def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype, route):
     if route == "stream":
         assert moved == {"factor_stream": 1, "solve_fwd_stream": 1, "solve_bwd_stream": 1}
     else:
-        assert moved == {"factor_scan": 1, "solve_scan": 1}
+        assert moved == {"solve_batched_fused": 1}
     xp = cuda_riccati.solve_batched_plain(D, O, b)
     assert torch.equal(torch.isnan(x), torch.isnan(xp)) and bool(torch.isnan(x[2]).all())
     ok = torch.tensor([i != 2 for i in range(B)], device=cuda)
     assert _rel_err(x, xp, ok) <= RTOL[dtype]
+
+
+@pytest.mark.parametrize(
+    "B,T,d,dtype",
+    [(1, 1, 65, torch.float32), (1, 1, 121, torch.float64), (3, 5, 65, torch.float64), (5, 3, 100, torch.float32),
+     (4, 2, 170, torch.float32), (3, 3, 240, torch.float32), (2, 3, 169, torch.float64), (1, 2, 256, torch.float32)],
+)
+def test_fused_solves_past_d_64(cuda, B, T, d, dtype):
+    """solve_batched_fused and solve_batched_lanes past d = 64 in each of
+    the kernel's tiers (the horizon on chip at (1, 1, 65), (1, 1, 121) and
+    (5, 3, 100); the stage on chip, the factor in the workspace, at (3, 5,
+    65) and (4, 2, 170); past d = 239 / 168 all of it in the workspace),
+    B = 1 and T = 1 (O empty) among them: x against the plain version,
+    each wrapper's launches its
+    own (the lanes wrapper's two transposes beside its kernel); then the
+    last lane not positive definite at its last stage: all of its x NaN,
+    the other lanes untouched."""
+    rng = np.random.default_rng(B + T + d)
+    D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d))
+    lanes = torch.ones(B, dtype=torch.bool, device=cuda)
+    for bad in (False, True):
+        if bad:
+            D[-1, -1] *= -1.0
+            lanes[-1] = False
+        xp = cuda_riccati.solve_batched_plain(D, O, b)
+        for name, want in (("solve_batched_fused", {"solve_batched_fused": 1}),
+                           ("solve_batched_lanes", {"transpose": 2, "solve_batched_lanes": 1})):
+            before = dict(cuda_riccati.LAUNCHES)
+            x = getattr(cuda_riccati, name)(D, O, b)
+            torch.cuda.synchronize()
+            assert {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]} == want
+            assert torch.equal(torch.isnan(x), torch.isnan(xp)) and bool(torch.isnan(x[~lanes]).all())
+            assert bool(torch.isfinite(x[lanes]).all())
+            if bool(lanes.any()):
+                assert _rel_err(x, xp, lanes) <= RTOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -694,9 +733,12 @@ def test_batched_solve_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             fn(D, O, b.cpu())
         x = fn(D, O, b)
         assert torch.allclose(x, b)  # S is the identity
-        with pytest.raises(ValueError, match="d <= 64"):  # past it solve_batched takes the stream kernels
-            fn(torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda),
-               torch.ones(1, 2, 65, device=cuda))
+        x = fn(torch.eye(65, device=cuda).repeat(1, 2, 1, 1), torch.zeros(1, 1, 65, 65, device=cuda),
+               torch.ones(1, 2, 65, device=cuda))  # any width: past d = 64 a block a lane
+        assert torch.equal(x, torch.ones(1, 2, 65, device=cuda))
+        with pytest.raises(ValueError, match="int indices"):  # T d (d + 1) past 2^31 - 1 (B = 0: no memory)
+            fn(torch.empty(0, 1, 46341, 46341, device=cuda), torch.empty(0, 0, 46341, 46341, device=cuda),
+               torch.empty(0, 1, 46341, device=cuda))
 
 
 def test_stream_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -20,8 +20,10 @@ from tests.test_riccati import make_block_tridiag
 
 ATOL = 1e-9  # that of tests/test_pallas_riccati.py
 
-# the reference tests' shapes, T=1, and the batched rocket's stage blocks
-SHAPES = [(3, 6, 4), (5, 6, 4), (2, 4, 3), (3, 1, 5), (3, 31, 9)]
+# the reference tests' shapes, T=1, the batched rocket's stage blocks, and
+# two past d = 64, where the port's fused kernels leave shared memory for
+# a workspace
+SHAPES = [(3, 6, 4), (5, 6, 4), (2, 4, 3), (3, 1, 5), (3, 31, 9), (2, 3, 65), (2, 2, 130)]
 BATCHED = ("solve_batched", "solve_batched_fused", "solve_batched_lanes")
 
 
@@ -83,8 +85,8 @@ def test_cpu_tensors_take_the_plain_version(name):
 
 @pytest.mark.parametrize("name", BATCHED)
 def test_wrappers_refuse_what_the_kernels_do_not_take(name):
-    """Shape, dtype and d checks come before the kernel; a tensor that is
-    on neither the CPU nor a card is refused, never computed."""
+    """Shape, dtype and size checks come before the kernel; a tensor that
+    is on neither the CPU nor a card is refused, never computed."""
     fn = getattr(cuda_riccati, name)
     meta = lambda *shape, dtype=torch.float32: torch.empty(shape, dtype=dtype, device="meta")
     with pytest.raises(ValueError, match="shape"):
@@ -96,15 +98,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(name):
     with pytest.raises(TypeError, match="float32 or float64"):
         h = torch.float16
         fn(meta(3, 4, 5, 5, dtype=h), meta(3, 3, 5, 5, dtype=h), meta(3, 4, 5, dtype=h))
-    if name == "solve_batched":
-        # past d = 64 it takes the stream kernels, then the scan: a tensor
-        # off the card is refused there too, never computed
-        for d in (65, 170):
-            with pytest.raises(ValueError, match="CUDA tensor"):
-                fn(meta(1, 2, d, d), meta(1, 1, d, d), meta(1, 2, d))
-    else:
-        with pytest.raises(ValueError, match="d <= 64"):
-            fn(meta(1, 2, 65, 65), meta(1, 1, 65, 65), meta(1, 2, 65))
+    # every width past d = 64 is taken (solve_batched between d = 64 and
+    # MAX_D on the stream kernels): a tensor off the card is refused there
+    # too, never computed
+    for d in (65, 170, 256):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            fn(meta(1, 2, d, d), meta(1, 1, d, d), meta(1, 2, d))
+    # past the kernels' int indices: T d (d + 1) <= 2^31 - 1
+    with pytest.raises(ValueError, match=r"T d \(d \+ 1\) <= 2147483647"):
+        fn(meta(1, 1, 46341, 46341), meta(1, 0, 46341, 46341), meta(1, 1, 46341))
+    with pytest.raises(ValueError, match=r"T d \(d \+ 1\) <= 2147483647"):
+        fn(meta(1, 130, 4064, 4064), meta(1, 129, 4064, 4064), meta(1, 130, 4064))
     with pytest.raises(ValueError, match="T >= 1"):
         fn(meta(1, 0, 4, 4), meta(1, 0, 4, 4), meta(1, 0, 4))
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -12,7 +12,9 @@ package's on the CPU in float64.
 - The batched solvers' `aot_save` / `aot_load`: the manifest round-trips
   and the loaded solver solves as before; a manifest whose source hash or
   dtype differs, or whose library is missing, is refused, naming the
-  field; the routes it records follow the backends.
+  field; the routes it records follow the backends. `cached_batched`
+  (`tests/test_aot.py`'s keyed cache) hits and misses by its key, the
+  environment included.
 """
 
 import json
@@ -227,6 +229,38 @@ def test_aot_load_refuses_another_dtype_or_a_missing_library(tmp_path, monkeypat
         json.dump(m, f)
     with pytest.raises(ValueError, match="library riccati_t1 missing"):
         bts.aot_load(path)
+
+
+def test_cached_batched_key_changes_with_fingerprint(tmp_path, monkeypatch):
+    """tests/test_aot.py's test of the keyed cache in the port: the first
+    call misses and writes the manifest, the second hits, another
+    fingerprint misses; a changed CALIPSO_* variable misses too (the
+    port's key holds the environment); CALIPSO_AOT_CACHE=0 gives the
+    solver's solve uncached and writes nothing; the callables solve
+    alike."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    monkeypatch.delenv("CALIPSO_AOT_CACHE", raising=False)
+    monkeypatch.delenv("CALIPSO_TEST_TOGGLE", raising=False)
+    bts = pendulum_solver("torch", 5, calipso_tpu_torch.Options()).batched()
+    B = 4
+    cache = tmp_path / "calipso_tpu_torch" / "aot"
+    fn1, cached1 = aot.cached_batched(bts, "t", "fp-a", B)
+    assert not cached1 and len(list(cache.iterdir())) == 1
+    fn2, cached2 = aot.cached_batched(bts, "t", "fp-a", B)
+    assert cached2
+    fn3, cached3 = aot.cached_batched(bts, "t", "fp-b", B)
+    assert not cached3 and len(list(cache.iterdir())) == 2
+    monkeypatch.setenv("CALIPSO_TEST_TOGGLE", "1")
+    assert aot.cached_batched(bts, "t", "fp-a", B)[1] is False
+    assert aot.cached_batched(bts, "t", "fp-a", B)[1] is True
+    assert len(list(cache.iterdir())) == 3
+    monkeypatch.setenv("CALIPSO_AOT_CACHE", "0")
+    fn0, cached0 = aot.cached_batched(bts, "t", "fp-c", B)
+    assert fn0 == bts.solve and not cached0 and len(list(cache.iterdir())) == 3
+    th = torch.tensor(0.2 * np.random.default_rng(1).normal(size=(B, 2)))
+    r1, r2 = fn1(parameters=th), fn2(parameters=th)
+    assert bool(r1.state.solved.all())
+    assert torch.equal(r1.state.p.x, r2.state.p.x)
 
 
 def test_aot_routes_follow_the_backends():

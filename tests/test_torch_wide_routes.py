@@ -207,8 +207,8 @@ def test_scan_route_at_one_stage_is_the_t1_route(n):
 
 @pytest.mark.parametrize("d", [65, 165])
 def test_solve_batched_past_the_fused_width_matches_jax(d):
-    """The public `solve_batched` past the fused kernel's d = 64 (on the
-    card the stream kernels, then the scan): on CPU tensors its plain
+    """The public `solve_batched` past d = 64 (on the card the stream
+    kernels up to MAX_D, the fused kernel past it): on CPU tensors its plain
     version, against the reference's `solve_batched(..., use_pallas=False)`
     (its scan factor and solve under vmap) at (3, 3, d) in float64; lane
     1, not positive definite from stage 1 on, is NaN over all of its x
