@@ -88,23 +88,24 @@
 // fewer where the batch would leave SMs idle.
 //
 // Past d = 32 (the quadruped's d = 54, and any width past it:
-// solve_batched_fused_wide_kernel) one thread block owns one lane, with
-// one __syncthreads() per pivot, M_t and u_t out of one substitution. The
-// factor lives in one of three tiers (wide_tier), the first whose shared
-// memory fits a block's opt-in limit (232,448 B on an H100): the
-// horizon's L and M in shared memory ((2T - 1) d (d+1) words plus two
-// vectors, 178 KB at the quadruped's T=8, d=54 in float32); else L and M
-// in the workspace and the stage being factored, S_t, in shared memory
-// ((d+1)(d+2) words: float32 to d = 239, float64 to d = 168), kept into the
-// workspace once factored; else all of it in the workspace, read and
-// written through L1 and L2 (at (16, 8, 256) in float32 the workspace is
-// 63 MB). Batch-last, its reads and writes take the same address map,
-// each element its own sector, which consecutive lanes' blocks share in L2.
-// Past d = 64 the bound is the operations' (36 us at (32, 8, 165) in
-// float32), but a lane's pivots are a chain of dependent steps, a barrier
-// each, on one SM: 23.3 ms there on an H100, where factor_stream and
-// solve_stream take 3.1 ms (ops/cuda_riccati.solve_batched takes those
-// between d = 64 and their limit).
+// solve_batched_fused_wide_kernel) one thread block owns one lane. Forward,
+// each stage is the wide stage of riccati_wide.cuh, factor_stream's stage
+// with one more row: the Cholesky of the stacked panel [S_t ; O_t ; r_t']
+// gives L_t, M_t' and, as its last row, u_t' = r_t' L_t^{-T}, the forward
+// sweep, with r_t = b_t - M_{t-1}' u_{t-1} the Schur update's last row;
+// L_t and M_t' go to the workspace and u_t to x. Backward, x_t = L_t^{-T}
+// (u_t - M_t x_{t+1}): the coupling a row a thread over M_t''s rows, then
+// L_t' x_t = r in blocks of 32 rows from the bottom, warp 0 solving the
+// diagonal block by shuffles from shared memory while the other warps
+// stage the next block, then every thread taking the block's columns off
+// the rows above; no barrier a pivot. The panel ((2d + 1) rows) lies in
+// shared memory where it fits a block's opt-in limit (232,448 B on an
+// H100: float32 to d = 169, float64 to 119, with 16-byte loads to 167 /
+// 118), else in the lane's workspace. Past d = 64 the bound is the
+// operations' (36 us at (32, 8, 165) in float32), but a lane's stages and
+// the panels of a stage are a chain on one SM (PERF.md). Batch-last, the
+// stage's inputs and x take the same address map, each element its own
+// sector, which consecutive lanes' blocks share in L2.
 //
 // The lanes wrapper's layout moves (batch-first into batch-last, x back)
 // are transpose_kernel's: 32 x 32 tiles through shared memory, one launch
@@ -117,21 +118,16 @@
 // given stream, allocates nothing, and returns cudaGetLastError().
 
 #include "riccati_reg.cuh"
+#include "riccati_wide.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // d > 32: threads per block
 constexpr long long kMaxIndex = 0x7fffffffLL;  // T d (d + 1) at most this (shape_ok)
 constexpr int kMaxFusedWarps = 4;  // d <= 32: at most this many warps a block
 // d <= 32: the horizon's factor stays on chip where this many warps
 // can hold theirs in a block's shared memory (two blocks of 4 an SM: the
 // rocket batch's 1024 lanes over 132 SMs in one wave)
 constexpr int kOnChipWarps = 8;
-
-template <typename T>
-__device__ __forceinline__ bool pivot_ok(T p) {
-  return p > T(0) && p - p == T(0);  // positive and finite
-}
 
 // Words of a stage slot of solve_batched_reg_kernel: D_t, O_t (d x d each)
 // and b_t, rounded to 16 bytes
@@ -327,139 +323,94 @@ __global__ void __launch_bounds__(kMaxFusedWarps * kWarp, 1)
   }
 }
 
-// The fused solve past d = 32: one block per lane, on batch-first or,
-// where kBatchLast, batch-last arrays (O then holds O_t'). Lf[t] (t < T)
-// keeps L_t; Mf[t] (t < T-1) holds O_t row-major, i.e. column c of O_t' in
-// row c, turned in place into M_t with column c in row c (the carry the
-// next stage's Schur update reads); each d rows of ld = d + 1. Shared
-// memory always holds v (the carry: u_{t-1} forward, x_{t+1} backward) and
-// r (the stage's right-hand side); u_t waits in x. Three tiers
-// (wide_tier): the whole horizon's Lf and Mf in shared memory (`work`
-// null); else Lf and Mf in the lane's part of `work`, and S_t factored in
-// shared memory (kept into Lf[t] once factored) where `stage_on_chip`,
-// else in place in Lf[t]. The work of a stage is spread over the block
-// without integer division: the Schur update S_t = D_t - M_{t-1}' M_{t-1}
-// and each pivot's trailing update a row a warp, a column a thread; the
-// substitution [M_t u_t] = L_t^{-1} [O_t' r] a column a warp, a row a
-// thread, each column's pivots apart from the others' (a __syncwarp a
-// pivot); one __syncthreads() a pivot of the factor and of the backward
-// sweep. An element's operations come in the same order in every tier.
-template <typename T, bool kBatchLast>
-__global__ void __launch_bounds__(kMaxThreads)
+// Words of the fused solve's stacked panel past d = 32: 2d + 1 rows of
+// wide::panel_ld(d, vec) words (S_t, O_t and r_t), then r_t as the Schur
+// update leaves it (d words)
+template <typename T>
+__host__ __device__ inline long long fused_panel_words(int d, bool vec) {
+  return (2LL * d + 1) * wide::panel_ld<T>(d, vec) + d;
+}
+
+// The panel's bytes where it lies in shared memory, rounded to 16, and the
+// failure flag after them
+template <typename T>
+__host__ __device__ inline long long fused_panel_bytes(int d, bool vec) {
+  return (static_cast<long long>(sizeof(T)) * fused_panel_words<T>(d, vec) + 15) / 16 * 16;
+}
+
+// Where the workspace keeps the panel (!on_chip): after L_t and M_t', at a
+// multiple of 16 bytes
+template <typename T>
+__host__ __device__ inline long long fused_panel_offset(int T_, int d) {
+  constexpr long long per = 16 / sizeof(T);
+  return ((2LL * T_ - 1) * d * d + per - 1) / per * per;
+}
+
+// The fused solve past d = 32: one block a lane (wide::Threads), on
+// batch-first or, where kBatchLast, batch-last arrays (O then holds O_t').
+// The lane's part of `work` (`words` words) keeps L_t (t d^2 on, row-major,
+// its lower triangle) and M_t' ((T + t) d^2 on; row c is column c of M_t),
+// and, where the panel does not fit in shared memory (!on_chip), the panel
+// and r_t after them. Forward, each stage is wide::factor_stage on the
+// stacked panel [S_t ; O_t ; r_t'] (riccati_wide.cuh): the forward sweep is
+// the panel's last row, u_t' = r_t' L_t^{-T}, and r_t = b_t - M_{t-1}' u_{t-1}
+// the Schur update's last row; then L_t and M_t' out to the workspace and
+// u_t to x, one barrier. Backward, x_t = L_t^{-T} (u_t - M_t x_{t+1}): the
+// coupling a row a thread over the rows of M_t' (consecutive words across
+// a warp), then L_t' x_t = r in blocks of 32 rows from the bottom: warp 0
+// solves the diagonal block from registers (lane i holds column i of it,
+// the pivot broadcast by shuffle, no barrier a pivot), then the block's
+// threads take its columns off the rows above (row j of L_t: consecutive
+// words across a warp); two barriers a block.
+template <typename T, bool kBatchLast, bool kVec>
+__global__ void __launch_bounds__(wide::Threads<T>::value, 1)
     solve_batched_fused_wide_kernel(const T* __restrict__ D, const T* __restrict__ O,
-                                    const T* __restrict__ bv, T* x, T* work, int B, int T_, int d,
-                                    int stage_on_chip) {
+                                    const T* __restrict__ bv, T* x, T* work, long long words, int B, int T_,
+                                    int d, int on_chip, unsigned long long* parts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = d + 1;
-  const int blk = d * ld;
-  T* const v = reinterpret_cast<T*>(smem_raw);
-  T* const r = v + ld;
-  const long long lane = blockIdx.x;
-  const long long nblk = 2LL * T_ - 1;
-  T* const Lf = work == nullptr ? r + ld : work + lane * nblk * blk;
-  T* const Mf = Lf + static_cast<long long>(T_) * blk;
+  const int ld = wide::panel_ld<T>(d, kVec);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, q = tid & (kWarp - 1), nw = nt >> 5;
+  const int warp = tid >> 5, lane = tid & (kWarp - 1), nw = nt >> 5;
+  const long long b = blockIdx.x;
   const long long dd = static_cast<long long>(d) * d;
+  T* const WL = work + b * words;
+  T* const WM = WL + T_ * dd;
+  T* const P = on_chip ? reinterpret_cast<T*>(smem_raw) : WL + fused_panel_offset<T>(T_, d);
+  T* const rb = P + (2LL * d + 1) * ld;
+  int* const flag = reinterpret_cast<int*>(smem_raw + (on_chip ? fused_panel_bytes<T>(d, kVec) : 0));
+  if (kVec) wide::zero_padding(P, 2 * d + 1, ld, d);
   const long long sB = kBatchLast ? B : 1;  // words between a lane's consecutive elements
-  const T* Dl = D + lane_offset<kBatchLast>(lane, T_ * dd);
-  const T* Ol = O + lane_offset<kBatchLast>(lane, (T_ - 1) * dd);
-  const T* bl = bv + lane_offset<kBatchLast>(lane, static_cast<long long>(T_) * d);
-  T* xl = x + lane_offset<kBatchLast>(lane, static_cast<long long>(T_) * d);  // x_t[i] at xl[(t d + i) sB]
+  const T* Dl = D + lane_offset<kBatchLast>(b, T_ * dd);
+  const T* Ol = O + lane_offset<kBatchLast>(b, (T_ - 1) * dd);
+  const T* bl = bv + lane_offset<kBatchLast>(b, static_cast<long long>(T_) * d);
+  T* const xl = x + lane_offset<kBatchLast>(b, static_cast<long long>(T_) * d);  // x_t[i] at xl[(t d + i) sB]
+  // O_t (c, j): batch-first at c d + j; batch-last O'_t (j, c) at (j d + c) B
+  const long long sOr = kBatchLast ? sB : d, sOc = kBatchLast ? d * sB : 1;
 
+  wide::Stamps stamp{parts, clock64()};
   bool ok = true;
-  for (int t = 0; t < T_ && ok; ++t) {
-    T* const Lt = Lf + static_cast<long long>(t) * blk;
-    T* const S = stage_on_chip ? r + ld : Lt;  // where S_t is factored
-    T* const R = Mf + static_cast<long long>(t) * blk;
-    const T* C = Mf + static_cast<long long>(t - 1) * blk;  // M_{t-1}, read for t > 0
-    const bool coupled = t < T_ - 1;
-
-    // S_t = D_t - M_{t-1}' M_{t-1} (lower triangle), O_t into R (element
-    // (i, j) of O_t' is O_t's (j, i)), and r = b_t - M_{t-1}' u_{t-1}. With
-    // M_{t-1} in shared memory a thread takes an entry, its sum in order of
-    // k; in the workspace a warp takes an entry, its threads k, so that
-    // their reads of the two rows of C are coalesced, then a reduction
+  for (int t = 0; t < T_; ++t) {
+    const int nO = t < T_ - 1 ? d : 0;  // the last stage has no O; its r row is row d
+    T* const Lt = WL + t * dd;
+    const wide::Inputs<T> in{Dl + t * dd * sB, Ol + t * dd * sB, bl + t * d * sB, sB, sOr, sOc};
+    if (!wide::factor_stage<kVec, T>(P, rb, flag, ld, d, nO, 1, t > 0, in, Lt, d, stamp)) {
+      ok = false;
+      break;
+    }
+    // L_t's rows left of their diagonal blocks (thread 0 wrote those), M_t'
+    // and u_t
     for (int i = warp; i < d; i += nw) {
-      for (int j = q; j < d; j += kWarp) {
-        const long long e = t * dd + static_cast<long long>(i) * d + j;
-        if (j <= i && (t == 0 || work == nullptr)) {
-          T s = Dl[e * sB];
-          if (t > 0)
-            for (int k = 0; k < d; ++k) s -= C[i * ld + k] * C[j * ld + k];
-          S[i * ld + j] = s;
-        }
-        if (coupled) R[kBatchLast ? j * ld + i : i * ld + j] = Ol[e * sB];
-      }
-      if (t == 0 || work == nullptr) continue;
-      for (int j = 0; j <= i; ++j) {
-        T p = T(0);
-        for (int k = q; k < d; k += kWarp) p += C[i * ld + k] * C[j * ld + k];
-        for (int o = kWarp / 2; o > 0; o >>= 1) p += __shfl_xor_sync(kFull, p, o);
-        if (q == (j & (kWarp - 1))) S[i * ld + j] = Dl[(t * dd + static_cast<long long>(i) * d + j) * sB] - p;
-      }
+      const int p0 = i & ~(wide::kPanel - 1);
+      for (int j = lane; j < p0; j += kWarp) Lt[i * d + j] = wide::row(P, i, ld)[j];
     }
-    for (int i = tid; i < d; i += nt) {
-      T s = bl[(t * d + i) * sB];
-      if (t > 0)
-        for (int k = 0; k < d; ++k) s -= C[i * ld + k] * v[k];
-      r[i] = s;
+    if (nO > 0) {
+      T* const Mt = WM + t * dd;
+      for (int c = warp; c < d; c += nw)
+        for (int j = lane; j < d; j += kWarp) Mt[c * d + j] = wide::row(P, d + c, ld)[j];
     }
-    __syncthreads();
-
-    // right-looking Cholesky of the lower triangle, in place, column k
-    // scaled one pivot late; every thread reads the same pivot after a
-    // barrier, so the failure test (and the break) is uniform over the block
-    T prev = T(0);
-    for (int k = 0; k < d; ++k) {
-      const T pkk = S[k * ld + k];
-      if (!pivot_ok(pkk)) {
-        ok = false;
-        break;
-      }
-      if (k > 0) {
-        const T lp = sqrt(prev);
-        for (int i = k - 1 + tid; i < d; i += nt)
-          S[i * ld + k - 1] = i == k - 1 ? lp : S[i * ld + k - 1] / lp;
-      }
-      const T inv = T(1) / pkk;
-      for (int i = k + 1 + warp; i < d; i += nw) {
-        const T sik = S[i * ld + k];
-        for (int j = k + 1 + q; j <= i; j += kWarp) S[i * ld + j] -= sik * S[j * ld + k] * inv;
-      }
-      prev = pkk;
-      __syncthreads();
-    }
-    if (!ok) break;
-    if (tid == 0) S[(d - 1) * ld + d - 1] = sqrt(prev);
-    __syncthreads();
-
-    // keep L_t where S_t was factored on its own (both only read S here)
-    if (stage_on_chip)
-      for (int i = warp; i < d; i += nw)
-        for (int j = q; j <= i; j += kWarp) Lt[i * ld + j] = S[i * ld + j];
-    // [M_t u_t] = L_t^{-1} [O_t' r], column c of them by warp c mod nw, r
-    // the last column: pivot j updates the rows below it with the unscaled
-    // entry j and scales entry j - 1
-    const int ncol = coupled ? d + 1 : 1;
-    for (int c = warp; c < ncol; c += nw) {
-      T* const col = c == ncol - 1 ? r : R + c * ld;
-      for (int j = 0; j < d; ++j) {
-        const T inv = T(1) / S[j * ld + j];
-        const T cj = col[j];
-        for (int i = j + 1 + q; i < d; i += kWarp) col[i] -= S[i * ld + j] * cj * inv;
-        if (q == 0 && j > 0) col[j - 1] /= S[(j - 1) * ld + j - 1];
-        __syncwarp();
-      }
-      if (q == 0) col[d - 1] /= S[(d - 1) * ld + d - 1];
-      __syncwarp();
-    }
-    __syncthreads();
-    for (int i = tid; i < d; i += nt) {
-      v[i] = r[i];
-      xl[(t * d + i) * sB] = r[i];  // u_t, read back by the same thread below
-    }
-    __syncthreads();
+    for (int i = tid; i < d; i += nt) xl[(t * d + i) * sB] = wide::row(P, d + nO, ld)[i];
+    __syncthreads();  // the next Schur update takes the top rows
+    stamp(3);
   }
 
   if (!ok) {
@@ -468,36 +419,74 @@ __global__ void __launch_bounds__(kMaxThreads)
     return;  // uniform over the block: no barrier follows
   }
 
+  T* const xv = P;     // x_{t+1} (the panel is free)
+  T* const r = P + d;  // the stage's right-hand side, then x_t
+  constexpr int ldb = kWarp + 1;
+  T* const Lb = P + 2 * d;  // two diagonal blocks (the one solved, the next), rows ldb apart
+  // the lower triangle of L_t's diagonal block at rows j0.. (up to kWarp of
+  // them, ending at j1) into buffer q of Lb, by the threads from `first`
+  const auto stage_block = [&](const T* Lt, int j0, int j1, int q, int first) {
+    T* const dst = Lb + q * kWarp * ldb;
+    for (int e = tid - first; e < kWarp * kWarp; e += nt - first) {
+      const int jj = e >> 5, ii = e & (kWarp - 1);
+      if (ii <= jj && j0 + jj < j1) dst[jj * ldb + ii] = Lt[(j0 + jj) * d + j0 + ii];
+    }
+  };
   for (int t = T_ - 1; t >= 0; --t) {
-    const T* Lt = Lf + static_cast<long long>(t) * blk;
-    const T* Ct = Mf + static_cast<long long>(t) * blk;  // row k = column k of M_t
-    // r = u_t - M_t x_{t+1}
+    const T* const Lt = WL + t * dd;
+    const T* const Mt = WM + t * dd;
+    // r = u_t - M_t x_{t+1}: row i walks column i of M_t, row k of M_t';
+    // the bottom diagonal block into Lb
     for (int i = tid; i < d; i += nt) {
       T s = xl[(t * d + i) * sB];
       if (t < T_ - 1)
-        for (int k = 0; k < d; ++k) s -= Ct[k * ld + i] * v[k];
+        for (int k = 0; k < d; ++k) s -= Mt[k * d + i] * xv[k];
       r[i] = s;
     }
+    stage_block(Lt, max(d - kWarp, 0), d, 0, 0);
     __syncthreads();
-    // L_t' x_t = r from the bottom: pivot j updates the rows above it and
-    // scales row j + 1
-    for (int j = d - 1; j >= 0; --j) {
-      const T inv = T(1) / Lt[j * ld + j];
-      for (int i = tid; i < d; i += nt) {
-        if (i < j)
-          r[i] -= Lt[j * ld + i] * r[j] * inv;
-        else if (i == j + 1)
-          r[i] /= Lt[i * ld + i];
+    stamp(4);
+    // L_t' x_t = r from the bottom, kWarp rows at a time: warp 0 solves a
+    // block while the other warps stage the next one
+    for (int j1 = d, q = 0; j1 > 0; j1 -= kWarp, q ^= 1) {
+      const int j0 = max(j1 - kWarp, 0);
+      if (warp == 0) {
+        // lane i holds row i of the block and reads column i of Lb; x_j =
+        // r_j / l_jj by the reciprocal, broadcast, and the rows above j
+        // take row j
+        const T* const Lq = Lb + q * kWarp * ldb;
+        const int i = j0 + lane;
+        const bool own = i < j1;
+        T v = own ? r[i] : T(0);
+        const T inv = own ? recip(Lq[lane * ldb + lane]) : T(0);
+#pragma unroll
+        for (int jj = kWarp - 1; jj >= 0; --jj) {
+          if (j0 + jj < j1) {  // uniform over the warp
+            const T l = Lq[jj * ldb + lane];
+            const T xj = __shfl_sync(kFull, v * inv, jj);
+            v = lane == jj ? xj : (lane < jj ? v - l * xj : v);
+          }
+        }
+        if (own) r[i] = v;
+      } else if (j0 > 0) {
+        stage_block(Lt, max(j0 - kWarp, 0), j0, q ^ 1, kWarp);
+      }
+      __syncthreads();  // x of the block is in r, the next block in Lb
+      // the block's columns off the rows above it (row j of L_t: consecutive
+      // words across a warp)
+      for (int i = tid; i < j0; i += nt) {
+        T s = r[i];
+        for (int j = j0; j < j1; ++j) s -= Lt[j * d + i] * r[j];
+        r[i] = s;
       }
       __syncthreads();
     }
-    if (tid == 0) r[0] /= Lt[0];
-    __syncthreads();
     for (int i = tid; i < d; i += nt) {
-      v[i] = r[i];
+      xv[i] = r[i];
       xl[(t * d + i) * sB] = r[i];
     }
-    __syncthreads();
+    __syncthreads();  // x_t is in xv
+    stamp(5);
   }
 }
 
@@ -607,22 +596,27 @@ int batch_first(const void* xl, void* x, int B, int T_, int d, void* stream) {
   return launch_transposes(j, j, j, stream);
 }
 
-// Shared memory of solve_batched_fused_wide_kernel in bytes, by tier: 1,
-// the horizon resident (v, r and (2T - 1) blocks of d (d + 1) words); 2,
-// the stage alone (v, r and S_t: (d + 1)(d + 2) words); 3, v and r
+// Where the fused solve past d = 32 keeps its panel: 2, in shared memory
+// with 16-byte loads (float32 to d = 167, float64 to d = 118); 1, in
+// shared memory with scalar loads (float32 d = 168-169, float64 d = 119);
+// 0, in the workspace, with 16-byte loads (232,448 B a block on an H100).
+// Plan 1 took 0.78 ms at (4, 5, 169) float32 and 0.52 at (4, 5, 119)
+// float64 where the workspace took 1.08 and 0.77 (H100 80GB HBM3, 700 W,
+// replayed from a CUDA graph)
 template <typename T>
-size_t wide_smem(int tier, int T_, int d) {
-  const size_t ld = static_cast<size_t>(d) + 1;
-  const size_t blocks = tier == 1 ? 2 * static_cast<size_t>(T_) - 1 : (tier == 2 ? 1 : 0);
-  return sizeof(T) * (2 * ld + blocks * d * ld);
+int wide_plan(int d, size_t optin) {
+  const long long limit = static_cast<long long>(optin) - wide::kFlagBytes;
+  return fused_panel_bytes<T>(d, true) <= limit ? 2 : (fused_panel_bytes<T>(d, false) <= limit ? 1 : 0);
 }
 
-// The first tier of solve_batched_fused_wide_kernel whose shared memory
-// fits `optin` bytes: float32 stages fit on chip to d = 239, float64 to
-// d = 168 (232,448 B on an H100); tier 3 always fits
+// Words of workspace a lane past d = 32: L_t and M_t' (2T - 1 blocks of
+// d^2), and the panel where it does not fit in shared memory; a multiple
+// of 16 bytes
 template <typename T>
-int wide_tier(int T_, int d, size_t optin) {
-  return wide_smem<T>(1, T_, d) <= optin ? 1 : (wide_smem<T>(2, T_, d) <= optin ? 2 : 3);
+long long fused_wide_words(int T_, int d, int plan) {
+  constexpr long long per = 16 / sizeof(T);
+  const long long words = plan ? (2LL * T_ - 1) * d * d : fused_panel_offset<T>(T_, d) + fused_panel_words<T>(d, true);
+  return (words + per - 1) / per * per;
 }
 
 // The current device's opt-in shared memory a block, in bytes
@@ -651,21 +645,21 @@ size_t fused_reg_words(int kMax, int T_, int d, bool on_chip) {
   return (words + per - 1) / per * per;
 }
 
-// Words of device-memory workspace a lane needs: 0 when the horizon's
-// factor stays in the current device's shared memory (for d <= 32 where
-// kOnChipWarps warps' shares fit in a block's limit; past it where the
-// wide kernel's tier 1 does), else (2T - 1) d (d|1) for d <= 32 and (2T -
-// 1) d (d + 1) past it, in 64 bits (past d = 32 it can pass 2^31)
+// Words of device-memory workspace a lane needs, in 64 bits: for d <= 32,
+// 0 when the horizon's factor stays in the current device's shared memory
+// (kOnChipWarps warps' shares fit in a block's limit), else (2T - 1) d
+// (d|1); past d = 32 always fused_wide_words
 template <typename T>
 long long fused_workspace(int T_, int d) {
   if (!shape_ok(0, T_, d)) return -static_cast<long long>(cudaErrorInvalidValue);
   size_t optin = 0;
   const cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return -static_cast<long long>(err);
-  const long long blocks = (2LL * T_ - 1) * d;
   if (d <= kWarp)
-    return kOnChipWarps * sizeof(T) * fused_reg_words<T>(reg_width(d), T_, d, true) <= optin ? 0 : blocks * (d | 1);
-  return wide_tier<T>(T_, d, optin) == 1 ? 0 : blocks * (d + 1);
+    return kOnChipWarps * sizeof(T) * fused_reg_words<T>(reg_width(d), T_, d, true) <= optin
+               ? 0
+               : (2LL * T_ - 1) * d * (d | 1);
+  return fused_wide_words<T>(T_, d, wide_plan<T>(d, optin));
 }
 
 // solve_batched_reg_kernel<T, kMax, ., kBatchLast>, on chip where `work`
@@ -697,7 +691,7 @@ cudaError_t launch_fused_reg(const T* D, const T* O, const T* b, T* x, T* work, 
 // past it; L and M in shared memory where `work` is null
 template <typename T, bool kBatchLast>
 int solve_batched_fused(const void* D, const void* O, const void* b, void* x, void* work, int B,
-                        int T_, int d, void* stream) {
+                        int T_, int d, void* stream, void* parts = nullptr) {
   if (!shape_ok(B, T_, d)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const T* Dp = static_cast<const T*>(D);
@@ -706,23 +700,27 @@ int solve_batched_fused(const void* D, const void* O, const void* b, void* x, vo
   T* xp = static_cast<T*>(x);
   T* wp = static_cast<T*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (parts != nullptr && d <= kWarp) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= 12) return static_cast<int>(launch_fused_reg<T, 12, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
   if (d <= 16) return static_cast<int>(launch_fused_reg<T, 16, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
   if (d <= kWarp) return static_cast<int>(launch_fused_reg<T, kWarp, kBatchLast>(Dp, Op, bp, xp, wp, B, T_, d, st));
-  // tier 1 where the caller gave no workspace, else 2 where the stage fits
+  // past d = 32 the workspace keeps L and M (fused_workspace), and the panel
+  // where it does not fit in shared memory
+  if (wp == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   size_t optin = 0;
   cudaError_t err = smem_optin(&optin);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tier = work == nullptr ? 1 : (wide_tier<T>(T_, d, optin) == 3 ? 3 : 2);
-  const size_t smem = wide_smem<T>(tier, T_, d);
+  const int plan = wide_plan<T>(d, optin);
+  const size_t smem = plan ? fused_panel_bytes<T>(d, plan == 2) + wide::kFlagBytes : wide::kFlagBytes;
+  const auto kernel = plan == 1 ? solve_batched_fused_wide_kernel<T, kBatchLast, false>
+                                : solve_batched_fused_wide_kernel<T, kBatchLast, true>;
   if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(solve_batched_fused_wide_kernel<T, kBatchLast>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  int threads = (d * d + 31) / 32 * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  solve_batched_fused_wide_kernel<T, kBatchLast><<<B, threads, smem, st>>>(Dp, Op, bp, xp, wp, B, T_, d, tier == 2);
+  const long long words = fused_wide_words<T>(T_, d, plan);
+  auto* const clock = static_cast<unsigned long long*>(parts);
+  kernel<<<B, wide::Threads<T>::value, smem, st>>>(Dp, Op, bp, xp, wp, words, B, T_, d, plan > 0, clock);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -746,6 +744,18 @@ int calipso_solve_batched_fused_f32(const void* D, const void* O, const void* b,
 int calipso_solve_batched_fused_f64(const void* D, const void* O, const void* b, void* x,
                                     void* work, int B, int T, int d, void* stream) {
   return solve_batched_fused<double, false>(D, O, b, x, work, B, T, d, stream);
+}
+
+// solve_batched_fused past d = 32 with its parts' clock summed over the
+// lanes into parts (6 words of cycles, wide::Stamps; chip_smoke.py's split)
+int calipso_solve_batched_fused_parts_f32(const void* D, const void* O, const void* b, void* x, void* work, int B,
+                                          int T, int d, void* parts, void* stream) {
+  return solve_batched_fused<float, false>(D, O, b, x, work, B, T, d, stream, parts);
+}
+
+int calipso_solve_batched_fused_parts_f64(const void* D, const void* O, const void* b, void* x, void* work, int B,
+                                          int T, int d, void* parts, void* stream) {
+  return solve_batched_fused<double, false>(D, O, b, x, work, B, T, d, stream, parts);
 }
 
 // D (T, d, d, B), O' (T-1, d, d, B) with O'_t = O_t', b and x (T, d, B)

@@ -94,11 +94,22 @@
 // Above 48 KiB a launch needs the raised dynamic shared-memory limit, set
 // before it; a refused launch returns its error.
 //
+// Past d = 64 (factor_stream_wide_kernel) the factor is the wide stage of
+// riccati_wide.cuh, shared with the fused solve: one block a lane, the
+// stacked panel alone in shared memory (2d rows of panel_ld(d) words:
+// 231 KB at d = 168 in float32), D and O read where the Schur update and
+// the first panels consume them, the columns in blocks of 32 of 8-wide
+// panels with reciprocal-square-root pivots. Its bound past d = 64 is the
+// operations' (35.85 us at (32, 8, 165) in float32), but each lane's
+// stages are a chain on one SM.
+//
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "riccati_wide.cuh"
 
 namespace {
 
@@ -600,102 +611,52 @@ __global__ void __launch_bounds__(kMaxCols * 32)
 
 // ---- d past 64: the wide factor and sweeps ---------------------------
 
-// Blocks of 8 x 4 output tiles (32 rows, 16 columns) of the factor's
-// stacked panel at d, 2d rows of d columns, those above S's diagonal
-// skipped: how factor_stream_kernel's tile map deals them out
-__host__ __device__ constexpr int tile_blocks(int d) {
-  const int nrb = ((2 * d + kTile - 1) / kTile + 7) / 8, ncb = ((d + kTile - 1) / kTile + 3) / 4;
-  int n = 0;
-  for (int cb = 0; cb < ncb; ++cb)
-    for (int rb = 0; rb < nrb; ++rb)
-      if (32 * rb + 31 >= 16 * cb) ++n;
-  return n;
+// The wide factor's shared memory at d: the stacked panel, 2d rows of
+// wide::panel_ld(d, vec) words, and the failure flag
+template <typename T>
+__host__ __device__ constexpr size_t factor_wide_smem(int d, bool vec) {
+  return sizeof(T) * 2 * static_cast<size_t>(d) * wide::panel_ld<T>(d, vec) + wide::kFlagBytes;
 }
 
-// The wide factor's shared memory at d: the stacked panel, 2d rows of d + 1
-// words, and in the staged plan the next stage's D and O as they lie in
-// device memory (2 d^2 words)
+// The widest stage the wide factor takes: the largest d whose shared
+// memory fits a block's 227 KB, the limit of the stream kernels
+// (ops/cuda_riccati.MAX_D), with 16-byte loads (vec) to float32 d = 168
+// (231,184 B) and float64 d = 119 (232,304 B), with scalar loads past
+// them: float32 d <= 169 (228,504 B; 170 takes 232,576 B), float64 d <=
+// 120 (232,336 B; 121 takes 234,272 B)
 template <typename T>
-__host__ __device__ constexpr size_t factor_wide_smem(int d, bool staged) {
-  return sizeof(T) * (2 * static_cast<size_t>(d) * (d + 1) + (staged ? 2 * static_cast<size_t>(d) * d : 0));
-}
-
-// The widest stage of a plan: the largest d whose shared memory fits a
-// block's 227 KB. Staged: float32 d <= 120 (231,360 B; 121 takes 235,224
-// B), float64 d <= 84 (227,136 B). Unstaged, the limit of the stream
-// kernels (ops/cuda_riccati.MAX_D): float32 d <= 169 (229,840 B; 170 takes
-// 232,560 B), float64 d <= 120 (232,320 B; 121 takes 236,192 B).
-template <typename T>
-__host__ __device__ constexpr int wide_max_d(bool staged) {
+__host__ __device__ constexpr int wide_max_d(bool vec = false) {
   int d = kMaxD;
-  while (factor_wide_smem<T>(d + 1, staged) <= kMaxSmem) ++d;
+  while (factor_wide_smem<T>(d + 1, vec) <= kMaxSmem) ++d;
   return d;
 }
-
-// The wide factor's threads (a strip row each) and blocks of 8 x 4 tiles a
-// warp: float32 16 warps of up to 6 blocks (96 at d = 169); float64 8
-// warps of up to 7 (52 at d = 120), since a float64 8 x 8 panel takes 72
-// registers and 16 warps (128 registers a thread) spilled
-template <typename T>
-struct WideFactor;
-template <>
-struct WideFactor<float> {
-  static constexpr int kThreads = 512, kTiles = 6;
-};
-template <>
-struct WideFactor<double> {
-  static constexpr int kThreads = 256, kTiles = 7;
-};
-template <typename T>
-constexpr bool wide_factor_fits() {
-  return tile_blocks(wide_max_d<T>(false)) <= WideFactor<T>::kTiles * (WideFactor<T>::kThreads / 32) &&
-         2 * wide_max_d<T>(false) - kPanel <= WideFactor<T>::kThreads;
-}
-static_assert(wide_factor_fits<float>() && wide_factor_fits<double>(), "a tile map and a strip row a thread");
+static_assert(wide_max_d<float>() == 169 && wide_max_d<double>() == 120, "cuda_riccati.MAX_D");
+static_assert(wide_max_d<float>(true) == 168 && wide_max_d<double>(true) == 119, "the 16-byte plan's edge");
 
 constexpr int kWideCols = 16;  // right-hand sides a block of the wide sweeps
-static_assert(wide_max_d<float>(false) <= 32 * 6 && wide_max_d<double>(false) <= 32 * 4, "sweep rows");
+static_assert(wide_max_d<float>() <= 32 * 6 && wide_max_d<double>() <= 32 * 4, "sweep rows");
 
-// A tile of the wide factor's map in one word: r0 << 12 | c0 << 1 | on
-__device__ __forceinline__ int tile_code(int r0, int c0, bool on) { return r0 << 12 | c0 << 1 | (on ? 1 : 0); }
-__device__ __forceinline__ Tile tile_of(int code) { return Tile{code >> 12, (code >> 1) & 0x7ff, (code & 1) != 0}; }
-
-// The lower triangle (`lower`) or all of the d x d row-major src into the
-// rows of dst, ld apart, by the block's warps, element by element (the
-// rows of dst are not 16-byte aligned). The caller commits the batch.
-template <typename T>
-__device__ __forceinline__ void copy_rows_async(T* dst, int ld, const T* src, int d, bool lower) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
-  for (int i = warp; i < d; i += nw) {
-    const int jn = lower ? i + 1 : d;
-    for (int j = lane; j < jn; j += 32) __pipeline_memcpy_async(dst + i * ld + j, src + i * d + j, sizeof(T));
-  }
-}
-
-// factor_stream past d = 64: factor_stream_kernel's stacked panel and
-// panels of 8 on kThr threads (WideFactor), each warp with up to kTiles
-// blocks of 8 x 4 tiles, a strip row a thread. L_t's diagonal blocks go
-// straight to device memory from thread 0's registers (shared memory
-// leaves no room for a copy apart). Two plans:
-//   staged (d <= wide_max_d(true)): as factor_stream_kernel, the next
-//     stage's D and O land in a staging area while this stage computes;
-//   unstaged (past it): no staging. D_{t+1}'s lower triangle lands in the
-//     panel's top rows once L_t is out, while M_t goes out; the Schur
-//     update S_{t+1} = D_{t+1} - M_t' M_t runs in place; then O_{t+1}
-//     lands in the bottom rows once the carry M_t' is consumed. Both
-//     copies run element by element and their waits are exposed.
-// A stage that is not positive definite: NaN as factor_stream_kernel.
-template <typename T, int kThr, int kTiles>
-__global__ void __launch_bounds__(kThr, 1)
+// factor_stream past d = 64: one block a lane (wide::Threads: 12 warps in
+// float32, 8 in float64), each stage wide::factor_stage on the stacked
+// panel [S_t ; O_t] in shared memory (riccati_wide.cuh: D_t and O_t read
+// from device memory where the Schur update and the first updates consume
+// them, no staging copy; 32-column blocks of 8-wide panels; the products
+// dealt to the warps anew for each update), its rows 16-byte aligned where
+// that fits (kVec: to d = 168 / 119). Then L_t out (thread 0 wrote its
+// diagonal blocks), M_t out from the bottom rows (row c of them is column
+// c of M_t: a warp's reads are ld apart, distinct banks for an odd ld, a
+// 4-way conflict for the 16-byte plan's), one barrier. A stage that is
+// not positive definite: NaN as factor_stream_kernel.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(wide::Threads<T>::value, 1)
     factor_stream_wide_kernel(const T* __restrict__ D, const T* __restrict__ O, T* __restrict__ L,
-                              T* __restrict__ M, int T_, int d, int vec, int staged) {
+                              T* __restrict__ M, int T_, int d, unsigned long long* parts) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ld = d + 1;
-  const int blk = d * d;
+  const int ld = wide::panel_ld<T>(d, kVec);
   T* const P = reinterpret_cast<T*>(smem_raw);
-  T* const stg = P + 2 * d * ld;  // the staged plan's D_{t+1}, then O_{t+1}
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, nw = nt >> 5;
+  int* const flag = reinterpret_cast<int*>(P + 2 * d * ld);
+  if (kVec) wide::zero_padding(P, 2 * d, ld, d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nw = blockDim.x >> 5;
   const long long lane_id = blockIdx.x;
   const long long dd = static_cast<long long>(d) * d;
   const T* Dl = D + lane_id * T_ * dd;
@@ -703,146 +664,31 @@ __global__ void __launch_bounds__(kThr, 1)
   T* Ll = L + lane_id * T_ * dd;
   T* Ml = M + lane_id * (T_ - 1) * dd;
 
-  // this thread's output tiles, dealt as in factor_stream_kernel
-  int tiles[kTiles];
-#pragma unroll
-  for (int q = 0; q < kTiles; ++q) tiles[q] = 0;
-  {
-    const int nrt = (2 * d + kTile - 1) / kTile, nct = (d + kTile - 1) / kTile;
-    const int rt = lane & 7, ct = lane >> 3;
-    int blk_id = 0;
-    for (int cb = (nct - 1) >> 2; cb >= 0; --cb) {
-      for (int rb = 0; rb <= (nrt - 1) >> 3; ++rb) {
-        if (32 * rb + 31 < 16 * cb) continue;  // above S's diagonal
-        const int r = 8 * rb + rt, c = 4 * cb + ct;
-#pragma unroll
-        for (int q = 0; q < kTiles; ++q)
-          if (blk_id == warp + q * nw) tiles[q] = tile_code(r * kTile, c * kTile, r < nrt && c < nct);
-        ++blk_id;
-      }
-    }
-  }
-
-  if (staged) {
-    copy_flat_async(stg, Dl, blk, vec);
-    if (T_ > 1) copy_flat_async(stg + blk, Ol, blk, vec);
-  } else {
-    copy_rows_async(P, ld, Dl, d, true);
-  }
-  __pipeline_commit();
-
+  wide::Stamps stamp{parts, clock64()};
   int t = 0;
   bool ok = true;
   for (; t < T_; ++t) {
-    const int nrow = t < T_ - 1 ? 2 * d : d;  // the last stage has no O
-    __pipeline_wait_prior(0);
-    __syncthreads();  // stage t's blocks have landed, from every thread's copies
-    if (staged) {
-#pragma unroll
-      for (int q = 0; q < kTiles; ++q) tile_update(P, stg, d, P + d * ld, ld, t > 0 ? d : 0, tile_of(tiles[q]), 0, d, d);
-      __syncthreads();  // the carry is consumed
-      if (t < T_ - 1)
-        for (int i = warp; i < d; i += nw)
-          for (int j = lane; j < d; j += 32) P[(d + i) * ld + j] = stg[blk + i * d + j];
-      __syncthreads();  // the staging is consumed: it takes stage t+1
-      if (t + 1 < T_) {
-        copy_flat_async(stg, Dl + (t + 1) * dd, blk, vec);
-        if (t + 1 < T_ - 1) copy_flat_async(stg + blk, Ol + (t + 1) * dd, blk, vec);
-      }
-      __pipeline_commit();
-    } else {
-      if (t > 0) {
-        // S_t = D_t - M_{t-1}' M_{t-1} in place over D_t's lower triangle
-#pragma unroll
-        for (int q = 0; q < kTiles; ++q) tile_update(P, P, ld, P + d * ld, ld, d, tile_of(tiles[q]), 0, d, d);
-        __syncthreads();  // the carry is consumed
-      }
-      if (t < T_ - 1) {
-        copy_rows_async(P + d * ld, ld, Ol + t * dd, d, false);
-        __pipeline_commit();
-        __pipeline_wait_prior(0);
-        __syncthreads();  // O_t has landed in the bottom rows
-      }
+    const int nO = t < T_ - 1 ? d : 0;  // the last stage has no O
+    T* const Lt = Ll + t * dd;
+    const wide::Inputs<T> in{Dl + t * dd, Ol + t * dd, nullptr, 1, d, 1};
+    if (!wide::factor_stage<kVec, T>(P, nullptr, flag, ld, d, nO, 0, t > 0, in, Lt, d, stamp)) {
+      ok = false;
+      break;
     }
-
-    for (int j0 = 0; j0 < d; j0 += kPanel) {
-      const int w = min(kPanel, d - j0);
-      // every thread factors the panel's 8 x 8 diagonal block in registers
-      // and solves one row of the strip below it, as factor_stream_kernel
-      T a[kPanel][kPanel];
-#pragma unroll
-      for (int i = 0; i < kPanel; ++i)
-#pragma unroll
-        for (int k = 0; k <= i; ++k) a[i][k] = i < w ? P[(j0 + i) * ld + j0 + k] : T(i == k ? 1 : 0);
-      const int r = j0 + w + tid;
-      const bool has_row = r < nrow;
-      T v[kPanel];
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) v[k] = (has_row && k < w) ? P[r * ld + j0 + k] : T(0);
-      bool bad = false;
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) {
-        const T piv = a[k][k];
-        bad |= !(piv > T(0) && piv - piv == T(0));  // not positive, or not finite
-        a[k][k] = sqrt(piv);
-#pragma unroll
-        for (int i = k + 1; i < kPanel; ++i) a[i][k] /= a[k][k];
-#pragma unroll
-        for (int i = k + 1; i < kPanel; ++i)
-#pragma unroll
-          for (int m = k + 1; m <= i; ++m) a[i][m] -= a[i][k] * a[m][k];
-      }
-      if (bad) {
-        ok = false;
-        break;
-      }
-#pragma unroll
-      for (int k = 0; k < kPanel; ++k) {
-        v[k] /= a[k][k];
-#pragma unroll
-        for (int m = k + 1; m < kPanel; ++m) v[m] -= v[k] * a[m][k];
-      }
-      if (tid == 0) {  // L_t's diagonal block, out at once; the stage's store skips it
-        T* const Lp = Ll + t * dd + static_cast<long long>(j0) * d + j0;
-#pragma unroll
-        for (int i = 0; i < kPanel; ++i)
-#pragma unroll
-          for (int k = 0; k <= i; ++k)
-            if (i < w) Lp[i * d + k] = a[i][k];
-      }
-      if (has_row) {
-#pragma unroll
-        for (int k = 0; k < kPanel; ++k)
-          if (k < w) P[r * ld + j0 + k] = v[k];
-      }
-      __syncthreads();  // the panel's rows are in place
-      const int jt = j0 + kPanel;
-      if (jt < d) {
-#pragma unroll
-        for (int q = 0; q < kTiles; ++q) tile_update(P, P, ld, P + j0, ld, kPanel, tile_of(tiles[q]), jt, nrow, d);
-        __syncthreads();
-      }
-    }
-    if (!ok) break;
-
     // L_t: zeros above the diagonal, the rest from P but the diagonal
     // blocks' lower triangles, which thread 0 wrote
-    T* Lt = Ll + t * dd;
     for (int i = warp; i < d; i += nw) {
-      const int p0 = i & ~(kPanel - 1);
+      const int p0 = i & ~(wide::kPanel - 1);
       for (int j = lane; j < d; j += 32)
         if (j > i || j < p0) Lt[i * d + j] = j > i ? T(0) : P[i * ld + j];
     }
-    if (!staged && t + 1 < T_) {
-      __syncthreads();  // L_t is out: the top rows take D_{t+1}
-      copy_rows_async(P, ld, Dl + (t + 1) * dd, d, true);
-      __pipeline_commit();
-    }
-    if (t < T_ - 1) {
-      T* Mt = Ml + t * dd;
+    if (nO > 0) {
+      T* const Mt = Ml + t * dd;
       for (int i = warp; i < d; i += nw)
         for (int j = lane; j < d; j += 32) Mt[i * d + j] = P[(d + j) * ld + i];
     }
+    __syncthreads();  // L_t and M_t are out: the next Schur update takes the top rows
+    stamp(3);
   }
 
   if (!ok) {
@@ -858,7 +704,6 @@ __global__ void __launch_bounds__(kThr, 1)
       }
     }
   }
-  __pipeline_wait_prior(0);  // no copy may still be landing when the block exits
 }
 
 // The wide sweeps' shared memory at (d, warps): staged, L and M of two
@@ -1116,7 +961,7 @@ __global__ void __launch_bounds__(kWideCols * 32)
 // past it the wide factor's unstaged plan (ops/cuda_riccati.MAX_D)
 template <typename T>
 bool shape_ok(int B, int T_, int d, int K) {
-  return B >= 0 && T_ >= 1 && d >= 1 && d <= wide_max_d<T>(false) && K >= 1;
+  return B >= 0 && T_ >= 1 && d >= 1 && d <= wide_max_d<T>() && K >= 1;
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<size_t>(p) % 16 == 0; }
@@ -1130,13 +975,16 @@ cudaError_t allow_smem(Kern kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+// parts: null, or 4 words that take factor_stream_wide_kernel's clock
+// (wide::Stamps; d > 64 only)
 template <typename T>
-int factor_stream(const void* D, const void* O, void* L, void* M, int B, int T_, int d,
-                  void* stream) {
+int factor_stream(const void* D, const void* O, void* L, void* M, int B, int T_, int d, void* stream,
+                  void* parts = nullptr) {
   if (!shape_ok<T>(B, T_, d, 1)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return static_cast<int>(cudaSuccess);
   const int vec = (sizeof(T) * d * d) % 16 == 0 && aligned16(D) && aligned16(O);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (parts != nullptr && d <= kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (d <= kMaxD) {
     const size_t smem = sizeof(T) * (2 * static_cast<size_t>(d) * (2 * d + 1) + kPanel * kMaxD);
     cudaError_t err = allow_smem(factor_stream_kernel<T>, smem);
@@ -1144,14 +992,14 @@ int factor_stream(const void* D, const void* O, void* L, void* M, int B, int T_,
     factor_stream_kernel<T><<<B, kThreads, smem, st>>>(static_cast<const T*>(D), static_cast<const T*>(O),
                                                        static_cast<T*>(L), static_cast<T*>(M), T_, d, vec);
   } else {
-    constexpr int kThr = WideFactor<T>::kThreads;
-    const auto kernel = factor_stream_wide_kernel<T, kThr, WideFactor<T>::kTiles>;
-    const int staged = d <= wide_max_d<T>(true);
-    const size_t smem = factor_wide_smem<T>(d, staged);
-    cudaError_t err = allow_smem(kernel, kMaxSmem);
+    const bool vec = d <= wide_max_d<T>(true);
+    const auto kernel = vec ? factor_stream_wide_kernel<T, true> : factor_stream_wide_kernel<T, false>;
+    const size_t smem = factor_wide_smem<T>(d, vec);
+    cudaError_t err = allow_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<B, kThr, smem, st>>>(static_cast<const T*>(D), static_cast<const T*>(O), static_cast<T*>(L),
-                                  static_cast<T*>(M), T_, d, vec, staged);
+    kernel<<<B, wide::Threads<T>::value, smem, st>>>(static_cast<const T*>(D), static_cast<const T*>(O),
+                                                     static_cast<T*>(L), static_cast<T*>(M), T_, d,
+                                                     static_cast<unsigned long long*>(parts));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1251,6 +1099,19 @@ int calipso_factor_stream_f32(const void* D, const void* O, void* L, void* M, in
 int calipso_factor_stream_f64(const void* D, const void* O, void* L, void* M, int B, int T,
                               int d, void* stream) {
   return factor_stream<double>(D, O, L, M, B, T, d, stream);
+}
+
+// factor_stream past d = 64 with its parts' clock summed over the lanes
+// into parts (4 words of cycles: Schur updates, panels, trailing updates,
+// stores; chip_smoke.py's split)
+int calipso_factor_stream_parts_f32(const void* D, const void* O, void* L, void* M, int B, int T, int d,
+                                    void* parts, void* stream) {
+  return factor_stream<float>(D, O, L, M, B, T, d, stream, parts);
+}
+
+int calipso_factor_stream_parts_f64(const void* D, const void* O, void* L, void* M, int B, int T, int d,
+                                    void* parts, void* stream) {
+  return factor_stream<double>(D, O, L, M, B, T, d, stream, parts);
 }
 
 int calipso_solve_fwd_stream_f32(const void* L, const void* M, const void* b, void* u, int B,

@@ -46,6 +46,7 @@ SIGNATURES = {
     },
     "riccati_stream": {
         **{f"calipso_factor_stream_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
+        **{f"calipso_factor_stream_parts_{dt}": [_P, _P, _P, _P, _I, _I, _I, _P, _P] for dt in ("f32", "f64")},
         **{
             f"calipso_solve_{sweep}_stream_{dt}": [_P, _P, _P, _P, _I, _I, _I, _I, _P]
             for sweep in ("fwd", "bwd")
@@ -59,6 +60,7 @@ SIGNATURES = {
             for layout in ("fused", "lanes")
             for dt in ("f32", "f64")
         },
+        **{f"calipso_solve_batched_fused_parts_{dt}": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P] for dt in ("f32", "f64")},
         **{f"calipso_batch_last_{dt}": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
         **{f"calipso_batch_first_{dt}": [_P, _P, _I, _I, _I, _P] for dt in ("f32", "f64")},
     },

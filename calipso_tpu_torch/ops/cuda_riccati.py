@@ -35,28 +35,30 @@ in one kernel template that takes the batch-first (B, T, d, d) arrays of
 the first or the batch-last (T, d, d, B) copies the second makes -- up to
 d = 32 a warp a lane, `factor_lanes`' register stage with the forward
 sweep folded in and L_t, M_t and u_t kept for the backward sweep, past
-that a thread block a lane at any width, the horizon's factor in shared
-memory where it fits, else in a device-memory workspace with the stage
-being factored in shared memory where that fits; the batch-last copies
+that a thread block a lane at any width, each stage the Cholesky of the
+stacked panel [S_t ; O_t ; r_t'] that also gives the forward sweep as its
+last row (`csrc/riccati_wide.cuh`, the stage `factor_stream` runs past d
+= 64), the panel in shared memory where it fits, else in the
+device-memory workspace that keeps L_t and M_t' for the backward sweep;
+the batch-last copies
 and x's way back are `batch_last` and `batch_first`, one launch each of a
 tiled transpose kernel, the layout moves the reference leaves to XLA);
 `solve_batched`, the public entry point, takes the first on CUDA tensors,
-as the reference does off the CPU, but between d = 64 and `MAX_D` the
-stream kernels, which the card measured faster there; no solver path
-calls it.
+as the reference does off the CPU, at every width; no solver path calls
+it.
 All are hand-written CUDA for Hopper, built by `ops/_build.py`. The
 register kernels share their device code (`csrc/riccati_reg.cuh`). The
 stream kernels are the wide-stage route (d >= 33, `ops/riccati.route`),
 and their solve takes K right-hand sides per lane. The T=1 kernels take n
 <= `MAX_N[dtype]` (288 in float32, 192 in float64: past n = 128 a wide
 instance of the panel kernels, 8 warps a block), the stream kernels d <=
-`MAX_D[dtype]` (169 and 120: past d = 64 wide instances, the factor on 16
-warps without its stage-ahead copy where that does not fit, the sweeps
-with ceil(d/32) rows a thread and M read from device memory where two
-stages do not fit), the lanes kernels d <= `LANES_MAX_D` = 64; wider
-systems take the library and scan routes of `ops/riccati`, chosen there
-from the shape and dtype. The fused solves take any d whose T d (d + 1)
-fits their int indices (`FUSED_MAX_INDEX`).
+`MAX_D[dtype]` (169 and 120: past d = 64 wide instances, the factor the
+stage of `csrc/riccati_wide.cuh` with its stacked panel alone in shared
+memory, the sweeps with ceil(d/32) rows a thread and M read from device
+memory where two stages do not fit), the lanes kernels d <=
+`LANES_MAX_D` = 64; wider systems take the library and scan routes of
+`ops/riccati`, chosen there from the shape and dtype. The fused solves
+take any d whose T d (d + 1) fits their int indices (`FUSED_MAX_INDEX`).
 
 What bounds them on an H100: each reads its inputs once and writes its
 outputs once, and does few flops per byte (the T=1 factor at n=32: 2.7
@@ -104,12 +106,14 @@ LAUNCHES = {
 #   n <= 288 (208,512 B; P = 10 takes 254,720 B), float64 P = 6, n <= 192
 #   (184,320 B; P = 7 takes 245,504 B).
 # - block-tridiagonal, the stream kernels (csrc/riccati_stream.cu,
-#   wide_max_d): the factor's stacked panel [S_t ; O_t], 2d (d+1) words:
-#   float32 d <= 169 (229,840 B), float64 d <= 120 (232,320 B). The lanes
+#   wide_max_d): the factor's stacked panel [S_t ; O_t], 2d rows of d | 1
+#   words and a 16-byte flag: float32 d <= 169 (228,504 B), float64 d <=
+#   120 (232,336 B). The lanes
 #   kernels take d <= LANES_MAX_D.
 # The fused solves (csrc/riccati_fused.cu) have no width limit: past d =
-# 32 the factor moves from shared memory to a device-memory workspace as
-# the width grows. Their int indices bound T d (d + 1) (shape_ok there).
+# 32 the stacked panel moves from shared memory to the device-memory
+# workspace past d = 169 in float32, 119 in float64. Their int indices
+# bound T d (d + 1) (shape_ok there).
 MAX_N = {torch.float32: 288, torch.float64: 192}
 MAX_D = {torch.float32: 169, torch.float64: 120}
 LANES_MAX_D = 64  # factor_lanes, solve_lanes (csrc/riccati_lanes.cu)
@@ -452,9 +456,11 @@ def _on_cpu(*tensors):
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _solve_fused(name, D, O, b, x, B, T, d):
-    """Launch the fused solve `name` on D, O and b into x (in the layout
-    of its entry point), with the workspace the kernel asks for, if any."""
+def _solve_fused(name, D, O, b, x, B, T, d, entry=None, extra=()):
+    """Launch the fused solve `name` (C entry point `entry`, default
+    `name`; `extra` pointers before the stream) on D, O and b into x (in
+    the layout of its entry point), with the workspace the kernel asks
+    for, if any."""
     from calipso_tpu_torch.ops import _build
 
     query = getattr(_build.load("riccati_fused"), f"calipso_solve_batched_fused_workspace_{_SUFFIX[D.dtype]}")
@@ -466,15 +472,17 @@ def _solve_fused(name, D, O, b, x, B, T, d):
     _launch(
         name, "riccati_fused", D.dtype, D.device,
         D.data_ptr(), O.data_ptr(), b.data_ptr(), x.data_ptr(),
-        None if work is None else work.data_ptr(), B, T, d,
+        None if work is None else work.data_ptr(), B, T, d, *extra, entry=entry,
     )
 
 
 def solve_batched_fused(D, O, b):
     """x (B, T, d) of `solve_batched_plain` in one kernel at any width,
     one warp per lane up to d = 32 and one thread block per lane past it;
-    L and M stay in shared memory where the horizon fits, else in a
-    workspace this wrapper allocates (the kernel says which)."""
+    L and M stay in shared memory where the horizon fits (d <= 32), else in
+    a workspace this wrapper allocates, the size the kernel asks for (past
+    d = 32 also the stage's panel where it does not fit in shared
+    memory)."""
     if _on_cpu(D, O, b):
         return solve_batched_plain(D, O, b)
     B, T, d = _batched_args(D, O, b)
@@ -551,26 +559,49 @@ def solve_batched_lanes(D, O, b):
     return _batch_first(xl, B, T, d)
 
 
-# solve_batched's route for LANES_MAX_D < d <= MAX_D, where both the fused
-# kernel and the stream kernels take the system: the one the card measured
-# faster. Float32, replayed from a CUDA graph on an NVIDIA H100 80GB HBM3 at
-# 700 W (chip_smoke.py phase 12e), fused kernel against factor_stream +
-# solve_stream: (4, 5, 65) 1.1306 against 0.4276 ms (float64 1.6484 against
-# 0.5446), (128, 8, 82) 4.2185 against 0.8247, (64, 8, 116) 11.9818
-# against 1.2611, (32, 8, 165) 23.3458 against 3.1433: the stream kernels
-STREAM_IN_BETWEEN = True
+# The parts of the wide stage's clock (csrc/riccati_wide.cuh, wide::Stamps)
+WIDE_PARTS = (
+    "Schur update", "panels (diagonal blocks, strips)", "trailing updates", "stores",
+    "backward coupling", "backward substitution",
+)
+
+
+def wide_parts(name, D, O, b=None):
+    """The split of one launch of `factor_stream` past d = 64 (`name`
+    "factor_stream") or of `solve_batched_fused` past d = 32
+    ("solve_batched_fused", right-hand side b) on CUDA tensors: the kernel
+    launched once with its clock stamps on (each part the block's cycles
+    between two of its barriers, summed over the stages), counted under
+    `name`. Returns {part: cycles a lane} (the first four parts for the
+    factor, all six for the fused solve). chip_smoke.py prints it; no path
+    calls it."""
+    fused = name == "solve_batched_fused"
+    B, T, d = _batched_args(D, O, b) if fused else _lanes_dims(D, "stream")
+    if d <= (32 if fused else 64):
+        raise ValueError(f"{name} has its parts' clock past d = {32 if fused else 64}, got d={d}")
+    parts = torch.zeros(len(WIDE_PARTS), dtype=torch.int64, device=D.device)
+    if fused:
+        x = torch.empty_like(b)
+        _solve_fused(name, D, O, b, x, B, T, d, entry="solve_batched_fused_parts", extra=(parts.data_ptr(),))
+    else:
+        _check("D", D, D.dtype, (B, T, d, d))
+        _check("O", O, D.dtype, (B, T - 1, d, d))
+        L, M = torch.empty_like(D), torch.empty_like(O)
+        _launch(name, "riccati_stream", D.dtype, D.device, D.data_ptr(), O.data_ptr(), L.data_ptr(), M.data_ptr(),
+                B, T, d, parts.data_ptr(), entry="factor_stream_parts")
+    cycles = parts.cpu().tolist()[: 6 if fused else 4]
+    return {k: v / max(B, 1) for k, v in zip(WIDE_PARTS, cycles)}
 
 
 def solve_batched(D, O, b):
     """Batched block-tridiagonal solve, D (B, T, d, d), O (B, T-1, d, d),
-    b (B, T, d) -> x (B, T, d): the plain version for CPU tensors; for
-    CUDA tensors the fused kernel (the reference's choice off the CPU,
-    whose fused Pallas kernel takes any width) up to d = LANES_MAX_D and
-    past MAX_D, and between them `factor_stream` then `solve_stream`
-    (STREAM_IN_BETWEEN: faster there). No width takes the scan."""
-    wide = LANES_MAX_D < D.shape[-1] <= MAX_D.get(D.dtype, 0)
-    if _on_cpu(D, O, b) or not (STREAM_IN_BETWEEN and wide):
-        return solve_batched_fused(D, O, b)
-    _batched_args(D, O, b)
-    L, M = factor_stream(D, O)
-    return solve_stream(L, M, b)
+    b (B, T, d) -> x (B, T, d): the plain version for CPU tensors, the
+    fused kernel for CUDA tensors at every width (the reference's choice
+    off the CPU, whose fused Pallas kernel takes any width). Between d = 64
+    and MAX_D, where factor_stream + solve_stream also take the system, the
+    fused kernel was measured faster on an NVIDIA H100 80GB HBM3 at 700 W
+    (an A/B of the two replayed from a CUDA graph, float32): (128, 8, 82)
+    0.3696 against 0.4458 ms, (64, 8, 116) 0.6170 against 0.7383, (32, 8,
+    165) 1.1725 against 2.0504, (4, 5, 65) 0.1601 against 0.2371 (float64
+    0.2132 against 0.2778). No width takes the scan."""
+    return solve_batched_fused(D, O, b)

@@ -503,8 +503,10 @@ def test_stream_kernels_match_plain(cuda, B, T, d, K, dtype):
 WIDE_STREAM = [
     (s, torch.float32)
     for s in ((128, 8, 82, 1), (64, 8, 116, 2), (32, 8, 165, 1), (32, 8, 165, 22), (7, 3, 65, 2), (5, 4, 128, 22),
-              (9, 1, 120, 3), (4, 5, 121, 33), (3, 3, 168, 2), (3, 3, 169, 1))
-] + [(s, torch.float64) for s in ((4, 5, 65, 2), (5, 4, 84, 1), (5, 4, 85, 22), (3, 3, 116, 2), (3, 3, 120, 1))]
+              (9, 1, 120, 3), (4, 5, 121, 33), (3, 3, 168, 2), (3, 3, 169, 1), (1, 8, 65, 1), (4, 8, 65, 1),
+              (1, 8, 165, 1), (4, 8, 165, 2))
+] + [(s, torch.float64) for s in ((4, 5, 65, 2), (5, 4, 84, 1), (5, 4, 85, 22), (3, 3, 116, 2), (3, 3, 119, 1),
+                                  (3, 3, 120, 1), (1, 8, 65, 1), (4, 8, 65, 1))]
 
 
 @pytest.mark.parametrize("shape,dtype", WIDE_STREAM)
@@ -521,6 +523,32 @@ def test_wide_stream_kernels_match_plain(cuda, shape, dtype):
     test_stream_kernels_match_plain."""
     B, T, d, K = shape
     _stream_matches_plain(cuda, B, T, d, K, dtype)
+
+
+@pytest.mark.parametrize("d,dtype", [(65, torch.float32), (165, torch.float32), (169, torch.float32),
+                                     (65, torch.float64), (119, torch.float64), (120, torch.float64)])
+def test_wide_stream_factor_fails_in_its_last_panel(cuda, d, dtype):
+    """factor_stream past d = 64 with lane 1's middle stage not positive
+    definite at its last pivot only (its last diagonal entry -1e6: the
+    stage fails in its last panel, after every other pivot passed): NaN
+    over the lower triangle of L from that stage on and over M from it on,
+    as the plain version; the other lanes match it."""
+    B, T = 3, 5
+    rng = np.random.default_rng(d)
+    D, O, _ = tridiag_batch(rng, B, T, d)
+    D[1, T // 2, -1, -1] = -1e6
+    D, O = (torch.tensor(a, dtype=dtype, device=cuda) for a in (D, O))
+    L, M = cuda_riccati.factor_stream(D, O)
+    torch.cuda.synchronize()
+    Lp, Mp = cuda_riccati.factor_stream_plain(D, O)
+    stage_nan = lambda A: torch.isnan(A).flatten(2).any(-1).cpu().numpy()
+    want = np.zeros((B, T), bool)
+    want[1, T // 2:] = True
+    assert (stage_nan(L) == want).all() and (stage_nan(Lp) == want).all()
+    assert (stage_nan(M) == want[:, :-1]).all()
+    assert torch.equal(torch.triu(L, 1), torch.zeros_like(L))
+    ok = torch.tensor(~want, device=cuda)
+    assert _rel_err(L, Lp, ok) <= RTOL[dtype] and _rel_err(M, Mp, ok[:, :-1]) <= RTOL[dtype]
 
 
 def _stream_matches_plain(cuda, B, T, d, K, dtype):
@@ -634,30 +662,25 @@ def test_batched_lanes_single_lane(cuda, T, d, dtype):
 
 
 @pytest.mark.parametrize(
-    "B,T,d,dtype,route",
-    [(6, 5, 65, torch.float32, "stream"), (6, 5, 128, torch.float32, "stream"), (6, 5, 165, torch.float32, "stream"),
-     (6, 5, 65, torch.float64, "stream"), (3, 4, 170, torch.float32, "fused"), (3, 4, 128, torch.float64, "fused"),
-     (3, 4, 256, torch.float32, "fused"), (3, 4, 192, torch.float64, "fused")],
+    "B,T,d,dtype",
+    [(6, 5, 65, torch.float32), (6, 5, 128, torch.float32), (6, 5, 165, torch.float32), (6, 5, 65, torch.float64),
+     (3, 4, 170, torch.float32), (3, 4, 128, torch.float64), (3, 4, 256, torch.float32), (3, 4, 192, torch.float64)],
 )
-def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype, route):
+def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype):
     """The public solve_batched past d = 64, where the reference's fused
-    Pallas kernel still answers: factor_stream then solve_stream up to
-    MAX_D (STREAM_IN_BETWEEN: the card measured them faster there), the
-    fused kernel past it (its factor in the workspace, the stage on chip
-    to d = 239 / 168, past that in the workspace too), each counted under
-    its own keys and never the scan; x matches the plain version, and
-    lane 2, not positive definite from stage 2 on, is NaN over all of its
-    x on both paths."""
+    Pallas kernel still answers: the fused kernel at every width (between
+    d = 64 and MAX_D the card measured it faster than factor_stream +
+    solve_stream; past MAX_D its panel in the workspace from d = 170 / 120),
+    counted under its own key and never the scan; x matches the plain
+    version, and lane 2, not positive definite from stage 2 on, is NaN over
+    all of its x on both paths."""
     rng = np.random.default_rng(B + T + d)
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d, non_pd=((2, 2),)))
     before = dict(cuda_riccati.LAUNCHES)
     x = cuda_riccati.solve_batched(D, O, b)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in cuda_riccati.LAUNCHES.items() if v != before[k]}
-    if route == "stream":
-        assert moved == {"factor_stream": 1, "solve_fwd_stream": 1, "solve_bwd_stream": 1}
-    else:
-        assert moved == {"solve_batched_fused": 1}
+    assert moved == {"solve_batched_fused": 1}
     xp = cuda_riccati.solve_batched_plain(D, O, b)
     assert torch.equal(torch.isnan(x), torch.isnan(xp)) and bool(torch.isnan(x[2]).all())
     ok = torch.tensor([i != 2 for i in range(B)], device=cuda)
@@ -667,25 +690,35 @@ def test_solve_batched_past_the_fused_width(cuda, B, T, d, dtype, route):
 @pytest.mark.parametrize(
     "B,T,d,dtype",
     [(1, 1, 65, torch.float32), (1, 1, 121, torch.float64), (3, 5, 65, torch.float64), (5, 3, 100, torch.float32),
-     (4, 2, 170, torch.float32), (3, 3, 240, torch.float32), (2, 3, 169, torch.float64), (1, 2, 256, torch.float32)],
+     (4, 2, 170, torch.float32), (3, 3, 240, torch.float32), (2, 3, 169, torch.float64), (1, 2, 256, torch.float32),
+     (1, 8, 65, torch.float32), (4, 8, 65, torch.float32), (1, 8, 165, torch.float32), (4, 8, 165, torch.float32),
+     (4, 5, 121, torch.float64), (2, 3, 168, torch.float32), (2, 3, 119, torch.float64), (2, 3, 33, torch.float32)],
 )
 def test_fused_solves_past_d_64(cuda, B, T, d, dtype):
-    """solve_batched_fused and solve_batched_lanes past d = 64 in each of
-    the kernel's tiers (the horizon on chip at (1, 1, 65), (1, 1, 121) and
-    (5, 3, 100); the stage on chip, the factor in the workspace, at (3, 5,
-    65) and (4, 2, 170); past d = 239 / 168 all of it in the workspace),
-    B = 1 and T = 1 (O empty) among them: x against the plain version,
-    each wrapper's launches its
-    own (the lanes wrapper's two transposes beside its kernel); then the
-    last lane not positive definite at its last stage: all of its x NaN,
-    the other lanes untouched."""
+    """solve_batched_fused and solve_batched_lanes past d = 32 in each of
+    the kernel's plans: the stacked panel in shared memory with 16-byte
+    loads (to d = 167 in float32, 118 in float64), with scalar loads (168
+    and 169, 119), in the workspace past them ((4, 2, 170), (1, 1, 121),
+    (4, 5, 121), (2, 3, 169) in float64, (3, 3, 240), (1, 2, 256)); B = 1
+    and 4 at d = 65 and 165, T = 1 (O empty) among them: x against the
+    plain version, each wrapper's launches its own (the lanes wrapper's
+    two transposes beside its kernel); then the last lane not positive
+    definite at its last stage: all of its x NaN, the other lanes
+    untouched; then, where B > 1, the first lane not positive definite at
+    its middle stage's last pivot only (the stage fails in its last panel):
+    its x NaN too."""
     rng = np.random.default_rng(B + T + d)
     D, O, b = (torch.tensor(a, dtype=dtype, device=cuda) for a in tridiag_batch(rng, B, T, d))
     lanes = torch.ones(B, dtype=torch.bool, device=cuda)
-    for bad in (False, True):
-        if bad:
+    for bad in (0, 1, 2):
+        if bad == 2 and B == 1:
+            break
+        if bad == 1:
             D[-1, -1] *= -1.0
             lanes[-1] = False
+        if bad == 2:
+            D[0, T // 2, -1, -1] = -1e6
+            lanes[0] = False
         xp = cuda_riccati.solve_batched_plain(D, O, b)
         for name, want in (("solve_batched_fused", {"solve_batched_fused": 1}),
                            ("solve_batched_lanes", {"transpose": 2, "solve_batched_lanes": 1})):
