@@ -101,7 +101,11 @@
 // the first panels consume them, the columns in blocks of 32 of 8-wide
 // panels with reciprocal-square-root pivots. Its bound past d = 64 is the
 // operations' (35.85 us at (32, 8, 165) in float32), but each lane's
-// stages are a chain on one SM.
+// stages are a chain on one SM. The sweeps past d = 64 are blocked
+// substitutions over 32-row diagonal blocks (sweep_wide, below): a warp a
+// column solves a diagonal block by shuffles while every warp's loads of a
+// 32 x 32 tile of L_t or M fly, then the tiles take the block's columns
+// off the rows still to solve and off the next stage's right-hand side.
 //
 // Plain C interface, loaded with ctypes: every entry point launches on the
 // given stream, allocates nothing, and returns cudaGetLastError().
@@ -633,8 +637,7 @@ __host__ __device__ constexpr int wide_max_d(bool vec = false) {
 static_assert(wide_max_d<float>() == 169 && wide_max_d<double>() == 120, "cuda_riccati.MAX_D");
 static_assert(wide_max_d<float>(true) == 168 && wide_max_d<double>(true) == 119, "the 16-byte plan's edge");
 
-constexpr int kWideCols = 16;  // right-hand sides a block of the wide sweeps
-static_assert(wide_max_d<float>() <= 32 * 6 && wide_max_d<double>() <= 32 * 4, "sweep rows");
+static_assert(wide_max_d<float>() <= 32 * 6 && wide_max_d<double>() <= 32 * 4, "the sweeps' diagonal blocks");
 
 // factor_stream past d = 64: one block a lane (wide::Threads: 12 warps in
 // float32, 8 in float64), each stage wide::factor_stage on the stacked
@@ -706,255 +709,248 @@ __global__ void __launch_bounds__(wide::Threads<T>::value, 1)
   }
 }
 
-// The wide sweeps' shared memory at (d, warps): staged, L and M of two
-// stages as in the d <= 64 sweeps; unstaged, L_t of one stage. Then a
-// column of d words a warp.
+// The wide sweeps (d past 64): a block of kSweepWarps(NB) = 2 NB warps a
+// lane and a chunk of up to that many right-hand-side columns, NB =
+// ceil(d / 32) the diagonal blocks of a stage (3..6 in float32, 3..4 in
+// float64: only the instances a dtype's MAX_D reaches are built). A stage
+// is a blocked substitution over its 32-row diagonal blocks, q = 0..NB-1
+// forward, NB-1..0 backward (rows 32 q.., the last one ragged, padded with
+// identity rows). Each block takes two parts and a barrier after each:
+//  1. warp c (c < the chunk's columns) solves column c's diagonal block
+//     from registers: lane i holds row i, pivot j's owner scales its row by
+//     1 / l_jj (each lane's reciprocal computed once, off the chain), a
+//     shuffle broadcasts the value, the other rows take column j
+//     (forward) or row j (backward) of the block from shared memory, one
+//     register a lane and no loop over rows; the column's values go out.
+//     (On an NVIDIA H100 80GB HBM3 at 700 W a pivot step costs ~75 cycles
+//     in float32; forming l_ij / l_jj off the chain, so that a step is a
+//     shuffle and a multiply-add, made float32 slower and float64 ~10%
+//     faster: PERF.md, section 6.)
+//     Meanwhile every warp has issued the loads of its tile (below) into
+//     registers, and the warps without a column put the next stage's
+//     right-hand side in place (in a stage's first block);
+//  2. every warp consumes its tile with the block's solution: the next
+//     diagonal block into shared memory (lower triangle, identity past d),
+//     the block's columns off the rows still to solve, or its share of the
+//     coupling into the next stage's right-hand side, accumulated block by
+//     block as the solution comes, so that the next stage starts with it
+//     done. A tile is 32 x 32 words of L_t or M read coalesced: a row tile
+//     (lane along a row of the block, 32 rows; lane l ends with row l's sum
+//     by a butterfly of 31 shuffles) for the forward update (rows i >= j1
+//     of L_t, columns of the block) and the backward coupling (rows of
+//     M_{t-1}); a column tile (lane l reads column l of 32 rows, a word a
+//     row, and sums its own) for the backward update (rows j of L_t in the
+//     block, columns i < j0) and the forward coupling (rows of M_t in the
+//     block). The widest block has 1 + (NB - 1) + NB = 2 NB tiles, one a
+//     warp, so nothing waits for a second round of loads.
+// Nothing is staged a stage ahead and no copy's wait is exposed: a tile's
+// loads fly under the diagonal solve, and the diagonal blocks are the only
+// shared copies of L. Shared memory: the two diagonal blocks (rows kLdb
+// apart: a lane's row or column reads fall in distinct banks) and two
+// right-hand sides of 2 NB columns of 32 NB rows (rows past d zero, never
+// written): 26.9 KB at NB = 6 in float32, 33.3 KB at NB = 4 in float64.
+constexpr int kBlk = 32;        // rows a diagonal block
+constexpr int kLdb = kBlk + 1;  // a staged diagonal block's row stride
+
+template <int NB>
+__host__ __device__ constexpr int sweep_warps() {
+  return 2 * NB;
+}
+
+template <typename T, int NB>
+__host__ __device__ constexpr size_t sweep_wide_smem() {
+  return sizeof(T) * (2 * kBlk * kLdb + 2 * sweep_warps<NB>() * kBlk * NB);
+}
+static_assert(sweep_wide_smem<float, 6>() <= kDefaultSmem && sweep_wide_smem<double, 4>() <= kDefaultSmem,
+              "the wide sweeps need no raised shared-memory limit");
+
+// One level of row_sums: lanes with bit S keep the upper S of w's first 2S
+// terms and take their partner's (lane ^ S) upper S, the others the lower
+template <int S, typename T>
+__device__ __forceinline__ void fold(T (&w)[kBlk], bool up) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const T send = up ? w[k] : w[k + S];
+    const T keep = up ? w[k + S] : w[k];
+    w[k] = keep + __shfl_xor_sync(kFull, send, S);
+  }
+}
+
+// Lane l's share of 32 rows' sums: w[r] holds lane l's term of row r; after
+// 16 + 8 + 4 + 2 + 1 shuffles lane l holds the sum over the lanes of row l
+// (each level's index compile-time, so that w stays in registers)
 template <typename T>
-size_t sweep_wide_smem(int d, int warps, bool staged) {
-  return sizeof(T) * (static_cast<size_t>(staged ? 4 * d : d) + warps) * d;
+__device__ __forceinline__ T row_sums(T (&w)[kBlk], int lane) {
+  fold<16>(w, lane & 16);
+  fold<8>(w, lane & 8);
+  fold<4>(w, lane & 4);
+  fold<2>(w, lane & 2);
+  fold<1>(w, lane & 1);
+  return w[0];
 }
 
-// Forward sweep past d = 64: solve_fwd_stream_kernel with kRows = ceil(d /
-// 32) rows a thread (lane + 32 k) and kWideCols columns a block. Staged
-// (where two stages fit, sweep_wide_smem), L_t and M_{t-1} land a stage
-// ahead in two slots as there. Unstaged, one slot holds L_t, copied in
-// after the block's barrier at the end of stage t-1 (its wait exposed),
-// and the coupling reads M_{t-1} from device memory (L2): column i for row
-// i, so consecutive lanes read consecutive words, coalesced.
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kWideCols * 32)
-    solve_fwd_stream_wide_kernel(const T* __restrict__ L, const T* __restrict__ M,
-                                 const T* __restrict__ bv, T* __restrict__ u, int T_, int d, int K,
-                                 int vec, int staged) {
+// A warp's tile in a block of the sweeps
+enum TileKind { kNoTile, kDiagTile, kRowTile, kColTile };
+
+template <bool kFwd, typename T, int NB>
+__device__ __forceinline__ void sweep_wide(const T* __restrict__ L, const T* __restrict__ M,
+                                           const T* __restrict__ in, T* __restrict__ out, int T_, int d, int K) {
+  constexpr int NW = sweep_warps<NB>();
+  constexpr int ldr = kBlk * NB;  // a right-hand-side column's rows in shared memory
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int blk = d * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.y * kWideCols + warp;  // this warp's column
-  const bool has_col = c < K;                   // uniform over the warp
-  T* const Lb = reinterpret_cast<T*>(smem_raw);
-  T* const Mb = Lb + 2 * blk;  // staged only
-  T* const ub = Lb + (staged ? 4 : 1) * blk + warp * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nt = blockDim.x;
+  const int c0 = blockIdx.y * NW;    // the chunk's first column
+  const int KC = min(NW, K - c0);    // its columns, one a warp
+  const int first = KC < NW ? 32 * KC : 0;  // the threads that place the next right-hand side
+  T* const Lb = reinterpret_cast<T*>(smem_raw);  // slot s: the block solved next, slot s ^ 1 staged
+  T* rc = Lb + 2 * kBlk * kLdb;                  // the stage's right-hand side, solved in place
+  T* rn = rc + NW * ldr;                         // the next stage's
   const long long lane_id = blockIdx.x;
-  const long long dk = static_cast<long long>(d) * K;
-  const T* Ll = L + lane_id * T_ * blk;
-  const T* Ml = M + lane_id * (T_ - 1) * blk;
-  const T* bl = bv + lane_id * T_ * dk + c;
-  T* ul = u + lane_id * T_ * dk + c;
-  // this thread's rows lane + 32 q, clamped to a real row to read
-  bool h[kRows];
-  int ci[kRows], m[kRows];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    h[q] = lane + 32 * q < d;
-    ci[q] = min(lane + 32 * q, d - 1);
-    m[q] = ci[q] * d;
-  }
+  const long long dd = static_cast<long long>(d) * d, dk = static_cast<long long>(d) * K;
+  const T* const Ll = L + lane_id * T_ * dd;
+  const T* const Ml = M + lane_id * (T_ - 1) * dd;
+  const T* const il = in + lane_id * T_ * dk + c0;
+  T* const ol = out + lane_id * T_ * dk + c0;
+  const int t_first = kFwd ? 0 : T_ - 1, q_first = kFwd ? 0 : NB - 1;
 
-  copy_flat_async(Lb, Ll, blk, vec);
-  __pipeline_commit();
-  T r[kRows], p[kRows];  // b_t, then r, then u_t; and u_{t-1}
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    r[q] = has_col && h[q] ? bl[(lane + 32 * q) * K] : T(0);
-    p[q] = T(0);
-  }
-
-  for (int t = 0; t < T_; ++t) {
-    const int s = staged ? (t & 1) : 0;
-    const T* Ls = Lb + s * blk;
-    const T* Ms = staged ? Mb + s * blk : Ml + max(t - 1, 0) * blk;  // M_{t-1}, read from t = 1 on
-    __pipeline_wait_prior(0);
-    __syncthreads();  // L_t (and M_{t-1}) have landed; every warp is done with the slot it takes
-    if (staged && t + 1 < T_) {
-      copy_flat_async(Lb + (1 - s) * blk, Ll + (t + 1) * blk, blk, vec);
-      copy_flat_async(Mb + (1 - s) * blk, Ml + t * blk, blk, vec);
+  // the first stage's right-hand side and first diagonal block; rows past d zero
+  for (int c = 0; c < NW; ++c)
+    for (int i = threadIdx.x; i < ldr; i += nt) {
+      rc[c * ldr + i] = c < KC && i < d ? il[t_first * dk + i * K + c] : T(0);
+      rn[c * ldr + i] = T(0);
     }
-    __pipeline_commit();
-    T nb[kRows];  // b_{t+1}, loaded under this stage's work
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) nb[q] = has_col && h[q] && t + 1 < T_ ? bl[(t + 1) * dk + (lane + 32 * q) * K] : T(0);
-    if (has_col) {
-      if (t > 0) {
-#pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          if (h[q]) ub[lane + 32 * q] = p[q];
-        __syncwarp();
-        T a[kRows];
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) a[q] = T(0);
-#pragma unroll 4
-        for (int k = 0; k < d; ++k) {
-          const T v = ub[k];
-#pragma unroll
-          for (int q = 0; q < kRows; ++q) a[q] += Ms[k * d + ci[q]] * v;
-        }
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) r[q] -= a[q];
-      }
-      T inv[kRows];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) inv[q] = h[q] ? T(1) / Ls[m[q] + lane + 32 * q] : T(0);
-      // L_t u_t = r from the top, a group of 32 pivots at a time: pivot
-      // j's owner (lane j & 31 of group q) scales its row by 1 / L_jj, the
-      // shuffle broadcasts u_j, and the rows below take column j of L_t,
-      // loaded a step ahead
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        const int j_lo = 32 * q, jn_hi = min(32, d - j_lo);
-        T l[kRows];
-#pragma unroll
-        for (int g = q; g < kRows; ++g) l[g] = Ls[m[g] + j_lo];
-        for (int jj = 0; jj < jn_hi; ++jj) {
-          const int jn = min(j_lo + jj + 1, d - 1);
-          T nl[kRows];
-#pragma unroll
-          for (int g = q; g < kRows; ++g) nl[g] = Ls[m[g] + jn];
-          const T uj = __shfl_sync(kFull, r[q] * inv[q], jj);
-          r[q] = lane == jj ? uj : (lane > jj ? r[q] - l[q] * uj : r[q]);
-#pragma unroll
-          for (int g = q + 1; g < kRows; ++g) r[g] -= l[g] * uj;
-#pragma unroll
-          for (int g = q; g < kRows; ++g) l[g] = nl[g];
-        }
-      }
-      T* ut = ul + t * dk;
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (h[q]) ut[(lane + 32 * q) * K] = r[q];
-        p[q] = r[q];
-        r[q] = nb[q];
-      }
-    }
-    if (!staged) {
-      __syncthreads();  // every warp is done with L_t: the slot takes L_{t+1}
-      if (t + 1 < T_) copy_flat_async(Lb, Ll + (t + 1) * blk, blk, vec);
-      __pipeline_commit();
-    }
+  for (int e = threadIdx.x; e < kBlk * kBlk; e += nt) {
+    const int rr = e >> 5, l = e & 31, i = kBlk * q_first + rr;
+    Lb[rr * kLdb + l] = l <= rr && i < d ? Ll[t_first * dd + i * d + kBlk * q_first + l] : T(l == rr ? 1 : 0);
   }
-  __pipeline_wait_prior(0);
-}
+  __syncthreads();
 
-// Backward sweep past d = 64, the mirror of the forward one. Unstaged, the
-// coupling r = u_t - M_t x_{t+1} reads row i of M_t from device memory for
-// row i: each lane walks its own row, so a warp's read is 32 rows' words
-// (not coalesced; each 128-byte line serves 32 steps of the row from L1).
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kWideCols * 32)
-    solve_bwd_stream_wide_kernel(const T* __restrict__ L, const T* __restrict__ M,
-                                 const T* __restrict__ u, T* __restrict__ x, int T_, int d, int K,
-                                 int vec, int staged) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int blk = d * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.y * kWideCols + warp;  // this warp's column
-  const bool has_col = c < K;                   // uniform over the warp
-  T* const Lb = reinterpret_cast<T*>(smem_raw);
-  T* const Mb = Lb + 2 * blk;  // staged only
-  T* const xb = Lb + (staged ? 4 : 1) * blk + warp * d;
-  const long long lane_id = blockIdx.x;
-  const long long dk = static_cast<long long>(d) * K;
-  const T* Ll = L + lane_id * T_ * blk;
-  const T* Ml = M + lane_id * (T_ - 1) * blk;
-  const T* ul = u + lane_id * T_ * dk + c;
-  T* xl = x + lane_id * T_ * dk + c;
-  bool h[kRows];
-  int ci[kRows], m[kRows], k0[kRows];
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    h[q] = lane + 32 * q < d;
-    ci[q] = min(lane + 32 * q, d - 1);
-    m[q] = ci[q] * d;
-    k0[q] = (d & 1) ? 0 : ci[q];  // the row's walk starts at column i where d is even (distinct banks)
-  }
-
-  copy_flat_async(Lb, Ll + (T_ - 1) * blk, blk, vec);
-  __pipeline_commit();
-  T r[kRows], xn[kRows];  // u_t, then r, then x_t; and x_{t+1}
-#pragma unroll
-  for (int q = 0; q < kRows; ++q) {
-    r[q] = has_col && h[q] ? ul[(T_ - 1) * dk + (lane + 32 * q) * K] : T(0);
-    xn[q] = T(0);
-  }
-
+  int s = 0;
   for (int it = 0; it < T_; ++it) {
-    const int t = T_ - 1 - it;
-    const int s = staged ? (it & 1) : 0;
-    const T* Ls = Lb + s * blk;
-    const T* Ms = staged ? Mb + s * blk : Ml + (t < T_ - 1 ? t : 0) * blk;  // M_t, read up to t = T-2
-    __pipeline_wait_prior(0);
-    __syncthreads();  // L_t (and M_t) have landed; every warp is done with the slot it takes
-    if (staged && t > 0) {
-      copy_flat_async(Lb + (1 - s) * blk, Ll + (t - 1) * blk, blk, vec);
-      copy_flat_async(Mb + (1 - s) * blk, Ml + (t - 1) * blk, blk, vec);
-    }
-    __pipeline_commit();
-    T nu[kRows];  // u_{t-1}, loaded under this stage's work
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) nu[q] = has_col && h[q] && t > 0 ? ul[(t - 1) * dk + (lane + 32 * q) * K] : T(0);
-    if (has_col) {
-      if (t < T_ - 1) {
-#pragma unroll
-        for (int q = 0; q < kRows; ++q)
-          if (h[q]) xb[lane + 32 * q] = xn[q];
-        __syncwarp();
-        T a[kRows];
-        int kk[kRows];
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) {
-          a[q] = T(0);
-          kk[q] = k0[q];
+    const int t = kFwd ? it : T_ - 1 - it;
+    const bool couple = it + 1 < T_;  // a next stage to couple into
+    const T* const Lt = Ll + t * dd;
+    // forward: M_t (r_{t+1} = b_{t+1} - M_t' u_t); backward: M_{t-1} (r_{t-1} = u_{t-1} - M_{t-1} x_t)
+    const T* const Mc = Ml + (kFwd ? t : t - 1) * dd;
+    for (int qq = 0; qq < NB; ++qq) {
+      const int q = kFwd ? qq : NB - 1 - qq;
+      const int j0 = kBlk * q;
+      const bool has_next = qq + 1 < NB || couple;
+      const int n_upd = NB - 1 - qq;  // the diagonal blocks still to solve in this stage
+
+      // this warp's tile: the next diagonal block, an update of rows still
+      // to solve (the block's row group g), or a share of the coupling
+      int kind = kNoTile, g = 0;
+      bool coupling = false;
+      {
+        const int k = NW - 1 - warp - (has_next ? 1 : 0);
+        if (k == -1) {
+          kind = kDiagTile;
+        } else if (k >= 0 && k < n_upd) {
+          kind = kFwd ? kRowTile : kColTile;
+          g = kFwd ? q + 1 + k : k;
+        } else if (k >= n_upd && couple && k - n_upd < NB) {
+          kind = kFwd ? kColTile : kRowTile;
+          g = k - n_upd;
+          coupling = true;
         }
-#pragma unroll 4
-        for (int k = 0; k < d; ++k) {
+      }
+      const T* A = coupling ? Mc : Lt;  // the tile's matrix: rows of A are d apart
+      int i0 = kBlk * g;
+      if (kind == kDiagTile) {
+        const bool same = kFwd ? q + 1 < NB : q > 0;  // the next block is in this stage
+        i0 = kBlk * (same ? (kFwd ? q + 1 : q - 1) : q_first);
+        A = (same ? Lt : Ll + (kFwd ? t + 1 : t - 1) * dd) + i0 * d + i0;
+      }
+      T val[kBlk];
+      if (kind == kDiagTile) {
 #pragma unroll
-          for (int q = 0; q < kRows; ++q) {
-            a[q] += Ms[m[q] + kk[q]] * xb[kk[q]];
-            kk[q] = kk[q] + 1 == d ? 0 : kk[q] + 1;
+        for (int r = 0; r < kBlk; ++r) val[r] = lane <= r && i0 + r < d ? A[r * d + lane] : T(lane == r ? 1 : 0);
+      } else if (kind == kRowTile) {  // rows i0 + r, the block's columns
+#pragma unroll
+        for (int r = 0; r < kBlk; ++r) val[r] = i0 + r < d && j0 + lane < d ? A[(i0 + r) * d + j0 + lane] : T(0);
+      } else if (kind == kColTile) {  // the block's rows j0 + r, columns i0 + lane
+#pragma unroll
+        for (int r = 0; r < kBlk; ++r) val[r] = j0 + r < d && i0 + lane < d ? A[(j0 + r) * d + i0 + lane] : T(0);
+      }
+
+      if (warp < KC) {
+        // column warp's diagonal block, from registers
+        const T* const Lq = Lb + s * kBlk * kLdb;
+        T* const rq = rc + warp * ldr + j0;
+        const bool own = j0 + lane < d;
+        T v = rq[lane];
+        const T inv = T(1) / Lq[lane * kLdb + lane];
+        if (kFwd) {
+#pragma unroll
+          for (int jj = 0; jj < kBlk; ++jj) {
+            const T l = Lq[lane * kLdb + jj];  // row lane, column jj
+            const T uj = __shfl_sync(kFull, v * inv, jj);
+            v = lane == jj ? uj : (lane > jj ? v - l * uj : v);
+          }
+        } else {
+#pragma unroll
+          for (int jj = kBlk - 1; jj >= 0; --jj) {
+            const T l = Lq[jj * kLdb + lane];  // row jj, column lane
+            const T xj = __shfl_sync(kFull, v * inv, jj);
+            v = lane == jj ? xj : (lane < jj ? v - l * xj : v);
           }
         }
-#pragma unroll
-        for (int q = 0; q < kRows; ++q) r[q] -= a[q];
+        rq[lane] = own ? v : T(0);
+        if (own) ol[t * dk + (j0 + lane) * K + warp] = v;
       }
-      T inv[kRows];
+      if (qq == 0 && couple && threadIdx.x >= first) {
+        // the next stage's right-hand side, which the coupling tiles take from
+        const int tn = kFwd ? t + 1 : t - 1;
+        for (int c = 0; c < KC; ++c)
+          for (int i = threadIdx.x - first; i < d; i += nt - first) rn[c * ldr + i] = il[tn * dk + i * K + c];
+      }
+      __syncthreads();  // the block's solution is in rc, the next right-hand side in rn
+
+      if (kind == kDiagTile) {
+        T* const Ln = Lb + (s ^ 1) * kBlk * kLdb;
 #pragma unroll
-      for (int q = 0; q < kRows; ++q) inv[q] = h[q] ? T(1) / Ls[m[q] + lane + 32 * q] : T(0);
-      // L_t' x_t = r from the bottom, a group of 32 pivots at a time: the
-      // rows above pivot j take row j of L_t (consecutive words across the
-      // warp), loaded a step ahead
+        for (int r = 0; r < kBlk; ++r) Ln[r * kLdb + lane] = val[r];
+      } else if (kind != kNoTile) {
+        T* const dst = coupling ? rn : rc;
+        for (int c = 0; c < KC; ++c) {
+          const T* const uq = rc + c * ldr + j0;  // the block's solution (rows past d zero)
+          T sum;
+          if (kind == kRowTile) {
+            const T ul = uq[lane];
+            T w[kBlk];
 #pragma unroll
-      for (int q = kRows - 1; q >= 0; --q) {
-        const int j_lo = 32 * q, jn_hi = min(32, d - j_lo);
-        T l[kRows];
+            for (int r = 0; r < kBlk; ++r) w[r] = val[r] * ul;
+            sum = row_sums(w, lane);
+          } else {
+            sum = T(0);
 #pragma unroll
-        for (int g = 0; g <= q; ++g) l[g] = Ls[(j_lo + jn_hi - 1) * d + ci[g]];
-        for (int jj = jn_hi - 1; jj >= 0; --jj) {
-          const int jp = max(j_lo + jj - 1, 0);
-          T nl[kRows];
-#pragma unroll
-          for (int g = 0; g <= q; ++g) nl[g] = Ls[jp * d + ci[g]];
-          const T xj = __shfl_sync(kFull, r[q] * inv[q], jj);
-          r[q] = lane == jj ? xj : (lane < jj ? r[q] - l[q] * xj : r[q]);
-#pragma unroll
-          for (int g = 0; g < q; ++g) r[g] -= l[g] * xj;
-#pragma unroll
-          for (int g = 0; g <= q; ++g) l[g] = nl[g];
+            for (int r = 0; r < kBlk; ++r) sum += val[r] * uq[r];
+          }
+          if (i0 + lane < d) dst[c * ldr + i0 + lane] -= sum;
         }
       }
-      T* xt = xl + t * dk;
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) {
-        if (h[q]) xt[(lane + 32 * q) * K] = r[q];
-        xn[q] = r[q];
-        r[q] = nu[q];
-      }
+      __syncthreads();  // the rows are updated, the next diagonal block staged
+      s ^= 1;
     }
-    if (!staged) {
-      __syncthreads();  // every warp is done with L_t: the slot takes L_{t-1}
-      if (t > 0) copy_flat_async(Lb, Ll + (t - 1) * blk, blk, vec);
-      __pipeline_commit();
-    }
+    T* const tmp = rc;  // the next stage's right-hand side is complete
+    rc = rn;
+    rn = tmp;
   }
-  __pipeline_wait_prior(0);
+}
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(64 * NB, 1)
+    solve_fwd_stream_wide_kernel(const T* __restrict__ L, const T* __restrict__ M,
+                                 const T* __restrict__ bv, T* __restrict__ u, int T_, int d, int K) {
+  sweep_wide<true, T, NB>(L, M, bv, u, T_, d, K);
+}
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(64 * NB, 1)
+    solve_bwd_stream_wide_kernel(const T* __restrict__ L, const T* __restrict__ M,
+                                 const T* __restrict__ u, T* __restrict__ x, int T_, int d, int K) {
+  sweep_wide<false, T, NB>(L, M, u, x, T_, d, K);
 }
 
 // The widest stage the stream kernels take: kMaxD for the d <= 64 kernels,
@@ -1022,35 +1018,21 @@ int sweep(Kern kernel, const void* L, const void* M, const void* in, void* out, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch a wide sweep kernel (d past 64): grid (B, chunks of kWideCols
-// columns), a warp a column, staged where two stages fit.
-template <typename T, typename Kern>
-int sweep_wide(Kern kernel, const void* L, const void* M, const void* in, void* out, int B, int T_,
-               int d, int K, void* stream) {
-  const int warps = K < kWideCols ? K : kWideCols;
-  const int staged = sweep_wide_smem<T>(d, warps, true) <= kMaxSmem;
-  const size_t smem = sweep_wide_smem<T>(d, warps, staged);
-  cudaError_t err = allow_smem(kernel, kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int vec = (sizeof(T) * d * d) % 16 == 0 && aligned16(L) && aligned16(M);
-  const dim3 grid(B, (K + kWideCols - 1) / kWideCols);
-  kernel<<<grid, 32 * warps, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(L), static_cast<const T*>(M), static_cast<const T*>(in),
-      static_cast<T*>(out), T_, d, K, vec, staged);
+// The forward (kFwd) or backward wide sweep of NB diagonal blocks a stage:
+// grid (B, chunks of 2 NB columns), 2 NB warps a block
+template <bool kFwd, typename T, int NB>
+int sweep_rows(const void* L, const void* M, const void* in, void* out, int B, int T_, int d, int K, void* stream) {
+  constexpr int NW = sweep_warps<NB>();
+  const dim3 grid(B, (K + NW - 1) / NW);
+  const auto kernel = kFwd ? solve_fwd_stream_wide_kernel<T, NB> : solve_bwd_stream_wide_kernel<T, NB>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<grid, 32 * NW, sweep_wide_smem<T, NB>(), st>>>(static_cast<const T*>(L), static_cast<const T*>(M),
+                                                          static_cast<const T*>(in), static_cast<T*>(out), T_, d, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The forward (kFwd) or backward wide sweep of kRows rows a thread
-template <bool kFwd, typename T, int kRows>
-int sweep_rows(const void* L, const void* M, const void* in, void* out, int B, int T_, int d, int K, void* stream) {
-  if constexpr (kFwd)
-    return sweep_wide<T>(solve_fwd_stream_wide_kernel<T, kRows>, L, M, in, out, B, T_, d, K, stream);
-  else
-    return sweep_wide<T>(solve_bwd_stream_wide_kernel<T, kRows>, L, M, in, out, B, T_, d, K, stream);
-}
-
 // A sweep at d: the d <= 64 kernel, else the wide instance of ceil(d / 32)
-// rows a thread (up to 6 in float32, 4 in float64: only the instances a
+// diagonal blocks (up to 6 in float32, 4 in float64: only the instances a
 // dtype's MAX_D reaches are built)
 template <bool kFwd, typename T>
 int sweep_at(const void* L, const void* M, const void* in, void* out, int B, int T_, int d, int K, void* stream) {

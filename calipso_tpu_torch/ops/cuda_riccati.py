@@ -54,8 +54,8 @@ and their solve takes K right-hand sides per lane. The T=1 kernels take n
 instance of the panel kernels, 8 warps a block), the stream kernels d <=
 `MAX_D[dtype]` (169 and 120: past d = 64 wide instances, the factor the
 stage of `csrc/riccati_wide.cuh` with its stacked panel alone in shared
-memory, the sweeps with ceil(d/32) rows a thread and M read from device
-memory where two stages do not fit), the lanes kernels d <=
+memory, the sweeps blocked substitutions over ceil(d/32) diagonal
+blocks of 32 rows, L_t and M read from device memory), the lanes kernels d <=
 `LANES_MAX_D` = 64; wider systems take the library and scan routes of
 `ops/riccati`, chosen there from the shape and dtype. The fused solves
 take any d whose T d (d + 1) fits their int indices (`FUSED_MAX_INDEX`).

@@ -148,7 +148,8 @@ Phases (each fails loudly; none catches its own failure):
      stream kernels, the plain version, torch.linalg.solve on the dense
      matrices and the bound, with both wide kernels' parts. Phases 2e
      and 5 hold and time the kernels at these shapes (the stream kernels
-     at K=1; the T=1 pair at (1, 131), (32, 221) and (64, 155));
+     at K=1, and at spike's K = 2d boundary columns at (4, 8, 82, 164);
+     the T=1 pair at (1, 131), (32, 221) and (64, 155));
   13. implicit differentiation (run after phase 12), each path with the
      launch counts set to 0 just before it and read just after: (a) the
      flagship batch (B=8192, float32) with differentiate=True and its
@@ -208,8 +209,9 @@ Phases (each fails loudly; none catches its own failure):
   16. more than one rank on the one card (calipso_tpu_torch/parallel:
      mesh.launch spawns the ranks, every rank on cuda:0, gloo through
      host memory; each rank's launches counted from 0 just before its
-     path and read just after): (a) the flagship batch sharded over 2
-     ranks through .batched().solve(parameters=x0s, mesh=mesh), 4096
+     path and read just after; (b)'s launch beside (a) and (c)'s): (a)
+     the flagship batch sharded over 2 ranks through
+     .batched().solve(parameters=x0s, mesh=mesh), 4096
      lanes a rank, factor_t1 and solve_t1 launched on each rank, the same
      gathered bits on every rank, at least B-8 lanes solved, the same
      solved lanes as phase 3's unsharded batch up to 8 and the states of
@@ -233,16 +235,19 @@ Phases (each fails loudly; none catches its own failure):
 The solves are bound by the host's dispatch and leave the card idle most
 of the time, so beside the hopper batch's cold batch (11b), and beside no
 other timed window, run phases 7, 11c and 11d (float64 single solves) and
-part of phase 15 in three more processes on the card (7, 11c, 11d's
-first three models and the mpc_autotuning example in one, cyberdrift,
-the state-triggered rocket and the drifting example in the second, the
-quadruped gait v2 and the autotuning_acrobot example in the third) and the CPU float64 re-solves of the
+part of phase 15 in four more processes on the card (7 and 11d's first
+three models in one; 11c, the mpc_autotuning example, the
+state-triggered rocket and the drifting example in the second;
+cyberdrift in the third; the quadruped gait v2 and the
+autotuning_acrobot example, its tuning cut to ACROBOT_TUNE_ITERATIONS,
+in the fourth) and the CPU float64 re-solves of the
 quadruped (phase 6) and the hopper (11a, 11b) in three more; the warm
 batches, profiles and single solves' walls have the card and the host to
 themselves.
 
-Prints each number with the card's name and power limit, then a JSON line
-of the kernels, the `nvidia-smi` name/power line, and last
+Prints each number with the card's name and power limit, then the three
+longest phases and the total (the build included), a JSON line of the
+kernels, the `nvidia-smi` name/power line, and last
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 there is no CUDA device or the package is not beside this script.
 
@@ -545,6 +550,12 @@ TUNE_ITERATIONS = 3
 # 11d and 7, which run them through the examples; phase 15 reads them
 T1_KERNELS = ("factor_t1", "solve_t1")
 TUNING_KERNELS = T1_KERNELS + ("solve_t1_multi_library",)
+# the acrobot tuning's iterations in phase 15 (the script's 5 took 194 s
+# of host-bound one-lane solves beside 11b on an NVIDIA H100 80GB HBM3 at
+# 700 W, 2 took 63 s: this script's phase lines, PERF.md section 6; the
+# CPU test holds one iteration to the reference; the example asserts
+# that the loss falls)
+ACROBOT_TUNE_ITERATIONS = 2
 EXAMPLE_KERNELS = {
     "nonconvex wachter": T1_KERNELS,
     "nonconvex maratos": T1_KERNELS,
@@ -1932,7 +1943,7 @@ def hopper_batch_phase(tag, cr, Options, dev, phase, settle):
     st = res.state
     print(
         f"{tag} hopper batch cold (first solve, includes one-time set-up; phases 7, 11c, 11d and part of 15 ran on the "
-        f"card beside it, in three more processes, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
+        f"card beside it, in four more processes, and the CPU float64 re-solves in three more): {cold_s:.3f} s; host syncs "
         f"{bts.stats['host_syncs']}; digest of its solution {x_digest(st)}"
     )
     check_route(tag, "hopper gait", launches)
@@ -2314,17 +2325,27 @@ def state_triggered_rocket_solve(tag, Options, run, trajopt_with, out):
     check(worst > -1e-4, "state-triggered rocket: the trigger's constraint is violated")
 
 
+# the float64 single solves beside 11b's cold batch, one card process a
+# group, balanced by their walls on an NVIDIA H100 80GB HBM3 at 700 W
+# (this script's phase lines: the phase 7 gait golden 107 s, 11c 102 s, 11d's
+# first three models 60 s, cyberdrift 166 s with its branch rule, the
+# state-triggered rocket 9 s, the drifting example ~90 s with its branch
+# rule, the gait v2 100 s, mpc_autotuning 43 s, the acrobot tuning 71 s)
+BESIDE_GROUPS = ("goldens", "hopper", "models", "examples")
+
+
 def float64_phases(tag, t_start, which="goldens"):
-    """The float64 single solves, run in three more processes on the card
+    """The float64 single solves, run in four more processes on the card
     beside the hopper batch's cold batch (the card is idle most of a
     host-bound batch), each step with its own launch counts: `which` =
-    "goldens", phase 7 (the quadruped gait golden), 11c (the hopper
-    golden), 11d's ball-in-cup, box move and bunny hop and phase 15's
-    mpc_autotuning example; "models", 11d's cyberdrift and state-triggered
-    rocket and phase 15's drifting example; "examples", phase 15's
-    quadruped gait v2 and autotuning_acrobot example. Returns {"launches": {path:
-    launches}, "examples": {example: example_summary}} (the examples some
-    of these phases run for phase 15)."""
+    "goldens", phase 7 (the quadruped gait golden) and 11d's ball-in-cup,
+    box move and bunny hop; "hopper", 11c (the hopper golden), phase 15's
+    mpc_autotuning example, 11d's state-triggered rocket and phase 15's
+    drifting example; "models", 11d's cyberdrift; "examples", phase 15's
+    quadruped gait v2 and autotuning_acrobot example. Returns
+    {"launches": {path: launches}, "examples": {example:
+    example_summary}} (the examples some of these phases run for phase
+    15)."""
     import torch
 
     from calipso_tpu_torch import Options
@@ -2336,28 +2357,30 @@ def float64_phases(tag, t_start, which="goldens"):
         print(f"{tag} [{time.time() - t_start:.1f} s] phase {name} ({which} process)", flush=True)
 
     launches, examples = {}, {}
+    models = ()
     if which == "examples":
         examples["contact_implicit quadruped_v2"] = quadruped_gait_v2_example(tag, cr, rc, phase)
         examples["autotuning_acrobot"] = tuning_example(tag, cr, phase, "autotuning_acrobot")
-        return {"launches": launches, "examples": examples}
-    if which == "goldens":
+    elif which == "goldens":
         launches["quadruped_gait"], examples["contact_implicit quadruped"] = quadruped_gait_phase(
             tag, cr, rc, Options, dev, phase
         )
-        phase("11c: hopper gait golden (float64)")
-        launches["hopper_golden"], examples["contact_implicit hopper"] = hopper_golden_phase(tag, cr, rc, Options, dev)
         phase("11d: ball-in-cup, box move, bunny hop (float64)")
         models = ("ball-in-cup", "box move", "bunny hop")
+    elif which == "hopper":
+        phase("11c: hopper gait golden (float64)")
+        launches["hopper_golden"], examples["contact_implicit hopper"] = hopper_golden_phase(tag, cr, rc, Options, dev)
+        examples["mpc_autotuning"] = tuning_example(tag, cr, phase, "mpc_autotuning")
+        phase("11d: state-triggered rocket (float64)")
+        models = ("state-triggered rocket",)
     else:
-        phase("11d: cyberdrift, state-triggered rocket (float64)")
-        models = ("cyberdrift", "state-triggered rocket")
-    out = contact_models_phase(tag, cr, Options, dev, models)
+        phase("11d: cyberdrift (float64)")
+        models = ("cyberdrift",)
+    out = contact_models_phase(tag, cr, Options, dev, models) if models else {}
     examples.update(out.pop("examples", {}))
-    if which == "models":
+    if which == "hopper":
         phase("15: drifting example (float64)")
         examples["drifting"] = drifting_example(tag, cr)
-    else:
-        examples["mpc_autotuning"] = tuning_example(tag, cr, phase, "mpc_autotuning")
     for model, counts in out.items():
         launches[model.replace("-", "_").replace(" ", "_")] = counts
     return {"launches": launches, "examples": examples}
@@ -2367,7 +2390,7 @@ def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start,
     """Phase 11 (and phase 7, which runs beside it), each step with the
     launch counts of its process set to 0 just before it and read just
     after. Only the hopper batch's cold batch shares the card and the
-    host: phases 7, 11c, 11d and part of 15 run beside it in three more
+    host: phases 7, 11c, 11d and part of 15 run beside it in four more
     processes on the card (float64_phases), and the CPU float64 re-solves
     of phases 6, 11a and 11b in three more, whose results phase 6's
     `quadruped_against_cpu` and 11a's and 11b's checks then read. Returns
@@ -2376,11 +2399,11 @@ def contact_phases(tag, cr, Options, dev, phase, quadruped_against_cpu, t_start,
     phase("11a: hopper gait (float32, the bench's single solve)")
     launches, single_against_cpu = hopper_single_phase(tag, cr, Options, dev)
     out = {"hopper_gait": launches}
-    with spawn_pool(3) as cpu, spawn_pool(3) as card:
+    with spawn_pool(3) as cpu, spawn_pool(len(BESIDE_GROUPS)) as card:
         refs = cpu_references(cpu)
-        beside = [card.submit(float64_phases, tag, t_start, which) for which in ("goldens", "models", "examples")]
+        beside = [card.submit(float64_phases, tag, t_start, which) for which in BESIDE_GROUPS]
         phase(
-            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c, 11d and part of 15 in three "
+            f"11b: hopper gait batch (B={B_HOPPER}, float32); beside it phases 7, 11c, 11d and part of 15 in four "
             "more processes on the card and the CPU float64 re-solves of phases 6, 11a and 11b in three more"
         )
 
@@ -2636,13 +2659,16 @@ def example_run(cr, name, fn, phase):
 
 def tuning_example(tag, cr, phase, name):
     """Phase 15's auto-tuning example `name` (mpc_autotuning, or
-    autotuning_acrobot's swing-up and tuning), run beside 11b's cold
-    batch: host-bound loops of single solves, 52 and 191 s there on an
-    H100. Their assertions (the swing-up solves, the loss falls) are the
-    examples' own. Returns its summary."""
+    autotuning_acrobot's swing-up and tuning, ACROBOT_TUNE_ITERATIONS of
+    its script's 5), run beside 11b's cold batch: host-bound loops of
+    single solves. Their assertions (the swing-up solves, the loss falls)
+    are the examples' own. Returns its summary."""
     from calipso_tpu_torch.examples import autotuning_acrobot, mpc_autotuning
 
-    main = {"mpc_autotuning": mpc_autotuning.main, "autotuning_acrobot": autotuning_acrobot.main}[name]
+    main = {
+        "mpc_autotuning": mpc_autotuning.main,
+        "autotuning_acrobot": lambda device: autotuning_acrobot.main(device, max_iterations=ACROBOT_TUNE_ITERATIONS),
+    }[name]
     out, sm = example_run(cr, name, lambda: main("cuda"), phase)
     sm.update(phase="15 (beside 11b)", history=out["history"], weights=out["weights"].tolist())
     if name == "autotuning_acrobot":
@@ -2788,10 +2814,10 @@ def sass_loops(tag, stem="riccati_fused", kernel="solve_batched_reg_kernel"):
 REGISTER_KERNELS = {
     "factor_lanes_reg_kernel": 6, "solve_t1_reg_kernel": 2, "factor_t1_reg_kernel": 2,
     "solve_batched_reg_kernel": 24, "factor_t1_panel_kernel": 4, "solve_t1_panel_kernel": 4,
-    # the wide sweeps: ceil(d / 32) rows a thread, 3..6 in float32, 3..4 in
-    # float64; the wide stream factor, its 8 x 8 panel in registers, with
-    # 16-byte loads and without; the wide fused solve on the same stage,
-    # batch-first and batch-last too
+    # the wide sweeps: ceil(d / 32) diagonal blocks a stage, 3..6 in
+    # float32, 3..4 in float64; the wide stream factor, its 8 x 8 panel
+    # in registers, with 16-byte loads and without; the wide fused solve
+    # on the same stage, batch-first and batch-last too
     "solve_fwd_stream_wide_kernel": 6, "solve_bwd_stream_wide_kernel": 6, "factor_stream_wide_kernel": 4,
     "solve_batched_fused_wide_kernel": 8,
 }
@@ -2942,8 +2968,10 @@ OTHER_SHAPES = (
     WIDE_T1_SHAPES + APP_T1_SHAPES + EXAMPLE_T1_SHAPES,
 )
 BOTH = ("float32", "float64")
+# the stream kernels at phase 12's shapes with K = 1, and the sweeps at
+# spike's K = 2d boundary columns at d = 82
 WIDE_KERNEL_SHAPES = (
-    tuple(((B, T, d, 1), only) for (B, T, d), only in WIDE_STREAM_SHAPES),
+    tuple(((B, T, d, 1), only) for (B, T, d), only in WIDE_STREAM_SHAPES) + (((4, 8, 82, 164), ("float32",)),),
     (((1, 2 * HORIZON_WIDE + HORIZON_WIDE - 1), BOTH),)
     + tuple(((B, 3 * H - 1), ("float32",)) for H, B in WIDE_SCHUR_BATCHES),
 )
@@ -3729,14 +3757,29 @@ def rank_report(tag, name, ranks, path_launches):
 
 def parallel_phase(tag, cr, Options, dev, phase, flagship_state):
     """Phase 16: more than one rank on the one card (parallel/mesh.launch,
-    every rank on cuda:0, gloo). Returns {path rank r: launches}."""
+    every rank on cuda:0, gloo): 16b's launch in a thread beside 16a's and
+    16c's (the ranks spend most of their wall starting up and on the
+    host), each launch's checks after it. Returns {path rank r:
+    launches}."""
+    import concurrent.futures
+
     import torch
     from calipso_tpu_torch.parallel import dryrun, mesh as pm
 
     device = str(torch.device(dev.type, dev.index or 0))  # cuda:0
     paths = {}
-    phase(f"16a: the flagship sharded over {SHARD_RANKS} ranks (mesh=), then 16c: the dry run (float32)")
+    phase(
+        f"16a: the flagship sharded over {SHARD_RANKS} ranks (mesh=), then 16c: the dry run (float32), beside 16b: "
+        f"pendulum horizon {HORIZON_DIFF} on spike over {SPIKE_RANKS} ranks (float64, B={B_SPIKE})"
+    )
     t0 = time.time()
+
+    def spike_launch():
+        ranks = pm.launch(spike_rank, SPIKE_RANKS, axis="horizon", device=device)
+        return ranks, time.time() - t0
+
+    beside = concurrent.futures.ThreadPoolExecutor(1)
+    spike = beside.submit(spike_launch)
     ranks = pm.launch(flagship_and_dryrun_rank, SHARD_RANKS, axis="batch", device=device)
     print(f"{tag} 16a+16c: {SHARD_RANKS} ranks spawned, solved and joined in {time.time() - t0:.1f} s")
     sharded = [r["16a"] for r in ranks]
@@ -3767,10 +3810,10 @@ def parallel_phase(tag, cr, Options, dev, phase, flagship_state):
         print(f"{tag} 16c rank {rank}: walls {r['walls']}")
     print(f"{tag} 16c: {dryrun.summary(SHARD_RANKS, outs[0])}")
 
-    phase(f"16b: pendulum horizon {HORIZON_DIFF} on spike over {SPIKE_RANKS} ranks (float64, B={B_SPIKE})")
-    t0 = time.time()
-    ranks = pm.launch(spike_rank, SPIKE_RANKS, axis="horizon", device=device)
-    print(f"{tag} 16b: {SPIKE_RANKS} ranks spawned, solved and joined in {time.time() - t0:.1f} s")
+    phase(f"16b: pendulum horizon {HORIZON_DIFF} on spike over {SPIKE_RANKS} ranks (float64, B={B_SPIKE}), its checks")
+    ranks, wall = spike.result()
+    beside.shutdown()
+    print(f"{tag} 16b: {SPIKE_RANKS} ranks spawned, solved and joined in {wall:.1f} s (beside 16a and 16c)")
     same_bits_on_every_rank("16b spike", [r["state"] for r in ranks])
     rank_report(tag, "pendulum n=131 spike", ranks, paths)
     st = ranks[0]["state"]
@@ -4264,6 +4307,11 @@ def full_run(tag, card, cr, rc, Options, dev, phase, t_start):
             ],
         })
     phase("done")
+    spans = sorted(((b - a, name) for (name, a), (_, b) in zip(phase.starts, phase.starts[1:])), reverse=True)
+    print(
+        f"{tag} longest phases: " + "; ".join(f"[{dt:.1f} s] {name}" for dt, name in spans[:3])
+        + f"; total {phase.starts[-1][1]:.1f} s, the build included"
+    )
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({
@@ -4344,8 +4392,11 @@ def main():
     t_start = time.time()
 
     def phase(name):
-        print(f"{tag} [{time.time() - t_start:.1f} s] phase {name}", flush=True)
+        at = time.time() - t_start
+        phase.starts.append((name, at))
+        print(f"{tag} [{at:.1f} s] phase {name}", flush=True)
 
+    phase.starts = []
     # 1. build
     phase("1: build")
     build_kernels(tag)

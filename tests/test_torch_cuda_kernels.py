@@ -504,9 +504,9 @@ WIDE_STREAM = [
     (s, torch.float32)
     for s in ((128, 8, 82, 1), (64, 8, 116, 2), (32, 8, 165, 1), (32, 8, 165, 22), (7, 3, 65, 2), (5, 4, 128, 22),
               (9, 1, 120, 3), (4, 5, 121, 33), (3, 3, 168, 2), (3, 3, 169, 1), (1, 8, 65, 1), (4, 8, 65, 1),
-              (1, 8, 165, 1), (4, 8, 165, 2))
+              (1, 8, 165, 1), (4, 8, 165, 2), (4, 5, 82, 164), (3, 4, 165, 16), (3, 4, 165, 17), (1, 5, 169, 1))
 ] + [(s, torch.float64) for s in ((4, 5, 65, 2), (5, 4, 84, 1), (5, 4, 85, 22), (3, 3, 116, 2), (3, 3, 119, 1),
-                                  (3, 3, 120, 1), (1, 8, 65, 1), (4, 8, 65, 1))]
+                                  (3, 3, 120, 1), (1, 8, 65, 1), (4, 8, 65, 1), (1, 5, 120, 1))]
 
 
 @pytest.mark.parametrize("shape,dtype", WIDE_STREAM)
@@ -514,13 +514,13 @@ def test_wide_stream_kernels_match_plain(cuda, shape, dtype):
     """The stream trio past d = 64, up to MAX_D (169 in float32, 120 in
     float64): the reference's widest stream shapes in float32, (128, 8,
     82), (64, 8, 116) and (32, 8, 165) (B a multiple of 128, 64 and 32);
-    the factor's staged plan at its edge (float32 d = 120, float64 84) and
-    the unstaged one past it (121, 85) up to the limits; the sweeps'
-    rows a thread from 3 (d = 65) to 6 (d = 165..169), staged and, where
-    two stages do not fit (K = 22 at d = 128; d past ~117), with M read
-    from device memory; K = 33 over two 16-column chunks. Lanes not
-    positive definite from the middle stage on, as
-    test_stream_kernels_match_plain."""
+    the factor's 16-byte plan to its edge (float32 d = 168, float64 119)
+    and the scalar one past it (169, 120); the sweeps' diagonal blocks a
+    stage from 3 (d = 65) to 6 (d = 161..169), the last one ragged or
+    whole (d = 128), their chunks of 2 NB columns a block whole or
+    ragged (K = 2, 16, 17, 22, 33 and spike's K = 2d = 164 at d = 82), B =
+    1 at each dtype's widest. Lanes not positive definite from the middle
+    stage on, as test_stream_kernels_match_plain."""
     B, T, d, K = shape
     _stream_matches_plain(cuda, B, T, d, K, dtype)
 

@@ -14,8 +14,9 @@ they compute in int within `shape_ok`'s T d (d + 1) <= 2^31 - 1; and the
 walk that deals a product's 32 x 16 blocks to the warps
 (`wide::update`), for the Schur update and each trailing update of the
 32-column blocks, writing each element of its region once and none
-outside it. The model's formulas are the kernels', written again in
-numpy; the card runs the kernels themselves
+outside it; and the wide stream sweeps' shared memory and their deal of
+32 x 32 tiles to the warps (`sweep_wide`, `csrc/riccati_stream.cu`). The
+model's formulas are the kernels', written again in numpy; the card runs the kernels themselves
 (`tests/test_torch_cuda_kernels.py`, `chip_smoke.py` phases 12c, 12e)."""
 
 import numpy as np
@@ -224,3 +225,82 @@ def test_the_int_range_is_the_wrappers_limit():
         assert T * d * (d + 1) > limit
         with pytest.raises(ValueError, match="int indices"):
             cuda_riccati._fused_fits(T, d)
+
+
+# The wide stream sweeps past d = 64 (`sweep_wide`, csrc/riccati_stream.cu):
+# 2 NB warps a block (NB = ceil(d / 32) diagonal blocks), shared memory
+# the two diagonal-block slots (32 rows of 33 words) and two right-hand
+# sides of 2 NB columns of 32 NB rows; in each block of a stage every warp
+# takes at most one tile.
+SWEEP_BLK, SWEEP_LDB = 32, 33
+DEFAULT_SMEM = 48 * 1024  # a launch's shared memory without the raised limit
+
+
+def sweep_layout(word, d):
+    """(NB, warps, rows a column, {region: (first word, words)}, bytes)."""
+    nb = -(-d // SWEEP_BLK)
+    nw, ldr = 2 * nb, SWEEP_BLK * nb
+    slot = SWEEP_BLK * SWEEP_LDB
+    regions = {"Lb0": (0, slot), "Lb1": (slot, slot), "rc": (2 * slot, nw * ldr), "rn": (2 * slot + nw * ldr, nw * ldr)}
+    return nb, nw, ldr, regions, word * (2 * slot + 2 * nw * ldr)
+
+
+def sweep_tiles(nb, qq, couple, fwd):
+    """The kernel's deal of one block's tiles: warp -> (kind, row group,
+    coupling), kinds "diag" (the next diagonal block), "row" and "col"."""
+    nw = 2 * nb
+    q = qq if fwd else nb - 1 - qq
+    has_next = qq + 1 < nb or couple
+    n_upd = nb - 1 - qq
+    out = {}
+    for warp in range(nw):
+        k = nw - 1 - warp - (1 if has_next else 0)
+        if k == -1:
+            out[warp] = ("diag", None, False)
+        elif 0 <= k < n_upd:
+            out[warp] = ("row" if fwd else "col", q + 1 + k if fwd else k, False)
+        elif k >= n_upd and couple and k - n_upd < nb:
+            out[warp] = ("col" if fwd else "row", k - n_upd, True)
+    return out
+
+
+@pytest.mark.parametrize("fwd", [True, False])
+@pytest.mark.parametrize("name", ["float32", "float64"])
+def test_wide_sweep_layout_and_tiles(name, fwd):
+    """For every d from 65 to MAX_D: shared memory under the default 48 KB
+    (no raised limit), the four regions disjoint, every address a column
+    warp or a tile forms (for K up to the chunk, 2 NB columns) inside its
+    region, a diagonal slot's row and column reads in 32 distinct banks;
+    in every block of a stage, with and without a next stage, each tile
+    dealt to exactly one warp: the next diagonal block where there is
+    one, the block's update of each row group still to solve (forward the
+    groups below, backward those above), the coupling of each row group
+    where there is a next stage, and nothing else."""
+    word = WORD[name]
+    for d in range(65, cuda_riccati.MAX_D[getattr(__import__("torch"), name)] + 1):
+        nb, nw, ldr, regions, nbytes = sweep_layout(word, d)
+        assert nbytes <= DEFAULT_SMEM
+        assert disjoint({k: (a, a + n - 1) for k, (a, n) in regions.items()})
+        lane = np.arange(32)
+        for jj in range(SWEEP_BLK):  # the diagonal solve's reads of a slot
+            for idx in (lane * SWEEP_LDB + jj, jj * SWEEP_LDB + lane):
+                assert idx.max() < SWEEP_BLK * SWEEP_LDB and len(set(idx % 32)) == 32
+        for KC in range(1, nw + 1):
+            for q in range(nb):  # the column warps' reads and writes
+                idx = np.add.outer(np.arange(KC) * ldr, SWEEP_BLK * q + lane)
+                assert idx.min() >= 0 and idx.max() < regions["rc"][1]
+            for g in range(nb):  # a tile's writes, rows below d
+                rows = SWEEP_BLK * g + lane
+                idx = np.add.outer(np.arange(KC) * ldr, rows[rows < d])
+                assert idx.max() < regions["rc"][1]
+        for couple in (False, True):
+            for qq in range(nb):
+                q = qq if fwd else nb - 1 - qq
+                tiles = list(sweep_tiles(nb, qq, couple, fwd).values())
+                assert len(tiles) <= nw
+                want = [("diag", None, False)] if qq + 1 < nb or couple else []
+                todo = range(q + 1, nb) if fwd else range(q)
+                want += [("row" if fwd else "col", g, False) for g in todo]
+                if couple:
+                    want += [("col" if fwd else "row", g, True) for g in range(nb)]
+                assert sorted(tiles, key=str) == sorted(want, key=str)

@@ -205,3 +205,109 @@ def test_factor_stream_stage_model_matches_plain(d, T, where):
     if T > 1:
         assert _rel(Mm[ok[:, :-1]], Mp[ok[:, :-1]]) <= RTOL
     assert (np.triu(Lm, 1) == 0).all()
+
+
+# The wide stream sweeps (`sweep_wide` in csrc/riccati_stream.cu, d past 64):
+# each stage a blocked substitution over 32-row diagonal blocks (forward
+# from the top, backward from the bottom, the last block ragged), each
+# block's pivots by the reciprocal from the block alone, then the block's
+# columns taken off the rows still to solve and its share of the coupling
+# taken off the next stage's right-hand side, so that the coupling comes
+# block by block as the solution does.
+SWEEP_WIDTHS = [65, 82, 96, 97, 120, 121, 165, 169]
+SWEEP_HORIZONS = [1, 2, 8]
+SWEEP_COLUMNS = [1, 2, 17]
+SWEEP_RTOL = 1e-12  # float64: the plain solve's arithmetic in another order
+
+
+def _sweep_inputs(d, T, K):
+    """Three lanes of a factor as factor_stream gives it: L_t lower
+    triangular with a diagonal near sqrt(d) (zeros above), M_t = 0.3 N(0,
+    1) / sqrt(d), b (B, T, d, K); lane 1 not positive definite from its
+    middle stage on (NaN over the lower triangle of L and over M from
+    there, the factor's contract)."""
+    rng = np.random.default_rng(100 * d + 10 * T + K)
+    L = np.tril(rng.normal(size=(3, T, d, d))) + np.sqrt(d) * np.eye(d)
+    M = 0.3 * rng.normal(size=(3, T - 1, d, d)) / np.sqrt(d)
+    bad = (T - 1) // 2
+    L[1, bad:] = np.where(np.tril(np.ones((d, d), bool)), np.nan, 0.0)
+    M[1, bad:] = np.nan
+    return L, M, rng.normal(size=(3, T, d, K))
+
+
+def _diag_solve(Lq, r, fwd):
+    """One diagonal block, a column of r (its rows) a warp: pivot j's value
+    r_j / l_jj by the reciprocal, then the other rows take column j
+    (forward, the rows below) or row j (backward, the rows above)."""
+    inv = 1.0 / np.diag(Lq)
+    n = Lq.shape[0]
+    for j in range(n) if fwd else reversed(range(n)):
+        v = r[j] * inv[j]
+        if fwd:
+            r[j + 1:] -= np.outer(Lq[j + 1:, j], v)
+        else:
+            r[:j] -= np.outer(Lq[j, :j], v)
+        r[j] = v
+
+
+def _sweep_model(L, M, rhs, fwd):
+    """The forward sweep u (fwd) from b, or the backward sweep x from u."""
+    B, T, d, _ = rhs.shape
+    out = np.zeros_like(rhs)
+    blocks = [(j0, min(j0 + BLOCK, d)) for j0 in range(0, d, BLOCK)]
+    for lane in range(B):
+        stages = range(T) if fwd else reversed(range(T))
+        r = rhs[lane, 0 if fwd else T - 1].copy()
+        for t in stages:
+            tn = t + 1 if fwd else t - 1
+            rn = rhs[lane, tn].copy() if 0 <= tn < T else None
+            Lt = L[lane, t]
+            for j0, j1 in blocks if fwd else reversed(blocks):
+                _diag_solve(Lt[j0:j1, j0:j1], r[j0:j1], fwd)
+                if fwd:
+                    r[j1:] -= Lt[j1:, j0:j1] @ r[j0:j1]  # row tiles: rows i >= j1
+                    if rn is not None:
+                        rn -= M[lane, t, j0:j1].T @ r[j0:j1]  # column tiles: rows of M_t
+                else:
+                    r[:j0] -= Lt[j0:j1, :j0].T @ r[j0:j1]  # column tiles: rows j of L_t
+                    if rn is not None:
+                        rn -= M[lane, t - 1, :, j0:j1] @ r[j0:j1]  # row tiles of M_{t-1}
+            out[lane, t] = r
+            r = rn
+    return out
+
+
+def _hold_sweep(got, want):
+    same_nan = np.isnan(got) == np.isnan(want)
+    assert same_nan.all()
+    assert np.isnan(want[1]).any() and np.isfinite(want[[0, 2]]).all()
+    ok = ~np.isnan(want)
+    assert _rel(got[ok], want[ok]) <= SWEEP_RTOL
+
+
+@pytest.mark.parametrize("K", SWEEP_COLUMNS)
+@pytest.mark.parametrize("T", SWEEP_HORIZONS)
+@pytest.mark.parametrize("d", SWEEP_WIDTHS)
+def test_wide_forward_sweep_model_matches_plain(d, T, K):
+    """The blocked forward sweep, the coupling b_{t+1} - M_t' u_t taken
+    block by block: u within SWEEP_RTOL of solve_fwd_stream_plain, NaN
+    where it has NaN (lane 1 from its middle stage on)."""
+    L, M, b = _sweep_inputs(d, T, K)
+    want = cuda_riccati.solve_fwd_stream_plain(torch.tensor(L), torch.tensor(M), torch.tensor(b)).numpy()
+    _hold_sweep(_sweep_model(L, M, b, fwd=True), want)
+
+
+@pytest.mark.parametrize("K", SWEEP_COLUMNS)
+@pytest.mark.parametrize("T", SWEEP_HORIZONS)
+@pytest.mark.parametrize("d", SWEEP_WIDTHS)
+def test_wide_backward_sweep_model_matches_plain(d, T, K):
+    """The blocked backward sweep from the plain u, the coupling u_{t-1} -
+    M_{t-1} x_t taken block by block: x within SWEEP_RTOL of
+    solve_bwd_stream_plain, NaN over all of lane 1 (the NaN stage's x
+    reaches every earlier stage through M)."""
+    L, M, b = _sweep_inputs(d, T, K)
+    Lt, Mt = torch.tensor(L), torch.tensor(M)
+    u = cuda_riccati.solve_fwd_stream_plain(Lt, Mt, torch.tensor(b))
+    want = cuda_riccati.solve_bwd_stream_plain(Lt, Mt, u).numpy()
+    assert np.isnan(want[1]).all()
+    _hold_sweep(_sweep_model(L, M, u.numpy(), fwd=False), want)
